@@ -105,17 +105,15 @@ def main() -> int:
         packed, _ = batching.pack_pairs(
             pairs, nb, slots_per_tile=slots, with_edges=True,
             edge_budget=edge_budget, device=dev)
-        t = packed.mask1.shape[0]
-        target, _ = ops._tile_pad_plan(t, ops.sparse_tile_block(nb), True)
         e1, e2 = packed.edges.edges1, packed.edges.edges2
         o1, o2 = packed.edges.overflow1, packed.edges.overflow2
-        sparse = [ops._pad_batch(x, target)[0].contiguous() for x in (
+        # The arrays the ops wrappers hand the kernels: unpadded [T, ...].
+        sparse = [x.contiguous() for x in (
             e1.senders, e1.weights, o1.senders, o1.receivers, o1.weights,
             packed.labels1, packed.mask1, packed.seg1,
             e2.senders, e2.weights, o2.senders, o2.receivers, o2.weights,
             packed.labels2, packed.mask2, packed.seg2, packed.pair_mask)]
-        target_d, _ = ops._tile_pad_plan(t, ops.packed_tile_block(nb), True)
-        dense = [ops._pad_batch(x, target_d)[0].contiguous() for x in (
+        dense = [x.contiguous() for x in (
             packed.adj1, packed.labels1, packed.mask1, packed.seg1,
             packed.adj2, packed.labels2, packed.mask2, packed.seg2,
             packed.pair_mask)]

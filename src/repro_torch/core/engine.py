@@ -28,8 +28,11 @@ reference on executor failure or non-finite scores, each non-terminal rung
 guarded by a per-(path, shape-class) circuit breaker (`core/health.py`).
 Every executor call goes through the `_FAULT_HOOK` seam below.
 
-On the card a ladder step means a kernel failed: `chip_smoke.py` treats
-any `degraded_from` entry as a failed run.
+On the card the ladder stops at its last kernel rung (`degrade_rungs`): an
+engine whose kernels all fail raises rather than serve plain PyTorch
+scores, unless the caller asked for path="reference". A kernel-to-kernel
+step is recorded in `degraded_from`, which `chip_smoke.py` treats as a
+failed run.
 """
 
 from __future__ import annotations
@@ -65,6 +68,19 @@ DEGRADE_LADDER = {
     "bucketed_mega": ("reference",),
     "reference": (),
 }
+
+
+def degrade_rungs(start: str, *, on_card: bool,
+                  degrade: bool = True) -> tuple[str, ...]:
+    """The rungs one work item may run on, `start` first. On the card every
+    rung but the reference launches a kernel, so the reference is left out:
+    a run whose kernels all fail raises instead of quietly serving plain
+    PyTorch on the card."""
+    steps = DEGRADE_LADDER.get(start, ()) if degrade else ()
+    if on_card:
+        steps = tuple(r for r in steps if r != "reference")
+    return (start,) + steps
+
 
 #: Fault-injection seam: tests arm it with hook(site, thunk); production
 #: leaves it None. Sites are the rung names.
@@ -268,11 +284,9 @@ class ScoringEngine:
             if flavor == "reference":
                 self.bucket_fns[key] = pair_score
             else:
-                block = ops.megakernel_block_pairs(bucket)
                 self.bucket_fns[key] = (
                     lambda params, *arrays: ops.pair_score_megakernel(
-                        params, *arrays, block_pairs=block,
-                        device=self.device))
+                        params, *arrays, device=self.device))
         return self.bucket_fns[key]
 
     def _score_bucketed(self, pairs, idx: np.ndarray, out: np.ndarray,
@@ -298,13 +312,13 @@ class ScoringEngine:
         if sparse:
             packed, pstats = self._pack_sparse(pairs, slots, stats.avg_degree)
             s = _call("packed_sparse", lambda: ops.pair_score_sparse(
-                self.params, packed, quantize_tiles=True, device=self.device))
+                self.params, packed, device=self.device))
         else:
             packed, pstats = pack_pairs(pairs, self.node_budget,
                                         slots_per_tile=slots,
                                         device=self.device)
             s = _call("packed_dense", lambda: ops.pair_score_packed(
-                self.params, packed, quantize_tiles=True, device=self.device))
+                self.params, packed, device=self.device))
         self.last_pack_stats = pstats
         out[idx] = unpack_pair_scores(s, packed, len(pairs))
 
@@ -355,12 +369,12 @@ class ScoringEngine:
     def _run_score_ladder(self, start: str, sub, idx: np.ndarray,
                           out: np.ndarray, plan: ScorePlan
                           ) -> tuple[int, list, str]:
-        """Execute one work item from `start`, stepping down
-        `DEGRADE_LADDER` when a rung raises or emits non-finite scores.
+        """Execute one work item from `start`, stepping down the ladder
+        (`degrade_rungs`) when a rung raises or emits non-finite scores.
         Returns (attempts, degraded rung names, the rung that served);
         re-raises only if every rung failed."""
-        rungs = (start,) + (DEGRADE_LADDER.get(start, ())
-                            if self.degrade else ())
+        rungs = degrade_rungs(start, on_card=self.device.type == "cuda",
+                              degrade=self.degrade)
         sc = self._shape_class(plan.stats)
         degraded: list[str] = []
         attempts = 0

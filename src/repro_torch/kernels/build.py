@@ -13,8 +13,11 @@ Flags: `sm_90a` (Hopper), C++17, -O3, and deliberately no
 the float32 parity bound.
 
 `SimgnnParams` mirrors the C struct of `csrc/simgnn_common.cuh`;
-`simgnn_params` fills it from a params tree (the caller keeps the returned
-tensors alive until the launch is enqueued).
+`simgnn_params` fills it from a params tree once and reuses it while the
+tree's tensors are the same objects, unmodified (the caller keeps the
+returned tensors alive until the launch is enqueued). A library's layout
+checks and a C function's ctypes signature are likewise set once per
+process (`library`, `bind`).
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ MAX_FCN = 8          # SIMGNN_MAX_FCN
 MAX_HEAD = 64        # SIMGNN_MAX_HEAD
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: params structs by (device, identity and version of every leaf); each
+#: entry holds the leaves themselves, so no key's ids can be reused.
+_PARAMS: dict[tuple, tuple] = {}
+_PARAMS_KEPT = 8
 #: seconds the last `build_all` spent compiling (0.0 when every library
 #: was already built).
 last_build_seconds = 0.0
@@ -129,6 +136,14 @@ def check_side_struct(lib: ctypes.CDLL, fn_name: str, struct) -> None:
         raise RuntimeError(f"{struct.__name__} layout differs from the C side")
 
 
+def bind(fn, argtypes: list, restype=ctypes.c_int):
+    """`fn` (a ctypes function of a loaded library) with its signature
+    set; the kernel modules bind each entry point once."""
+    fn.restype = restype
+    fn.argtypes = argtypes
+    return fn
+
+
 def check_launch(err: int, what: str) -> None:
     """Raise on the cudaError_t a C entry point returned."""
     if err != 0:
@@ -156,9 +171,18 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def simgnn_params(params, device) -> tuple[SimgnnParams, list]:
-    """(C struct, tensors to keep alive) for a SimGNN params tree. Raises
-    on configs beyond what the kernels take."""
+    """(C struct, tensors to keep alive) for a SimGNN params tree, built
+    on the first call and reused while the leaves are the same tensors,
+    unmodified. Raises on configs beyond what the kernels take."""
     gcn, fcn = params["gcn"], params["fcn"]
+    leaves = ([t for p in gcn for t in (p["w"], p["b"])]
+              + [t for p in fcn for t in (p["w"], p["b"])]
+              + [params["att"]["w"]]
+              + [params["ntn"][n] for n in ("w", "v", "b")])
+    key = (str(device),) + tuple((id(t), t._version) for t in leaves)
+    hit = _PARAMS.get(key)
+    if hit is not None:
+        return hit[0], hit[1]
     k = params["ntn"]["b"].shape[0]
     fcn_dims = [k] + [p["w"].shape[1] for p in fcn]
     if not 1 <= len(gcn) <= MAX_GCN or not 1 <= len(fcn) <= MAX_FCN:
@@ -187,4 +211,7 @@ def simgnn_params(params, device) -> tuple[SimgnnParams, list]:
     for i, d in enumerate(fcn_dims):
         s.fcn_dims[i] = d
     s.n_gcn, s.n_fcn, s.ntn_k, s.f_max = len(gcn), len(fcn), k, max(dims[1:])
+    if len(_PARAMS) >= _PARAMS_KEPT:
+        _PARAMS.pop(next(iter(_PARAMS)))
+    _PARAMS[key] = (s, keep, leaves)
     return s, keep

@@ -16,6 +16,7 @@ else in a global scratch buffer allocated here) and runs
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,6 +44,22 @@ class FusedSide(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in ("adj", "feats", "mask")]
 
 
+@functools.cache
+def _launcher():
+    """(scratch sizer, launch) C entry points, the side struct checked and
+    signatures set once."""
+    lib = build.library("fused_pair")
+    build.check_side_struct(lib, "fused_side_size", FusedSide)
+    need = build.bind(lib.fused_pair_scratch_floats,
+                      [ctypes.c_int, ctypes.POINTER(build.SimgnnParams)],
+                      restype=ctypes.c_longlong)
+    launch = build.bind(lib.fused_pair_score_launch, [
+        ctypes.POINTER(FusedSide), ctypes.POINTER(FusedSide),
+        ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.POINTER(build.SimgnnParams), ctypes.c_void_p])
+    return need, launch
+
+
 def fused_pair_score(adj1, feats1, mask1, adj2, feats2, mask2, gcn_params,
                      att_w, ntn_params, fcn_params):
     """Raw adjacency / one-hot feats / masks of B padded pairs -> [B]
@@ -57,8 +74,7 @@ def fused_pair_score(adj1, feats1, mask1, adj2, feats2, mask2, gcn_params,
     out = torch.empty((b,), dtype=torch.float32, device=adj1.device)
     if b == 0:
         return out
-    lib = build.library("fused_pair")
-    build.check_side_struct(lib, "fused_side_size", FusedSide)
+    need, fn = _launcher()
     sides = [FusedSide(
         build.checked(adj, f"adj{s + 1}", torch.float32, (b, n, n)),
         build.checked(ft, f"feats{s + 1}", torch.float32, (b, n, f0)),
@@ -70,18 +86,9 @@ def fused_pair_score(adj1, feats1, mask1, adj2, feats2, mask2, gcn_params,
     if gcn_params[0]["w"].shape[0] != f0:
         raise ValueError(f"feats width {f0} != first GCN layer's "
                          f"{gcn_params[0]['w'].shape[0]}")
-    need = lib.fused_pair_scratch_floats
-    need.restype = ctypes.c_longlong
-    need.argtypes = [ctypes.c_int, ctypes.POINTER(build.SimgnnParams)]
     per_pair = need(n, ctypes.byref(params))
     scratch = (torch.empty(b * per_pair, dtype=torch.float32,
                            device=adj1.device) if per_pair else None)
-    fn = lib.fused_pair_score_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(FusedSide), ctypes.POINTER(FusedSide),
-                   ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-                   ctypes.c_void_p, ctypes.POINTER(build.SimgnnParams),
-                   ctypes.c_void_p]
     err = fn(ctypes.byref(sides[0]), ctypes.byref(sides[1]), out.data_ptr(),
              b, n, f0, None if scratch is None else scratch.data_ptr(),
              ctypes.byref(params),

@@ -2,9 +2,9 @@
 pair-scoring part of `repro.kernels.ops`.
 
 They take a params tree and batches, move both to `device` (None = the
-card; raises without CUDA unless `device="cpu"`), pad to the same shapes
-the JAX wrappers pad to, and call the kernel wrappers, which launch CUDA on
-the card and run their plain versions on the CPU:
+card; raises without CUDA unless `device="cpu"`) and call the kernel
+wrappers, which launch CUDA on the card and run their plain versions on
+the CPU:
 
   * `pair_score_sparse` — packed-CSR tiles (`kernels/sparse_pair.py`), the
     engine's choice for sparse (AIDS-like) streams;
@@ -12,19 +12,17 @@ the card and run their plain versions on the CPU:
     (`kernels/packed_pair.py`);
   * `pair_score_megakernel` — bucket-padded pairs (`kernels/fused_pair.py`).
 
-The block policies (`megakernel_block_pairs`, `packed_tile_block`,
-`sparse_tile_block`) size the Pallas grid blocks to TPU VMEM. The CUDA
-kernels run one CTA per pair or tile, so here they only shape the padding,
-which keeps every [T, P] / [B] layout identical to the JAX wrappers'; pad
-tiles cost a CTA that exits at once. The sharded wrappers are not ported
-yet.
+The CUDA kernels run one CTA per pair or tile and take any batch size, so
+the JAX wrappers' block policies (`megakernel_block_pairs`,
+`packed_tile_block`, `sparse_tile_block`, `quantize_tiles`), which size
+Pallas grid blocks and XLA compile-cache shapes, have no counterpart here:
+batches go to the kernels unpadded and the [T, P] / [B] results equal the
+JAX wrappers'. The sharded wrappers are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-
-import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_pair import fused_pair_score
@@ -32,47 +30,28 @@ from repro_torch.kernels.packed_pair import packed_pair_score
 from repro_torch.kernels.sparse_pair import sparse_pair_score
 from repro_torch.params import params_to
 
-__all__ = ["pair_score_megakernel", "megakernel_block_pairs",
-           "pair_score_packed", "packed_node_budget", "packed_tile_block",
-           "pair_score_sparse", "packed_edge_budget", "sparse_tile_block"]
-
-
-def _pad_batch(x: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
-    b = x.shape[0]
-    pad = (-b) % multiple
-    if pad:
-        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-    return x, b
+__all__ = ["pair_score_megakernel", "pair_score_packed", "packed_node_budget",
+           "pair_score_sparse", "packed_edge_budget"]
 
 
 def _args(params, arrays, device):
-    """Params tree and arrays on the resolved device."""
+    """Params tree and contiguous arrays on the resolved device."""
     device = resolve_device(device)
-    return params_to(params, device), [a.to(device) for a in arrays]
+    return params_to(params, device), [a.to(device).contiguous()
+                                       for a in arrays]
 
 
-def megakernel_block_pairs(n_nodes: int) -> int:
-    """Pairs-per-block policy of the bucketed megakernel, by bucket size:
-    64 pairs at N=8 down to 8 pairs at N=64."""
-    return max(8, min(64, 512 // max(n_nodes, 1)))
+def _weights(params):
+    return params["gcn"], params["att"]["w"], params["ntn"], params["fcn"]
 
 
 def pair_score_megakernel(params, adj1, feats1, mask1, adj2, feats2, mask2,
-                          *, block_pairs: int | None = None,
-                          device=None) -> torch.Tensor:
+                          *, device=None):
     """Full SimGNN pipeline in one kernel launch per bucket (DESIGN.md §7):
-    raw adjacency in, [B] scores out. Pads B to a block multiple (pad pairs
-    have all-zero masks; their scores are sliced off)."""
-    if block_pairs is None:
-        block_pairs = megakernel_block_pairs(adj1.shape[-1])
-    b = adj1.shape[0]
-    block_pairs = min(block_pairs, max(8, -(-b // 8) * 8))
+    raw adjacency in, [B] scores out."""
     params, arrays = _args(params, (adj1, feats1, mask1, adj2, feats2, mask2),
                            device)
-    padded = [_pad_batch(x, block_pairs)[0] for x in arrays]
-    out = fused_pair_score(*padded, params["gcn"], params["att"]["w"],
-                           params["ntn"], params["fcn"])
-    return out[:b]
+    return fused_pair_score(*arrays, *_weights(params))
 
 
 def packed_node_budget(max_nodes: int) -> int:
@@ -80,51 +59,14 @@ def packed_node_budget(max_nodes: int) -> int:
     return max(64, -(-max_nodes // 8) * 8)
 
 
-def packed_tile_block(node_budget: int) -> int:
-    """Tiles-per-block policy of the packed megakernel (16 at NB=64)."""
-    return max(1, min(16, 1024 // max(node_budget, 1)))
-
-
-def _tile_pad_plan(t: int, tile_block: int,
-                   quantize_tiles: bool) -> tuple[int, int]:
-    """(target_tiles, tile_block) with target a tile_block multiple >= t;
-    `quantize_tiles` first rounds T up to the next power of two."""
-    target = t
-    if quantize_tiles:
-        target = 1
-        while target < t:
-            target *= 2
-    tile_block = min(tile_block, target)
-    # Halve tile_block until the rounding waste is <= t/8.
-    while (tile_block > 1
-           and (-(-target // tile_block) * tile_block - target) * 8 > target):
-        tile_block //= 2
-    return -(-target // tile_block) * tile_block, tile_block
-
-
-def pair_score_packed(params, packed, *, tile_block: int | None = None,
-                      quantize_tiles: bool = False,
-                      device=None) -> torch.Tensor:
+def pair_score_packed(params, packed, *, device=None):
     """Score a `core.batching.PackedPairBatch` through the packed-dense
     kernel: [T, P] pair-slot scores, zero at pad slots (DESIGN.md §8)."""
-    if tile_block is None:
-        tile_block = packed_tile_block(packed.node_budget)
-    t = packed.adj1.shape[0]
-    target, _ = _tile_pad_plan(t, tile_block, quantize_tiles)
     params, arrays = _args(
         params, (packed.adj1, packed.labels1, packed.mask1, packed.seg1,
                  packed.adj2, packed.labels2, packed.mask2, packed.seg2,
                  packed.pair_mask), device)
-    arrays = [_pad_batch(x, target)[0] for x in arrays]
-    out = packed_pair_score(*arrays, params["gcn"], params["att"]["w"],
-                            params["ntn"], params["fcn"])
-    return out[:t]
-
-
-def sparse_tile_block(node_budget: int) -> int:
-    """Tiles-per-block policy of the packed-sparse megakernel (32 at
-    NB=64)."""
-    return max(1, min(32, 2048 // max(node_budget, 1)))
+    return packed_pair_score(*arrays, *_weights(params))
 
 
 def packed_edge_budget(node_budget: int, avg_degree: float | None = None) -> int:
@@ -140,24 +82,17 @@ def packed_edge_budget(node_budget: int, avg_degree: float | None = None) -> int
     return node_budget * node_budget
 
 
-def pair_score_sparse(params, packed, *, tile_block: int | None = None,
-                      quantize_tiles: bool = False,
-                      device=None) -> torch.Tensor:
+def pair_score_sparse(params, packed, *, device=None):
     """Score a `core.batching.PackedPairBatch` through the packed-sparse
-    kernel (DESIGN.md §9): same [T, P] contract and padding as
-    `pair_score_packed`. Expects `packed.edges` (pack with
-    `with_edges=True`); when absent they are extracted here at the default
-    `packed_edge_budget`."""
+    kernel (DESIGN.md §9): the same [T, P] contract as `pair_score_packed`.
+    Expects `packed.edges` (pack with `with_edges=True`); when absent they
+    are extracted here at the default `packed_edge_budget`."""
     from repro_torch.core.batching import packed_pair_edges
 
     edges = packed.edges
     if edges is None:
         edges = packed_pair_edges(packed,
                                   packed_edge_budget(packed.node_budget))
-    if tile_block is None:
-        tile_block = sparse_tile_block(packed.node_budget)
-    t = packed.mask1.shape[0]
-    target, _ = _tile_pad_plan(t, tile_block, quantize_tiles)
     e1, e2 = edges.edges1, edges.edges2
     o1, o2 = edges.overflow1, edges.overflow2
     params, arrays = _args(
@@ -166,7 +101,4 @@ def pair_score_sparse(params, packed, *, tile_block: int | None = None,
                  e2.senders, e2.weights, o2.senders, o2.receivers, o2.weights,
                  packed.labels2, packed.mask2, packed.seg2, packed.pair_mask),
         device)
-    arrays = [_pad_batch(x, target)[0] for x in arrays]
-    out = sparse_pair_score(*arrays, params["gcn"], params["att"]["w"],
-                            params["ntn"], params["fcn"])
-    return out[:t]
+    return sparse_pair_score(*arrays, *_weights(params))

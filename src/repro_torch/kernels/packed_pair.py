@@ -14,6 +14,7 @@ tensors (one CTA per tile; see the source for what bounds it) and runs
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,6 +48,17 @@ class PackedSide(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in ("adj", "labels", "mask", "seg")]
 
 
+@functools.cache
+def _launcher():
+    """The C entry point, its side struct checked and signature set once."""
+    lib = build.library("packed_pair")
+    build.check_side_struct(lib, "packed_side_size", PackedSide)
+    return build.bind(lib.packed_pair_score_launch, [
+        ctypes.POINTER(PackedSide), ctypes.POINTER(PackedSide),
+        ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.POINTER(build.SimgnnParams), ctypes.c_void_p])
+
+
 def packed_pair_score(adj1, labels1, mask1, seg1, adj2, labels2, mask2, seg2,
                       pair_mask, gcn_params, att_w, ntn_params, fcn_params):
     """Packed tiles (pack_pairs layout) -> [T, P] pair-slot scores. CUDA
@@ -61,8 +73,7 @@ def packed_pair_score(adj1, labels1, mask1, seg1, adj2, labels2, mask2, seg2,
     out = torch.empty((t, p), dtype=torch.float32, device=mask1.device)
     if t == 0:
         return out
-    lib = build.library("packed_pair")
-    build.check_side_struct(lib, "packed_side_size", PackedSide)
+    fn = _launcher()
     sides = [PackedSide(
         build.checked(adj, f"adj{s + 1}", torch.float32, (t, nb, nb)),
         build.checked(lab, f"labels{s + 1}", torch.int32, (t, nb)),
@@ -73,11 +84,6 @@ def packed_pair_score(adj1, labels1, mask1, seg1, adj2, labels2, mask2, seg2,
     params, _keep = build.simgnn_params(
         {"gcn": gcn_params, "att": {"w": att_w}, "ntn": ntn_params,
          "fcn": fcn_params}, mask1.device)
-    fn = lib.packed_pair_score_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(PackedSide), ctypes.POINTER(PackedSide),
-                   ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-                   ctypes.POINTER(build.SimgnnParams), ctypes.c_void_p]
     err = fn(ctypes.byref(sides[0]), ctypes.byref(sides[1]), pm,
              out.data_ptr(), t, nb, p, ctypes.byref(params),
              torch.cuda.current_stream(mask1.device).cuda_stream)

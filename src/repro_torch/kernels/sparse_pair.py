@@ -18,6 +18,7 @@ are zeroed by `pair_mask`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -58,6 +59,17 @@ class SparseSide(ctypes.Structure):
                 ("nbr", "nw", "ovs", "ovr", "ovw", "labels", "mask", "seg")]
 
 
+@functools.cache
+def _launcher():
+    """The C entry point, its side struct checked and signature set once."""
+    lib = build.library("sparse_pair")
+    build.check_side_struct(lib, "sparse_side_size", SparseSide)
+    return build.bind(lib.sparse_pair_score_launch, [
+        ctypes.POINTER(SparseSide), ctypes.POINTER(SparseSide),
+        ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(build.SimgnnParams), ctypes.c_void_p])
+
+
 def sparse_pair_score(nbr1, nbr_w1, ov_snd1, ov_rcv1, ov_w1, labels1, mask1,
                       seg1, nbr2, nbr_w2, ov_snd2, ov_rcv2, ov_w2, labels2,
                       mask2, seg2, pair_mask, gcn_params, att_w, ntn_params,
@@ -80,8 +92,7 @@ def sparse_pair_score(nbr1, nbr_w1, ov_snd1, ov_rcv1, ov_w1, labels1, mask1,
     out = torch.empty((t, p), dtype=torch.float32, device=mask1.device)
     if t == 0:
         return out
-    lib = build.library("sparse_pair")
-    build.check_side_struct(lib, "sparse_side_size", SparseSide)
+    fn = _launcher()
     sides = []
     for s, (nbr, nw, ovs, ovr, ovw, lab, msk, seg) in enumerate(
             (args[:8], args[8:16])):
@@ -98,11 +109,6 @@ def sparse_pair_score(nbr1, nbr_w1, ov_snd1, ov_rcv1, ov_w1, labels1, mask1,
     params, _keep = build.simgnn_params(
         {"gcn": gcn_params, "att": {"w": att_w}, "ntn": ntn_params,
          "fcn": fcn_params}, mask1.device)
-    fn = lib.sparse_pair_score_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(SparseSide), ctypes.POINTER(SparseSide),
-                   ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
-                   ctypes.POINTER(build.SimgnnParams), ctypes.c_void_p]
     err = fn(ctypes.byref(sides[0]), ctypes.byref(sides[1]), pm,
              out.data_ptr(), t, nb, e // nb, e_ov, p, ctypes.byref(params),
              torch.cuda.current_stream(mask1.device).cuda_stream)

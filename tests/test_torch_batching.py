@@ -17,7 +17,6 @@ factors.
 
 import functools
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -212,21 +211,3 @@ def test_shape_policies_match_jax():
             for d in (1.5, 2.5, 3.5, 4.5)] == [4, 6, 6, 8]
     for m in (1, 8, 33, 64, 65, 200):
         assert jops.packed_node_budget(m) == tops.packed_node_budget(m)
-    for nb in (8, 64, 128, 4096):
-        assert jops.packed_tile_block(nb) == tops.packed_tile_block(nb)
-        assert jops.sparse_tile_block(nb) == tops.sparse_tile_block(nb)
-    for n in (8, 16, 64, 256):
-        assert jops.megakernel_block_pairs(n) == tops.megakernel_block_pairs(n)
-    for t in (1, 3, 7, 20, 33, 106):
-        for block in (1, 4, 16, 32):
-            for q in (False, True):
-                assert (jops._tile_pad_plan(t, block, q)
-                        == tops._tile_pad_plan(t, block, q))
-
-
-def test_pad_batch_matches_jax():
-    x = np.arange(30, dtype=np.float32).reshape(5, 6)
-    j, jn = jops._pad_batch(jax.numpy.asarray(x), 4)
-    t, tn = tops._pad_batch(torch.from_numpy(x), 4)
-    assert jn == tn == 5
-    _assert_same(j, t, "padded")

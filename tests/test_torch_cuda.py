@@ -21,7 +21,6 @@ from repro_torch.core import batching
 from repro_torch.core.engine import ScoringEngine
 from repro_torch.core.simgnn import SimGNNConfig, init_simgnn_params
 from repro_torch.data.graphs import edit_graph, query_pairs, random_graph
-from repro_torch.kernels import ops
 from repro_torch.kernels.fused_pair import (fused_pair_score,
                                             fused_pair_score_plain)
 from repro_torch.kernels.packed_pair import (packed_pair_score,
@@ -65,7 +64,9 @@ def _packed(dev, n_pairs=40, edge_budget=None, pad_to=1):
              packed.pair_mask)
 
     def pad(xs):
-        return [ops._pad_batch(x, pad_to)[0].contiguous() for x in xs]
+        extra = (-packed.mask1.shape[0]) % pad_to
+        return [torch.cat([x, x.new_zeros((extra,) + x.shape[1:])])
+                for x in xs]
     return pad(sparse), pad(dense), packed.mask1.shape[0]
 
 
@@ -142,6 +143,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     empty = [x[:0] for x in sparse]
     assert sparse_pair_score(*empty, *weights).shape == (0, 16)
     assert sparse_pair_score.launches == before
+
+
+def test_engine_on_the_card_raises_when_every_kernel_fails(cuda):
+    """On the card the ladder ends at its last kernel rung: with every
+    kernel rung failing the engine raises, and the plain reference is
+    never asked for scores."""
+    from repro_torch.core import engine as engine_mod
+
+    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    card = ScoringEngine(p, CONFIG, device=cuda)
+    sites = []
+
+    def hook(site, thunk):
+        sites.append(site)
+        raise RuntimeError(f"injected fault at {site}")
+
+    engine_mod._FAULT_HOOK = hook
+    try:
+        with pytest.raises(RuntimeError, match="bucketed_mega"):
+            card.score(query_pairs(5, 64))
+    finally:
+        engine_mod._FAULT_HOOK = None
+    assert sites == ["packed_sparse", "packed_dense", "bucketed_mega"]
+    assert card.health()["counters"] == {
+        "errors:packed_sparse": 1, "errors:packed_dense": 1,
+        "errors:bucketed_mega": 1}
 
 
 def test_engine_on_the_card_matches_the_cpu_engine(cuda):

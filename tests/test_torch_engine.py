@@ -193,6 +193,21 @@ def test_fault_hook_ladder_walk_matches_jax():
     assert engine.last_pack_stats == jax_engine.last_pack_stats
 
 
+@pytest.mark.parametrize("start", ("packed_sparse", "packed_dense",
+                                   "bucketed_mega", "reference"))
+def test_ladder_keeps_jax_rungs_on_cpu_and_stops_at_kernels_on_card(start):
+    """On the CPU the ladder is the JAX engine's; on the card it ends at the
+    last kernel rung, so no kernel failure is served by plain PyTorch."""
+    from repro.core.engine import DEGRADE_LADDER as JAX_LADDER
+
+    cpu = engine_mod.degrade_rungs(start, on_card=False)
+    assert cpu == (start,) + JAX_LADDER[start]
+    card = engine_mod.degrade_rungs(start, on_card=True)
+    assert card == tuple(r for r in cpu if r != "reference" or r == start)
+    assert engine_mod.degrade_rungs(start, on_card=True,
+                                    degrade=False) == (start,)
+
+
 def test_not_ported_paths_raise():
     for path in ("two_kernel", "embedding_cache"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -195,8 +195,9 @@ def test_fused_pair_oversize_bucket():
 
 
 def test_ops_wrappers_match_jax_wrappers():
-    """ops-level padding and slicing: same [T, P] blocks as the JAX
-    wrappers, with `quantize_tiles` as the engine calls them."""
+    """The ops wrappers give the same [T, P] blocks as the JAX wrappers
+    with `quantize_tiles` as the JAX engine calls them: the port passes the
+    tiles unpadded, the JAX wrappers pad them and slice the pad off."""
     pairs = list(_pairs(12))
     jp, _ = jb.pack_pairs(pairs, 64, slots_per_tile=16, with_edges=True,
                           edge_budget=256)
@@ -207,7 +208,7 @@ def test_ops_wrappers_match_jax_wrappers():
                            (jops.pair_score_packed, tops.pair_score_packed,
                             ATOL_F32["packed_dense"])):
         want = np.asarray(jfn(_jparams(), jp, quantize_tiles=True))
-        got = tfn(_tparams(), tp, quantize_tiles=True, device="cpu").numpy()
+        got = tfn(_tparams(), tp, device="cpu").numpy()
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, rtol=0, atol=atol)
     # Without edges the sparse wrapper extracts them itself.
@@ -246,6 +247,34 @@ def test_cpu_wrappers_launch_nothing_and_cuda_requests_raise():
                                    rhs.adj, rhs.feats, rhs.mask)
     with pytest.raises(RuntimeError, match="CUDA"):
         tb.pack_pairs(list(_pairs(7)), 64)
+
+
+def test_params_struct_is_built_once_per_tree():
+    """The kernels' by-value weights struct is reused while the tree's
+    tensors are unchanged, and rebuilt after an in-place update or for
+    another tree; bf16 leaves are upcast copies."""
+    from repro_torch.kernels import build
+
+    tp = _tparams()
+    s1, keep1 = build.simgnn_params(tp, "cpu")
+    s2, keep2 = build.simgnn_params(tp, "cpu")
+    assert s2 is s1 and keep2 is keep1
+    assert s1.gcn_w[0] == tp["gcn"][0]["w"].data_ptr()     # f32: no copy
+    assert list(s1.gcn_dims)[:4] == [29, 128, 64, 32]
+    assert (s1.n_gcn, s1.n_fcn, s1.ntn_k, s1.f_max) == (3, 3, 16, 128)
+    tp["gcn"][1]["b"].add_(1.0)
+    s3, _ = build.simgnn_params(tp, "cpu")
+    assert s3 is not s1 and s3.gcn_b[1] == tp["gcn"][1]["b"].data_ptr()
+    other = _tparams()
+    assert build.simgnn_params(other, "cpu")[0] is not s3
+    bf = _tparams(dtype="bfloat16")
+    sb, keep_b = build.simgnn_params(bf, "cpu")
+    assert all(t.dtype == torch.float32 for t in keep_b)
+    assert sb.gcn_w[0] != bf["gcn"][0]["w"].data_ptr()
+    deep = params_from_numpy(jax.tree.map(np.asarray, init_simgnn_params(
+        jax.random.PRNGKey(0), SimGNNConfig(gcn_dims=(8,) * 9))), "cpu")
+    with pytest.raises(ValueError, match="GCN"):
+        build.simgnn_params(deep, "cpu")
 
 
 # ---------------------------------------------------------- body twins
