@@ -1,5 +1,5 @@
 """ScoringEngine — the dispatch point for SimGNN pair scoring; port of the
-scoring half of `repro.core.engine` (DESIGN.md §9, §12).
+scoring half of `repro.core.engine` (DESIGN.md §9, §10, §12).
 
 Paths (same names, `ScorePlan` fields and `reason` strings as the JAX
 engine):
@@ -14,23 +14,39 @@ engine):
   packed_sparse  packed tiles aggregated from the A' edge planes
                  (`kernels/sparse_pair`); auto's choice on sparse
                  (AIDS-like) streams.
-  two_kernel, embedding_cache
-                 not ported yet (ROADMAP.md, slice 2): constructing an
-                 engine on either raises NotImplementedError.
+  two_kernel     the embedding kernel (`kernels/fused_gcn`) on both sides
+                 of each size bucket, then the head kernel
+                 (`kernels/simgnn_head`); buckets through itself.
+  embedding_cache
+                 per-graph embeddings served from an LRU keyed by a
+                 canonical graph hash (`core/cache.py`); only the misses
+                 are embedded and only the head runs per pair. Auto takes
+                 it when at least `CACHE_MIN_HIT_FRAC` of a call's unique
+                 graphs are resident.
 
 `plan()` quarantines invalid inputs (`core/validate.py`), measures the
 call and applies the threshold rules — the JAX engine's
 `planner="threshold"`, which its tests pin bit-identical to a cold measured
-planner; the measured planner, trace recording, the embedding cache,
-device sharding and `loss_and_grad` are not ported yet. `score()` walks
-the degradation ladder packed_sparse -> packed_dense -> bucketed_mega ->
-reference on executor failure or non-finite scores, each non-terminal rung
-guarded by a per-(path, shape-class) circuit breaker (`core/health.py`).
-Every executor call goes through the `_FAULT_HOOK` seam below.
+planner; the measured planner, trace recording, device sharding and
+`loss_and_grad` are not ported yet. `score()` walks the degradation ladder
+(`DEGRADE_LADDER`) on executor failure or non-finite scores, each
+non-terminal rung guarded by a per-(path, shape-class) circuit breaker
+(`core/health.py`). Every executor call goes through the `_FAULT_HOOK`
+seam below.
 
-On the card the ladder stops at its last kernel rung (`degrade_rungs`): an
-engine whose kernels all fail raises rather than serve plain PyTorch
-scores, unless the caller asked for path="reference". A kernel-to-kernel
+The device decides what runs, never a flag: on the card the embed stage
+(`embed_graphs`), the head (`pair_scores_from_embeddings`) and the
+prefilter (`prefilter_topm`) launch their CUDA kernels; on the CPU the same
+wrappers run their plain versions. The JAX engine's `embed_with_kernels`
+switch (jnp embedder or Pallas kernel) therefore has no counterpart.
+Forced-reference engines stay kernel-free on either device.
+
+On the card no plain version stands in for a failed kernel. The ladder
+stops at its last kernel rung (`degrade_rungs`): an engine whose kernels
+all fail raises rather than serve plain PyTorch scores, unless the caller
+asked for path="reference". A failing head raises; a failing embed bucket
+is dropped as NaN rows (counted in `errors:embed` and
+`embed_dropped_graphs`) without the CPU's plain retry. A kernel-to-kernel
 step is recorded in `degraded_from`, which `chip_smoke.py` treats as a
 failed run.
 """
@@ -38,12 +54,14 @@ failed run.
 from __future__ import annotations
 
 import time
-from collections import Counter
+from collections import Counter, OrderedDict
 from dataclasses import dataclass, field, replace
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.core.cache import EmbeddingCache, graph_fingerprint, graph_key
 from repro_torch.core.health import CircuitBreaker
 from repro_torch.core.validate import GraphValidationError, validate_pairs
 from repro_torch.device import resolve_device
@@ -52,13 +70,6 @@ from repro_torch.params import params_to
 PATHS = ("reference", "two_kernel", "bucketed_mega", "packed_dense",
          "packed_sparse", "embedding_cache")
 PACKED_PATHS = ("packed_dense", "packed_sparse")
-#: paths of the JAX engine this slice does not port, with the ROADMAP item.
-NOT_PORTED = {
-    "two_kernel": "ROADMAP.md Queue 2: fused_gcn_att + simgnn_head kernels "
-                  "(slice 2)",
-    "embedding_cache": "ROADMAP.md Queue 1 item 7: embedding cache and "
-                       "search (slice 2)",
-}
 
 #: Graceful-degradation ladder (DESIGN.md §12): every rung computes the
 #: same scores; the dense reference is terminal.
@@ -66,6 +77,8 @@ DEGRADE_LADDER = {
     "packed_sparse": ("packed_dense", "bucketed_mega", "reference"),
     "packed_dense": ("bucketed_mega", "reference"),
     "bucketed_mega": ("reference",),
+    "two_kernel": ("bucketed_mega", "reference"),
+    "embedding_cache": ("bucketed_mega", "reference"),
     "reference": (),
 }
 
@@ -119,8 +132,11 @@ class ScorePlan:
     `over_idx` run on `fallback` through power-of-two size buckets.
     After execution `last_plan` carries `degraded_from` (rungs that failed
     or were breaker-rejected, in order) and `attempts` (executor
-    invocations tried). The cache, prefilter, device and cost-model fields
-    keep their defaults until those layers are ported."""
+    invocations tried). On the embedding-cached path `graph_keys` holds the
+    canonical key of every graph the plan covers (all lhs, then all rhs),
+    `cached_idx` the positions already resident and `to_embed_idx` the
+    first occurrence of each uncached key. The device and cost-model
+    fields keep their defaults until those layers are ported."""
     path: str
     fallback: str
     fit_idx: np.ndarray
@@ -146,10 +162,14 @@ class ScoringEngine:
     SPARSE_MAX_DEGREE = 4.0
     #: below this many pairs packing cannot fill a tile.
     MIN_PACK_PAIRS = 4
+    #: auto takes the embedding-cached path when at least this fraction of
+    #: a call's unique graphs already have resident embeddings.
+    CACHE_MIN_HIT_FRAC = 0.5
 
     def __init__(self, params, cfg, *, path: str = "auto",
                  node_budget: int | None = None,
                  edge_budget: int | None = None,
+                 cache_size: int = 4096,
                  validation: str = "lenient",
                  degrade: bool = True,
                  breaker_threshold: int = 3,
@@ -159,9 +179,6 @@ class ScoringEngine:
         if path != "auto" and path not in PATHS:
             raise ValueError(f"unknown path {path!r}; expected 'auto' or one "
                              f"of {PATHS}")
-        if path in NOT_PORTED:
-            raise NotImplementedError(
-                f"path {path!r} is not ported yet: {NOT_PORTED[path]}")
         if validation not in ("strict", "lenient", "off"):
             raise ValueError(f"unknown validation mode {validation!r}; "
                              "expected 'strict', 'lenient' or 'off'")
@@ -174,8 +191,10 @@ class ScoringEngine:
         self.node_budget = (packed_node_budget(cfg.max_nodes)
                             if node_budget is None else node_budget)
         self.edge_budget = edge_budget
-        self._bucket_flavor = ("reference" if path == "reference"
+        self._bucket_flavor = (path if path in ("reference", "two_kernel")
                                else "bucketed_mega")
+        #: per-graph embedding LRU (DESIGN.md §10); capacity 0 disables it.
+        self.cache = EmbeddingCache(cache_size)
         #: per-bucket scoring callables, built lazily (`_bucket_fn`).
         self.bucket_fns: dict = {}
         self.last_pack_stats: dict | None = None
@@ -217,7 +236,8 @@ class ScoringEngine:
             avg_degree=nnz / max(nodes, 1), density=nnz / max(cells, 1.0),
             has_labels=has_labels)
 
-    def _select(self, stats: WorkloadStats) -> tuple[str, str]:
+    def _select(self, stats: WorkloadStats,
+                cache_hit_frac: float = 0.0) -> tuple[str, str]:
         """Dispatch decision (path, reason): the JAX engine's structural
         rules and threshold rules."""
         if self.path != "auto":
@@ -227,6 +247,11 @@ class ScoringEngine:
         if not stats.has_labels:
             return ("bucketed_mega",
                     "graphs without int labels cannot take a packed path")
+        if cache_hit_frac >= self.CACHE_MIN_HIT_FRAC:
+            return ("embedding_cache",
+                    f"{cache_hit_frac:.0%} of unique graphs have resident "
+                    f"embeddings (>= {self.CACHE_MIN_HIT_FRAC:.0%}): only "
+                    "the NTN+FCN head runs")
         if stats.n_pairs < self.MIN_PACK_PAIRS:
             return ("bucketed_mega",
                     f"batch of {stats.n_pairs} too small to fill packed tiles"
@@ -256,18 +281,55 @@ class ScoringEngine:
                  else [pairs[i] for i in valid_idx])
         stats = self.workload_stats(
             valid, measure_density=self.path in ("auto", "packed_sparse"))
-        path, reason = self._select(stats)
+        # Keys are hashed only when the cache could hold answers: the path
+        # is forced to the cached one, or auto sees a non-empty cache.
+        keys: tuple = ()
+        hit_frac = 0.0
+        if len(valid) and stats.has_labels and self.cache.capacity > 0 and (
+                self.path == "embedding_cache"
+                or (self.path == "auto" and len(self.cache))):
+            keys = self._graph_keys(valid)
+            unique = set(keys)
+            hit_frac = sum(1 for k in unique if k in self.cache) / len(unique)
+        path, reason = self._select(stats, hit_frac)
+        cached_idx = to_embed_idx = np.empty(0, np.int64)
+        if path == "embedding_cache" and keys:
+            hit = [k in self.cache for k in keys]
+            cached_idx = np.flatnonzero(hit)
+            first = {k: i for i, k in reversed(list(enumerate(keys)))}
+            to_embed_idx = np.asarray(
+                sorted(i for k, i in first.items() if not hit[i]), np.int64)
         if path in PACKED_PATHS:
             fits = np.asarray([max(g1["adj"].shape[0], g2["adj"].shape[0])
                                <= self.node_budget for g1, g2 in valid], bool)
             fit_idx = valid_idx[np.flatnonzero(fits)]
             over_idx = valid_idx[np.flatnonzero(~fits)]
+        elif path == "embedding_cache":
+            # The embed stage buckets with power-of-two oversize buckets,
+            # so nothing is oversized for this path.
+            fit_idx = valid_idx
+            over_idx = np.empty(0, np.int64)
         else:
             fit_idx = np.empty(0, np.int64)
             over_idx = valid_idx
         return ScorePlan(path=path, fallback=self._bucket_flavor,
                          fit_idx=fit_idx, over_idx=over_idx, stats=stats,
-                         reason=reason, quarantined=quarantined)
+                         reason=reason, cached_idx=cached_idx,
+                         to_embed_idx=to_embed_idx, graph_keys=keys,
+                         quarantined=quarantined)
+
+    def _graph_keys(self, pairs: Sequence[tuple]) -> tuple:
+        """Canonical keys of every graph in the call: all lhs, then all rhs
+        (the order `ScorePlan.cached_idx`/`to_embed_idx` index). Each
+        distinct graph object is hashed once per call."""
+        memo: dict[int, bytes] = {}
+
+        def key_of(g: dict) -> bytes:
+            k = memo.get(id(g))
+            if k is None:
+                k = memo[id(g)] = graph_key(g)
+            return k
+        return tuple(key_of(p[side]) for side in (0, 1) for p in pairs)
 
     # ------------------------------------------------------------ execution
 
@@ -283,6 +345,10 @@ class ScoringEngine:
 
             if flavor == "reference":
                 self.bucket_fns[key] = pair_score
+            elif flavor == "two_kernel":
+                self.bucket_fns[key] = (
+                    lambda params, *arrays: ops.simgnn_pair_score_kernel(
+                        params, *arrays, device=self.device))
             else:
                 self.bucket_fns[key] = (
                     lambda params, *arrays: ops.pair_score_megakernel(
@@ -363,6 +429,8 @@ class ScoringEngine:
         if rung in PACKED_PATHS:
             self._score_packed(sub, idx, out, rung == "packed_sparse",
                                plan.stats)
+        elif rung == "embedding_cache":
+            self._score_cached(sub, idx, out, plan)
         else:
             self._score_bucketed(sub, idx, out, flavor=rung)
 
@@ -408,15 +476,228 @@ class ScoringEngine:
             f"no executable rung for {start} (ladder exhausted)")
 
     def health(self) -> dict:
-        """Breaker snapshots keyed by path and shape class, and the
-        error / degradation / quarantine counters."""
+        """Breaker snapshots keyed by path and shape class, the error /
+        degradation / quarantine counters and the embedding-LRU counters."""
         return {
             "breakers": {
                 f"{path}[pairs<={b},nodes<={n}]": br.snapshot()
                 for (path, (b, n)), br in sorted(self.breakers.items())},
             "counters": dict(self.counters),
+            "cache": self.cache.stats(),
             "planner": {"mode": "threshold"},
         }
+
+    # ------------------------------------------------- embedding-cached path
+
+    def _on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+    def _tensor(self, x) -> torch.Tensor:
+        """x (numpy or tensor) as a contiguous float32 tensor on the
+        engine's device; numpy inputs are copied (they may be read-only
+        views, e.g. `np.broadcast_to`)."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x, np.float32))
+        return x.to(device=self.device, dtype=torch.float32).contiguous()
+
+    def _embed_fn(self) -> Callable:
+        """(params, adj, feats, mask) -> [B, F] embeddings of one padded
+        bucket: A' normalised on the device, then the embedding kernel (its
+        plain version on the CPU). Forced-reference engines embed with the
+        model's own `graph_embedding`."""
+        if self._bucket_flavor == "reference":
+            return self._embed_fallback
+        from repro_torch.core.gcn import normalized_adjacency
+        from repro_torch.kernels import ops
+
+        def fused(params, adj, feats, mask):
+            return ops.graph_embeddings_fused(
+                params, normalized_adjacency(adj, mask), feats, mask,
+                device=self.device)
+        return fused
+
+    @staticmethod
+    def _embed_fallback(params, adj, feats, mask):
+        """The plain model's embedder: the CPU's retry of a failed embed
+        bucket."""
+        from repro_torch.core.simgnn import graph_embedding
+
+        return graph_embedding(params_to(params, dtype=torch.float32), adj,
+                               feats, mask)
+
+    def embed_graphs(self, graphs: Sequence[dict], *,
+                     keys: Sequence[bytes] | None = None) -> np.ndarray:
+        """Per-graph `[F]` GCN+Att embeddings through the cache.
+
+        Hits are served from the LRU; unique misses are bucketed by size
+        (power-of-two oversize buckets), embedded in batched calls and
+        inserted. Returns `[len(graphs), F]` float32 in input order;
+        duplicates within one call are embedded once.
+
+        A failing (or NaN-emitting) bucket is retried on the plain model's
+        embedder on the CPU; on the card it is not. A bucket that cannot be
+        embedded is dropped: its rows are NaN, never cached, and counted in
+        `embed_dropped_graphs`; the other buckets and every hit still
+        serve."""
+        from repro_torch.core.batching import bucket_for, pad_graphs
+
+        f = self.cfg.gcn_dims[-1]
+        out = np.zeros((len(graphs), f), np.float32)
+        if not graphs:
+            return out
+        if keys is None:
+            keys = [graph_key(g) for g in graphs]
+        # One LRU access per unique key; lookups carry the structural
+        # fingerprint so a key collision evicts and misses.
+        seen: dict[bytes, np.ndarray | None] = {}
+        misses: OrderedDict[bytes, list[int]] = OrderedDict()
+        for i, k in enumerate(keys):
+            if k not in seen:
+                seen[k] = self.cache.get(k, graph_fingerprint(graphs[i]))
+            emb = seen[k]
+            if emb is not None:
+                out[i] = emb
+            else:
+                misses.setdefault(k, []).append(i)
+        if not misses:
+            return out
+        buckets: dict[int, list[tuple[bytes, dict]]] = {}
+        for k, idxs in misses.items():
+            g = graphs[idxs[0]]
+            b = bucket_for(g["adj"].shape[0], allow_oversize=True)
+            buckets.setdefault(b, []).append((k, g))
+        embed = self._embed_fn()
+        for b, items in sorted(buckets.items()):
+            batch = pad_graphs([g for _, g in items], self.cfg.n_node_labels,
+                               b, device=self.device)
+
+            def run(site, fn):
+                h = _call(site, lambda: fn(self.params, batch.adj,
+                                           batch.feats, batch.mask))
+                h = h.detach().float().cpu().numpy()
+                if not np.isfinite(h).all():
+                    raise NonFiniteOutput(
+                        f"{site} produced non-finite embeddings")
+                return h
+
+            hg = None
+            try:
+                hg = run("embed", embed)
+            except Exception:
+                self.counters["errors:embed"] += 1
+                if not self._on_card():
+                    try:
+                        hg = run("embed_fallback", self._embed_fallback)
+                        self.counters["embed_fallbacks"] += 1
+                    except Exception:
+                        self.counters["errors:embed_fallback"] += 1
+            if hg is None:
+                self.counters["embed_dropped_graphs"] += len(items)
+                for k, _ in items:
+                    out[misses[k]] = np.nan
+                continue
+            for (k, g), emb in zip(items, hg):
+                emb = emb.copy()
+                emb.setflags(write=False)
+                self.cache.put(k, emb, graph_fingerprint(g))
+                out[misses[k]] = emb
+        return out
+
+    def prefilter_topm(self, qv, corpus_emb, m: int, *,
+                       block_cols: int | None = None,
+                       ntn_operands: tuple | None = None
+                       ) -> tuple[np.ndarray, np.ndarray]:
+        """Blocked streaming top-M prefilter scan (DESIGN.md §14): shortlist
+        `m` corpus rows per query without materialising [Q, N]. With
+        `ntn_operands=(uq, dq)` (from `kernels.retrieval.
+        collapse_query_ntn`) the scan is the exact streamed NTN+FCN logit;
+        otherwise `qv` is dotted with the corpus. Inputs may be numpy
+        arrays or tensors; a corpus tensor already on the engine's device
+        is used in place. Routed through the fault seam (site
+        "prefilter"); raises on any failure, and promotes corrupt output
+        (NaN scores, out-of-range indices) to `NonFiniteOutput`. Returns
+        numpy (scores [Q, M] float32, indices [Q, M] int32)."""
+        from repro_torch.kernels import retrieval
+
+        self.counters["prefilter_calls"] += 1
+        try:
+            corpus = self._tensor(corpus_emb)
+            if ntn_operands is not None:
+                uq, dq = (self._tensor(x) for x in ntn_operands)
+                s, i = _call("prefilter", lambda: retrieval.blocked_topm_ntn(
+                    uq, dq, corpus, self.params["fcn"], m,
+                    block_cols=block_cols))
+            else:
+                q = self._tensor(qv)
+                s, i = _call("prefilter", lambda: retrieval.blocked_topm(
+                    q, corpus, m, block_cols=block_cols))
+            s = s.detach().float().cpu().numpy()
+            i = i.cpu().numpy()
+            n = corpus.shape[0]
+            if i.size and not ((i >= 0) & (i < n)).all():
+                raise NonFiniteOutput(
+                    "prefilter returned out-of-range candidate indices")
+            if s.size and np.isnan(s).any():
+                raise NonFiniteOutput("prefilter returned NaN scores")
+        except Exception:
+            self.counters["errors:prefilter"] += 1
+            raise
+        self.counters["prefilter_queries"] += len(qv)
+        return s, i
+
+    def _head_kernel(self, params, h1, h2):
+        from repro_torch.kernels import ops
+
+        return ops.pair_scores_fused(params, h1, h2, device=self.device)
+
+    @staticmethod
+    def _head_plain(params, h1, h2):
+        """The plain model's head: forced-reference engines score with it,
+        and the CPU retries a failed head on it."""
+        from repro_torch.core.simgnn import fcn_head, ntn_scores
+
+        params = params_to(params, dtype=torch.float32)
+        return fcn_head(params["fcn"], ntn_scores(params["ntn"], h1, h2))
+
+    def pair_scores_from_embeddings(self, hg1, hg2) -> np.ndarray:
+        """Batched NTN+FCN head on precomputed `[B, F]` embeddings (numpy
+        or tensors) — the per-query cost of a warm 1-vs-N search. Runs the
+        head kernel (its plain version on the CPU) except on forced-
+        reference engines. A failing or NaN-emitting head raises on the
+        card and retries once on the plain head on the CPU; pairs whose
+        embeddings are already NaN score NaN without tripping either."""
+        h1, h2 = self._tensor(hg1), self._tensor(hg2)
+        row_ok = (torch.isfinite(h1).all(-1)
+                  & torch.isfinite(h2).all(-1)).cpu().numpy()
+
+        def run(site, fn):
+            s = _call(site, lambda: fn(self.params, h1, h2))
+            s = s.detach().float().cpu().numpy()
+            if not np.isfinite(s[row_ok]).all():
+                raise NonFiniteOutput(
+                    f"{site} produced non-finite scores for finite "
+                    "embeddings")
+            return s
+
+        head = (self._head_plain if self._bucket_flavor == "reference"
+                else self._head_kernel)
+        try:
+            return run("head", head)
+        except Exception:
+            self.counters["errors:head"] += 1
+            if self._on_card():
+                raise
+            return run("head_fallback", self._head_plain)
+
+    def _score_cached(self, pairs, idx: np.ndarray, out: np.ndarray,
+                      plan: ScorePlan):
+        n = len(pairs)
+        keys = plan.graph_keys if len(plan.graph_keys) == 2 * n else None
+        hg1 = self.embed_graphs([p[0] for p in pairs],
+                                keys=keys[:n] if keys else None)
+        hg2 = self.embed_graphs([p[1] for p in pairs],
+                                keys=keys[n:] if keys else None)
+        out[idx] = self.pair_scores_from_embeddings(hg1, hg2)
 
     def score(self, pairs: Sequence[tuple]) -> np.ndarray:
         """Score a batch of graph-pair dicts in original order; quarantined

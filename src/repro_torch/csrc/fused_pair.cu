@@ -34,20 +34,11 @@ static size_t fused_small_floats(int n, const SimgnnParams& P) {
   return 4 * (size_t)F + 3 * (size_t)n + SIMGNN_WARPS * 2 * SIMGNN_MAX_HEAD;
 }
 
-static int smem_optin_limit() {
-  int dev = 0, limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return 0;
-  return limit;
-}
-
 // Floats of global scratch each pair needs: 0 when A', H and HW fit in the
 // block's shared memory.
 extern "C" long long fused_pair_scratch_floats(int n, const SimgnnParams* P) {
   const size_t all = (fused_big_floats(n, *P) + fused_small_floats(n, *P)) * 4;
-  return all <= (size_t)smem_optin_limit() ? 0 : (long long)fused_big_floats(n, *P);
+  return all <= (size_t)simgnn_smem_optin() ? 0 : (long long)fused_big_floats(n, *P);
 }
 
 __global__ void __launch_bounds__(SIMGNN_THREADS)

@@ -1,6 +1,7 @@
-// Device functions shared by the three SimGNN pair-scoring megakernels
-// (sparse_pair.cu, packed_pair.cu, fused_pair.cu): the CUDA counterpart of
-// the forward bodies in src/repro/kernels/common.py.
+// Device functions shared by the port's SimGNN kernels (sparse_pair.cu,
+// packed_pair.cu, fused_pair.cu, fused_gcn.cu, simgnn_head.cu,
+// retrieval.cu): the CUDA counterpart of the forward bodies in
+// src/repro/kernels/common.py.
 //
 // Every function here is block-level: all threads of the block call it, it
 // strides its work over threadIdx.x, and it ends with __syncthreads() so its
@@ -44,6 +45,12 @@ extern "C" int simgnn_params_size(void) { return (int)sizeof(SimgnnParams); }
 
 __device__ __forceinline__ float simgnn_sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// ReLU that keeps NaN, as jnp.maximum and torch.relu do (fmaxf would turn a
+// NaN embedding into a finite score).
+__device__ __forceinline__ float simgnn_relu(float x) {
+  return x < 0.0f ? 0.0f : x;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -97,7 +104,7 @@ __device__ void csr_aggregate(const float* hw, int nb, int f, int d,
     float ov = 0.0f;
     for (int e = 0; e < e_ov; ++e)
       if (ovr[e] == i) ov = fmaf(ovw[e], hw[ovs[e] * f + j], ov);
-    h[idx] = fmaxf(acc + ov, 0.0f) * mask[i];
+    h[idx] = simgnn_relu(acc + ov) * mask[i];
   }
   __syncthreads();
 }
@@ -110,7 +117,7 @@ __device__ void dense_aggregate(const float* a, const float* hw, int n, int f,
     const float* ar = a + (size_t)i * n;
     float acc = 0.0f;
     for (int k = 0; k < n; ++k) acc = fmaf(ar[k], hw[(size_t)k * f + j], acc);
-    h[idx] = fmaxf(acc, 0.0f) * mask[i];
+    h[idx] = simgnn_relu(acc) * mask[i];
   }
   __syncthreads();
 }
@@ -212,7 +219,7 @@ __device__ float ntn_fcn_warp(const float* h1, const float* h2,
       lin = fmaf(j < F ? h1[j] : h2[j - F], __ldg(vk + j), lin);
     bil = warp_sum(bil);
     lin = warp_sum(lin);
-    if (lane == 0) buf[k] = fmaxf(bil + lin + __ldg(P.ntn_b + k), 0.0f);
+    if (lane == 0) buf[k] = simgnn_relu(bil + lin + __ldg(P.ntn_b + k));
   }
   __syncwarp();
   float* cur = buf;
@@ -224,7 +231,7 @@ __device__ float ntn_fcn_warp(const float* h1, const float* h2,
       float acc = 0.0f;
       for (int i = 0; i < din; ++i) acc = fmaf(cur[i], __ldg(w + i * dout + o), acc);
       acc += __ldg(P.fcn_b[l] + o);
-      nxt[o] = (l + 1 < P.n_fcn) ? fmaxf(acc, 0.0f) : acc;
+      nxt[o] = (l + 1 < P.n_fcn) ? simgnn_relu(acc) : acc;
     }
     __syncwarp();
     float* tmp = cur; cur = nxt; nxt = tmp;
@@ -252,6 +259,17 @@ __device__ void gcn_stack(const SimgnnParams& P, int n, const int* labels,
                       fout, hwbuf);
     aggregate(hwbuf, fout, hbuf);
   }
+}
+
+// Dynamic shared memory a block may opt in to on the current device (0
+// when the device cannot be queried).
+static inline int simgnn_smem_optin() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return limit;
 }
 
 // Returns cudaErrorInvalidValue for a dynamic shared-memory request beyond

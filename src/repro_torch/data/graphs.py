@@ -127,6 +127,43 @@ def query_pairs(seed: int, n_pairs: int) -> list[tuple[dict, dict]]:
     return out
 
 
+def zipf_corpus(seed: int, n_corpus: int,
+                avg_degree: float | None = None) -> list[dict]:
+    """The fixed corpus behind `zipf_query_stream` — generated separately so
+    a search service can `index()` exactly the graphs the stream will hit
+    (same seed -> same corpus, independent of how many batches are drawn)."""
+    rng = np.random.default_rng(seed)
+    return [random_graph(rng, avg_degree=avg_degree) for _ in range(n_corpus)]
+
+
+def zipf_query_stream(seed: int, batch: int, n_corpus: int = 256,
+                      exponent: float = 1.1,
+                      avg_degree: float | None = None) -> Iterator[dict]:
+    """Infinite 1-vs-N search stream with Zipf-skewed corpus reuse: each
+    batch pairs one fresh query graph against `batch` corpus graphs drawn
+    by Zipf(`exponent`) over a seed-fixed popularity ranking.
+
+    Yields {"pairs": [(query, corpus[i]), ...], "corpus_idx": [batch] int64,
+    "query": dict, "unique_frac": fraction of distinct corpus graphs in the
+    batch}. Deterministic in `seed` (corpus via `zipf_corpus(seed, ...)`,
+    picks from the continuing generator state)."""
+    rng = np.random.default_rng(seed)
+    corpus = [random_graph(rng, avg_degree=avg_degree)
+              for _ in range(n_corpus)]
+    # Popularity rank decoupled from generation order (graph size must not
+    # correlate with popularity), but fixed by the same seed.
+    rank = rng.permutation(n_corpus)
+    probs = 1.0 / (rank + 1.0) ** exponent
+    probs /= probs.sum()
+    while True:
+        query = random_graph(rng, avg_degree=avg_degree)
+        idx = rng.choice(n_corpus, size=batch, p=probs)
+        yield {"pairs": [(query, corpus[i]) for i in idx],
+               "corpus_idx": idx.astype(np.int64),
+               "query": query,
+               "unique_frac": len(np.unique(idx)) / max(batch, 1)}
+
+
 def search_pairs(seed: int, n_pairs: int,
                  avg_degree: float | None = None) -> list[tuple[dict, dict]]:
     """Similarity-search pair stream: query and database graph sizes are

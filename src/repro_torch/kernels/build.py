@@ -34,7 +34,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sparse_pair", "packed_pair", "fused_pair")
+SOURCES = ("sparse_pair", "packed_pair", "fused_pair", "fused_gcn",
+           "simgnn_head", "retrieval")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,7 +47,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 #: params structs by (device, identity and version of every leaf); each
 #: entry holds the leaves themselves, so no key's ids can be reused.
 _PARAMS: dict[tuple, tuple] = {}
-_PARAMS_KEPT = 8
+_PARAMS_KEPT = 16
 #: seconds the last `build_all` spent compiling (0.0 when every library
 #: was already built).
 last_build_seconds = 0.0
@@ -173,22 +174,32 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 def simgnn_params(params, device) -> tuple[SimgnnParams, list]:
     """(C struct, tensors to keep alive) for a SimGNN params tree, built
     on the first call and reused while the leaves are the same tensors,
-    unmodified. Raises on configs beyond what the kernels take."""
-    gcn, fcn = params["gcn"], params["fcn"]
+    unmodified. Raises on configs beyond what the kernels take.
+
+    The tree may hold only the parts a kernel reads: `gcn` + `att` (the
+    embedding kernel), `ntn` + `fcn` (the head) or `fcn` alone (the NTN
+    top-M scan). Absent parts stay null with zero layers; without `gcn`,
+    `gcn_dims[0]` carries the embedding width F read off the NTN."""
+    gcn, fcn = params.get("gcn", []), params.get("fcn", [])
+    att, ntn = params.get("att"), params.get("ntn")
     leaves = ([t for p in gcn for t in (p["w"], p["b"])]
               + [t for p in fcn for t in (p["w"], p["b"])]
-              + [params["att"]["w"]]
-              + [params["ntn"][n] for n in ("w", "v", "b")])
-    key = (str(device),) + tuple((id(t), t._version) for t in leaves)
+              + ([att["w"]] if att is not None else [])
+              + ([ntn[n] for n in ("w", "v", "b")] if ntn is not None
+                 else []))
+    key = (str(device), tuple(sorted(params))) + tuple(
+        (id(t), t._version) for t in leaves)
     hit = _PARAMS.get(key)
     if hit is not None:
         return hit[0], hit[1]
-    k = params["ntn"]["b"].shape[0]
-    fcn_dims = [k] + [p["w"].shape[1] for p in fcn]
-    if not 1 <= len(gcn) <= MAX_GCN or not 1 <= len(fcn) <= MAX_FCN:
+    if "gcn" in params and not 1 <= len(gcn) <= MAX_GCN or \
+            "fcn" in params and not 1 <= len(fcn) <= MAX_FCN:
         raise ValueError(f"kernels take 1..{MAX_GCN} GCN and 1..{MAX_FCN} "
                          f"FCN layers, got {len(gcn)} and {len(fcn)}")
-    if max(fcn_dims) > MAX_HEAD or fcn_dims[-1] != 1:
+    k = (ntn["b"].shape[0] if ntn is not None
+         else fcn[0]["w"].shape[0] if fcn else 0)
+    fcn_dims = [k] + [p["w"].shape[1] for p in fcn]
+    if fcn and (max(fcn_dims) > MAX_HEAD or fcn_dims[-1] != 1):
         raise ValueError(f"kernels take NTN K and FCN widths <= {MAX_HEAD} "
                          f"ending in 1, got {fcn_dims}")
     keep = []
@@ -203,14 +214,18 @@ def simgnn_params(params, device) -> tuple[SimgnnParams, list]:
         s.gcn_w[i], s.gcn_b[i] = dev(p["w"]), dev(p["b"])
     for i, p in enumerate(fcn):
         s.fcn_w[i], s.fcn_b[i] = dev(p["w"]), dev(p["b"])
-    s.att_w = dev(params["att"]["w"])
-    s.ntn_w, s.ntn_v, s.ntn_b = (dev(params["ntn"][n]) for n in ("w", "v", "b"))
-    dims = [gcn[0]["w"].shape[0]] + [p["w"].shape[1] for p in gcn]
+    if att is not None:
+        s.att_w = dev(att["w"])
+    if ntn is not None:
+        s.ntn_w, s.ntn_v, s.ntn_b = (dev(ntn[n]) for n in ("w", "v", "b"))
+    dims = ([gcn[0]["w"].shape[0]] + [p["w"].shape[1] for p in gcn] if gcn
+            else [ntn["w"].shape[-1] if ntn is not None else 0])
     for i, d in enumerate(dims):
         s.gcn_dims[i] = d
     for i, d in enumerate(fcn_dims):
         s.fcn_dims[i] = d
-    s.n_gcn, s.n_fcn, s.ntn_k, s.f_max = len(gcn), len(fcn), k, max(dims[1:])
+    s.n_gcn, s.n_fcn, s.ntn_k = len(gcn), len(fcn), k
+    s.f_max = max(dims[1:], default=0)
     if len(_PARAMS) >= _PARAMS_KEPT:
         _PARAMS.pop(next(iter(_PARAMS)))
     _PARAMS[key] = (s, keep, leaves)

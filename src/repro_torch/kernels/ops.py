@@ -1,5 +1,5 @@
-"""Public wrappers around the port's pair-scoring kernels — port of the
-pair-scoring part of `repro.kernels.ops`.
+"""Public wrappers around the port's SimGNN kernels — port of the SimGNN
+part of `repro.kernels.ops`.
 
 They take a params tree and batches, move both to `device` (None = the
 card; raises without CUDA unless `device="cpu"`) and call the kernel
@@ -10,28 +10,48 @@ the CPU:
     engine's choice for sparse (AIDS-like) streams;
   * `pair_score_packed` — packed tiles with dense tile adjacency
     (`kernels/packed_pair.py`);
-  * `pair_score_megakernel` — bucket-padded pairs (`kernels/fused_pair.py`).
+  * `pair_score_megakernel` — bucket-padded pairs (`kernels/fused_pair.py`);
+  * `graph_embeddings_fused` — GCN stack + Att pooling per graph on the
+    pre-normalised A' (`kernels/fused_gcn.py`), the embedding cache's and
+    the search index's embed stage;
+  * `pair_scores_fused` — the NTN+FCN head on embedding pairs
+    (`kernels/simgnn_head.py`);
+  * `simgnn_pair_score_kernel` — the two-kernel path: both sides through
+    one embedding launch, then the head;
+  * `blocked_topm`, `blocked_topm_ntn`, `collapse_query_ntn`,
+    `retrieval_block_cols` — the retrieval prefilter scans
+    (`kernels/retrieval.py`), re-exported.
 
 The CUDA kernels run one CTA per pair or tile and take any batch size, so
 the JAX wrappers' block policies (`megakernel_block_pairs`,
-`packed_tile_block`, `sparse_tile_block`, `quantize_tiles`), which size
-Pallas grid blocks and XLA compile-cache shapes, have no counterpart here:
-batches go to the kernels unpadded and the [T, P] / [B] results equal the
-JAX wrappers'. The sharded wrappers are not ported yet.
+`packed_tile_block`, `sparse_tile_block`, `quantize_tiles`, `_pad_batch`
+with `block_graphs` / `block_pairs`), which size Pallas grid blocks and
+XLA compile-cache shapes, have no counterpart here: batches go to the
+kernels unpadded and the [T, P] / [B] results equal the JAX wrappers'. The sharded wrappers are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.device import resolve_device
+from repro_torch.kernels.fused_gcn import fused_gcn_att
 from repro_torch.kernels.fused_pair import fused_pair_score
 from repro_torch.kernels.packed_pair import packed_pair_score
+from repro_torch.kernels.retrieval import (blocked_topm, blocked_topm_ntn,
+                                           collapse_query_ntn,
+                                           retrieval_block_cols)
+from repro_torch.kernels.simgnn_head import simgnn_head
 from repro_torch.kernels.sparse_pair import sparse_pair_score
 from repro_torch.params import params_to
 
-__all__ = ["pair_score_megakernel", "pair_score_packed", "packed_node_budget",
-           "pair_score_sparse", "packed_edge_budget"]
+__all__ = ["graph_embeddings_fused", "pair_scores_fused",
+           "simgnn_pair_score_kernel", "pair_score_megakernel",
+           "pair_score_packed", "packed_node_budget", "pair_score_sparse",
+           "packed_edge_budget", "blocked_topm", "blocked_topm_ntn",
+           "collapse_query_ntn", "retrieval_block_cols"]
 
 
 def _args(params, arrays, device):
@@ -43,6 +63,38 @@ def _args(params, arrays, device):
 
 def _weights(params):
     return params["gcn"], params["att"]["w"], params["ntn"], params["fcn"]
+
+
+def graph_embeddings_fused(params, adj_norm, feats, mask, *, device=None):
+    """SimGNN stages 1-2 through the embedding kernel: pre-normalised A'
+    [B, N, N], one-hot feats, mask -> [B, F_last] embeddings."""
+    params, arrays = _args(params, (adj_norm, feats, mask), device)
+    return fused_gcn_att(*arrays, params["gcn"], params["att"]["w"])
+
+
+def pair_scores_fused(params, hg1, hg2, *, device=None):
+    """SimGNN stages 3-4 through the head kernel: [B, F] embedding pairs
+    -> [B] scores."""
+    params, (h1, h2) = _args(params, (hg1, hg2), device)
+    return simgnn_head(h1, h2, params["ntn"], params["fcn"])
+
+
+def simgnn_pair_score_kernel(params, adj1, feats1, mask1, adj2, feats2,
+                             mask2, *, device=None):
+    """Full SimGNN pipeline on the two-kernel path: both graphs share one
+    embedding launch (batch 2B), then the head; the embeddings round-trip
+    through device memory between the two. Expects raw adjacency; A' is
+    normalised here on the device (parity with `core.simgnn`)."""
+    from repro_torch.core.gcn import normalized_adjacency
+
+    params, arrays = _args(params, (adj1, feats1, mask1, adj2, feats2, mask2),
+                           device)
+    adj, feats, mask = (torch.cat([arrays[i], arrays[i + 3]])
+                        for i in range(3))
+    hg = fused_gcn_att(normalized_adjacency(adj, mask), feats, mask,
+                       params["gcn"], params["att"]["w"])
+    hg1, hg2 = hg.chunk(2)
+    return simgnn_head(hg1, hg2, params["ntn"], params["fcn"])
 
 
 def pair_score_megakernel(params, adj1, feats1, mask1, adj2, feats2, mask2,

@@ -188,7 +188,8 @@ class MicroBatcher:
 
 def simgnn_query_server(params, cfg, *, use_kernels: bool = False,
                         packing: bool = True, node_budget: int | None = None,
-                        path: str | None = None, validation: str = "lenient",
+                        path: str | None = None, cache_size: int = 4096,
+                        validation: str = "lenient",
                         clock: Callable[[], float] = time.perf_counter,
                         device=None):
     """Returns score_fn(list[(g1, g2)]) -> np.ndarray of similarity scores,
@@ -198,8 +199,12 @@ def simgnn_query_server(params, cfg, *, use_kernels: bool = False,
     `use_kernels=True, packing=False` -> "bucketed_mega";
     `use_kernels=True, packing=True` -> "auto" (packed-sparse or
     packed-dense by measured density, bucketed fallback for oversized
-    pairs). An explicit `path` overrides the flags. `validation` and
-    `clock` are forwarded to the engine.
+    pairs). An explicit `path` overrides the flags. `cache_size` bounds
+    the engine's per-graph embedding LRU (0 disables it); the LRU fills on
+    the embedding-cached path (forced, or warmed through
+    `score_fn.engine.embed_graphs`), after which auto dispatch serves
+    recurring graphs embedding-free. `validation` and `clock` are
+    forwarded to the engine.
 
     The returned score_fn exposes `bucket_fns` (the engine's per-bucket
     callable cache), `last_pack_stats`, `node_budget`, `last_plan` and
@@ -211,7 +216,8 @@ def simgnn_query_server(params, cfg, *, use_kernels: bool = False,
         path = (("auto" if packing else "bucketed_mega") if use_kernels
                 else "reference")
     engine = ScoringEngine(params, cfg, path=path, node_budget=node_budget,
-                           validation=validation, clock=clock, device=device)
+                           cache_size=cache_size, validation=validation,
+                           clock=clock, device=device)
 
     def score(pairs):
         out = engine.score(pairs)

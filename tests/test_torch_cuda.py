@@ -9,7 +9,9 @@ This file imports neither JAX nor the JAX package: the port's CPU tests
 hold the plain versions against the JAX kernels, and these tests hold the
 CUDA kernels against the plain versions. Bounds are the parity matrix's
 (tests/test_parity_matrix.py): 1e-6 for the packed kernels, 2e-5 for the
-bucketed one, on post-sigmoid scores.
+bucketed one, on post-sigmoid scores; embeddings and top-M scores rtol
+1e-5 / atol 1e-6 (float32 sums in another order), head scores 1e-6,
+top-M indices exact on inputs whose score gaps are wider than that.
 """
 
 import numpy as np
@@ -19,17 +21,25 @@ import torch
 from repro_torch.configs.simgnn_aids import CONFIG
 from repro_torch.core import batching
 from repro_torch.core.engine import ScoringEngine
+from repro_torch.core.gcn import normalized_adjacency
 from repro_torch.core.simgnn import SimGNNConfig, init_simgnn_params
-from repro_torch.data.graphs import edit_graph, query_pairs, random_graph
+from repro_torch.data.graphs import (edit_graph, query_pairs, random_graph,
+                                     zipf_corpus, zipf_query_stream)
+from repro_torch.kernels import retrieval
+from repro_torch.kernels.fused_gcn import fused_gcn_att, fused_gcn_att_plain
 from repro_torch.kernels.fused_pair import (fused_pair_score,
                                             fused_pair_score_plain)
 from repro_torch.kernels.packed_pair import (packed_pair_score,
                                              packed_pair_score_plain)
+from repro_torch.kernels.simgnn_head import simgnn_head, simgnn_head_plain
 from repro_torch.kernels.sparse_pair import (sparse_pair_score,
                                              sparse_pair_score_plain)
+from repro_torch.serve.search import SimilaritySearchServer
 
 ATOL_PACKED = 1e-6
 ATOL_BUCKETED = 2e-5
+ATOL_HEAD = 1e-6
+BODY_TOL = dict(rtol=1e-5, atol=1e-6)
 NARROW = SimGNNConfig(gcn_dims=(16, 8, 8, 4))
 
 
@@ -183,3 +193,231 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda):
     assert plan.degraded_from == () and plan.attempts == 1
     assert sparse_pair_score.launches == before + 1
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_PACKED)
+
+
+# ------------------------------------------------ slice 2: search kernels
+
+def _embed_inputs(dev, sizes, bucket, seed=6):
+    """A', one-hot feats and mask of graphs of `sizes` nodes padded to
+    `bucket`, on `dev`."""
+    rng = np.random.default_rng(seed)
+    batch = batching.pad_graphs([random_graph(rng, n) for n in sizes],
+                                CONFIG.n_node_labels, bucket, device=dev)
+    return normalized_adjacency(batch.adj, batch.mask), batch.feats, batch.mask
+
+
+@pytest.mark.parametrize("cfg", (CONFIG, NARROW), ids=("aids", "narrow"))
+def test_fused_gcn_kernel_matches_plain_every_bucket(cuda, cfg):
+    gcn, att, _, _ = _params(cfg)
+    for bucket, sizes in ((8, (5, 8, 3)), (16, (9, 16)), (32, (17, 30, 25)),
+                          (64, (33, 64, 40)), (128, (70, 128)),
+                          (256, (130,))):
+        arrays = _embed_inputs(cuda, sizes, bucket)
+        before = fused_gcn_att.launches
+        got = fused_gcn_att(*arrays, gcn, att)
+        want = fused_gcn_att_plain(*arrays, gcn, att)
+        torch.cuda.synchronize()
+        assert fused_gcn_att.launches == before + 1
+        assert got.shape == (len(sizes), cfg.gcn_dims[-1])
+        torch.testing.assert_close(got, want, **BODY_TOL)
+
+
+def test_fused_gcn_embedding_bit_identical_across_batch_and_bucket(cuda):
+    """The cache's contract: a graph's embedding is the same bits whatever
+    its batch companions and whatever bucket it is padded to."""
+    gcn, att, _, _ = _params()
+    rng = np.random.default_rng(8)
+    g = random_graph(rng, 20)
+    others = [random_graph(rng, int(n)) for n in rng.integers(5, 33, 11)]
+    rows = []
+    for bucket, batch, at in ((32, [g], 0),
+                              (32, others[:5] + [g] + others[5:], 5),
+                              (64, others[:3] + [g], 3),
+                              (256, [g] + others, 0)):
+        padded = batching.pad_graphs(batch, CONFIG.n_node_labels, bucket,
+                                     device=cuda)
+        a = normalized_adjacency(padded.adj, padded.mask)
+        out = fused_gcn_att(a, padded.feats, padded.mask, gcn, att)
+        rows.append(out[at].cpu())
+    for r in rows[1:]:
+        assert torch.equal(r, rows[0])
+
+
+@pytest.mark.parametrize("case", ("aids", "narrow", "bf16"))
+def test_simgnn_head_kernel_matches_plain(cuda, case):
+    cfg = NARROW if case == "narrow" else CONFIG
+    _, _, ntn, fcn = _params(cfg, "bfloat16" if case == "bf16" else
+                             "float32")
+    rng = np.random.default_rng(9)
+    f = cfg.gcn_dims[-1]
+    for b in (1, 7, 1001):
+        h1, h2 = (rng.standard_normal((b, f)).astype(np.float32)
+                  for _ in range(2))
+        h2[b // 2] = np.nan                 # a dropped embedding scores NaN
+        h1, h2 = torch.from_numpy(h1).to(cuda), torch.from_numpy(h2).to(cuda)
+        before = simgnn_head.launches
+        got = simgnn_head(h1, h2, ntn, fcn)
+        want = simgnn_head_plain(h1, h2, ntn, fcn)
+        torch.cuda.synchronize()
+        assert simgnn_head.launches == before + 1 and got.shape == (b,)
+        assert torch.isnan(got[b // 2])
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL_HEAD,
+                                   equal_nan=True)
+
+
+def _topm_case(dev, case):
+    """(qv, corpus, m, block_cols) of one top-M case, on `dev`."""
+    rng = np.random.default_rng(10)
+    q, n, m, block = {"small": (5, 137, 10, 32), "m1": (5, 137, 1, 32),
+                      "m_eq_n": (5, 137, 137, 32),
+                      "m_over_block": (5, 137, 100, 32),
+                      "nan_rows": (3, 40, 40, 16), "all_nan": (3, 8, 8, 8),
+                      "ties": (4, 300, 50, 64),
+                      "main": (64, 8192, 64, 256)}[case]
+    qv = rng.standard_normal((q, 32)).astype(np.float32)
+    corpus = rng.standard_normal((n, 32)).astype(np.float32)
+    if case == "nan_rows":
+        corpus[[4, 17, 31]] = np.nan
+    if case == "all_nan":
+        corpus[:] = np.nan
+    if case == "ties":
+        corpus[100:200] = corpus[:100]         # exact duplicate rows
+    return (torch.from_numpy(qv).to(dev), torch.from_numpy(corpus).to(dev),
+            m, block)
+
+
+TOPM_CASES = ("small", "m1", "m_eq_n", "m_over_block", "nan_rows",
+              "all_nan", "ties", "main")
+
+
+def _check_topm(got, want):
+    torch.cuda.synchronize()
+    (gs, gi), (ws, wi) = got, want
+    assert gs.shape == ws.shape and gi.dtype == torch.int32
+    assert torch.equal(gi.cpu(), wi.cpu())
+    torch.testing.assert_close(gs, ws, **BODY_TOL)
+    assert torch.isfinite(gs).all()
+
+
+@pytest.mark.parametrize("case", TOPM_CASES)
+def test_topm_dot_kernel_matches_plain(cuda, case):
+    qv, corpus, m, block = _topm_case(cuda, case)
+    before = retrieval.blocked_topm.launches
+    got = retrieval.blocked_topm(qv, corpus, m, block_cols=block)
+    assert retrieval.blocked_topm.launches == before + 1
+    _check_topm(got,
+                retrieval.blocked_topm_plain(qv, corpus, min(m, len(corpus))))
+
+
+@pytest.mark.parametrize("case", TOPM_CASES)
+def test_topm_ntn_kernel_matches_plain(cuda, case):
+    qv, corpus, m, block = _topm_case(cuda, case)
+    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    uq, dq = (torch.from_numpy(x).to(cuda) for x in
+              retrieval.collapse_query_ntn(p["ntn"], qv.cpu().numpy()))
+    fcn = [{k: t.to(cuda) for k, t in layer.items()} for layer in p["fcn"]]
+    before = retrieval.blocked_topm_ntn.launches
+    got = retrieval.blocked_topm_ntn(uq, dq, corpus, fcn, m,
+                                     block_cols=block)
+    assert retrieval.blocked_topm_ntn.launches == before + 1
+    _check_topm(got, retrieval.blocked_topm_ntn_plain(uq, dq, corpus, fcn,
+                                                      min(m, len(corpus))))
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    gcn, att, ntn, fcn = _params()
+    a, feats, mask = _embed_inputs(cuda, (5, 8), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_gcn_att(a.transpose(1, 2), feats, mask, gcn, att)
+    with pytest.raises(ValueError, match="float32"):
+        fused_gcn_att(a.double(), feats, mask, gcn, att)
+    h = torch.zeros((4, 32), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        simgnn_head(h.half(), h, ntn, fcn)
+    with pytest.raises(ValueError, match="mixed"):
+        simgnn_head(h, h.cpu(), ntn, fcn)
+    with pytest.raises(ValueError, match="contiguous"):
+        retrieval.blocked_topm(h, torch.zeros((32, 64), device=cuda).T, 2)
+    with pytest.raises(ValueError, match="RETRIEVAL_MAX_BLOCK_COLS"):
+        retrieval.blocked_topm(h, h, 2, block_cols=2048)
+    before = retrieval.blocked_topm.launches
+    s, i = retrieval.blocked_topm(h[:0], h, 2)
+    assert s.shape == i.shape == (0, 0)
+    assert retrieval.blocked_topm.launches == before
+
+
+def _fault(site, mode="raise"):
+    """A `_FAULT_HOOK` that fails (or NaNs) every call at `site`."""
+    def hook(s, thunk):
+        if s == site and mode == "raise":
+            raise RuntimeError(f"injected fault at {s}")
+        out = thunk()
+        return torch.full_like(out, float("nan")) if s == site else out
+    return hook
+
+
+@pytest.mark.parametrize("mode", ("raise", "nan"))
+def test_engine_on_the_card_raises_when_the_head_fails(cuda, mode):
+    """No plain head stands in for the head kernel on the card: the head
+    raises, and a cached-path call steps down to the bucketed kernel."""
+    from repro_torch.core import engine as engine_mod
+
+    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    card = ScoringEngine(p, CONFIG, path="embedding_cache", device=cuda)
+    h = torch.randn((6, CONFIG.gcn_dims[-1]), device=cuda)
+    pairs = query_pairs(5, 16)
+    engine_mod._FAULT_HOOK = _fault("head", mode)
+    try:
+        with pytest.raises(RuntimeError):
+            card.pair_scores_from_embeddings(h, h)
+        out = card.score(pairs)
+    finally:
+        engine_mod._FAULT_HOOK = None
+    plan = card.last_plan
+    assert plan.degraded_from == ("embedding_cache",)
+    assert np.isfinite(out).all()
+    assert card.counters["errors:head"] == 2
+    assert "errors:head_fallback" not in card.counters
+
+
+def test_engine_on_the_card_drops_a_failed_embed_bucket(cuda):
+    """A failing embed bucket is dropped as NaN rows and counted; no plain
+    embedder retries it on the card."""
+    from repro_torch.core import engine as engine_mod
+
+    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    card = ScoringEngine(p, CONFIG, path="embedding_cache", device=cuda)
+    graphs = zipf_corpus(3, 24)
+    engine_mod._FAULT_HOOK = _fault("embed")
+    try:
+        emb = card.embed_graphs(graphs)
+    finally:
+        engine_mod._FAULT_HOOK = None
+    assert np.isnan(emb).all()
+    c = card.counters
+    assert c["embed_dropped_graphs"] == len(graphs)
+    assert c["errors:embed"] >= 1 and c["embed_fallbacks"] == 0
+    assert len(card.cache) == 0
+
+
+def test_search_on_the_card_matches_the_cpu_server(cuda):
+    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    corpus = zipf_corpus(40, 300)
+    stream = zipf_query_stream(41, 2, n_corpus=16)
+    queries = [next(stream)["query"] for _ in range(4)]
+    card = SimilaritySearchServer(p, CONFIG, device=cuda)
+    host = SimilaritySearchServer(p, CONFIG, device="cpu")
+    np.testing.assert_allclose(card.index(corpus), host.index(corpus),
+                               **BODY_TOL)
+    for mode in ("exact", "two_stage"):
+        got = card.search(queries, k=10, mode=mode, prefilter_m=32)
+        want = host.search(queries, k=10, mode=mode, prefilter_m=32)
+        for (gi, gs), (wi, ws) in zip(got, want):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_allclose(gs, ws, rtol=0, atol=ATOL_HEAD)
+    ei, es = card.topk(queries[0], k=10)
+    ti, ts = card.topk(queries[0], k=10, mode="two_stage", prefilter_m=300)
+    np.testing.assert_array_equal(ei, ti)
+    assert es.tobytes() == ts.tobytes()
+    assert card.stats.prefilter_degraded == 0
+    assert not [k for k in card.engine.counters if k.startswith("errors:")]

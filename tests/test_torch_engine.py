@@ -92,7 +92,8 @@ def test_auto_matches_jax(batch):
 
 
 @pytest.mark.parametrize("path", ("reference", "bucketed_mega",
-                                  "packed_dense", "packed_sparse"))
+                                  "packed_dense", "packed_sparse",
+                                  "embedding_cache", "two_kernel"))
 def test_forced_paths_match_jax(path):
     jax_engine, engine = _engines(path)
     for batch in (7, 12):
@@ -194,7 +195,8 @@ def test_fault_hook_ladder_walk_matches_jax():
 
 
 @pytest.mark.parametrize("start", ("packed_sparse", "packed_dense",
-                                   "bucketed_mega", "reference"))
+                                   "bucketed_mega", "reference",
+                                   "two_kernel", "embedding_cache"))
 def test_ladder_keeps_jax_rungs_on_cpu_and_stops_at_kernels_on_card(start):
     """On the CPU the ladder is the JAX engine's; on the card it ends at the
     last kernel rung, so no kernel failure is served by plain PyTorch."""
@@ -209,9 +211,15 @@ def test_ladder_keeps_jax_rungs_on_cpu_and_stops_at_kernels_on_card(start):
 
 
 def test_not_ported_paths_raise():
-    for path in ("two_kernel", "embedding_cache"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ScoringEngine(_tparams(), CFG, path=path, device="cpu")
+    """Every path of the JAX engine is ported now: each constructs, and
+    only an unknown path raises."""
+    from repro.core.engine import PATHS as JAX_PATHS
+
+    assert engine_mod.PATHS == JAX_PATHS
+    assert not hasattr(engine_mod, "NOT_PORTED")
+    for path in JAX_PATHS:
+        assert ScoringEngine(_tparams(), CFG, path=path,
+                             device="cpu").path == path
     with pytest.raises(ValueError):
         ScoringEngine(_tparams(), CFG, path="bogus", device="cpu")
 
