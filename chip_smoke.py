@@ -12,8 +12,12 @@ plain path on the CPU. Then it serves similarity search: a
 `SimilaritySearchServer` indexes an 8192-graph corpus, answers exact and
 two-stage (prefilter + rerank) top-10 queries, saves and reloads its index,
 and is held against the same server on the CPU; and it forces the engine's
-`embedding_cache` and `two_kernel` paths on one batch each. Every failed
-check exits non-zero.
+`embedding_cache` and `two_kernel` paths on one batch each. Last it serves
+the MoE language model granite-moe-3b-a800m at full width and depth in
+bf16 (4 prompts of 512 tokens, 16 greedy tokens) through `greedy_generate`
+with the expert FFN in the `moe_experts` kernel, holds it against the same
+model with the plain expert function on the card, and a 2-layer float32
+model on the card against the CPU. Every failed check exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -22,7 +26,8 @@ card's name and power limit, and as the last line `{"ok": true, "device":
 (mean of warm launches; both passes for the top-M scans);
 the wrapper call and the plain version are timed with CUDA events (warm,
 median); bounds come from this run's inputs against the H100 SXM peaks of
-67 TFLOP/s float32 and 3.35 TB/s. Details go to
+67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16 expert FFN) and
+3.35 TB/s. Details go to
 `chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2 without one.
 """
 
@@ -40,6 +45,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32, outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 BATCH = 256
 N_PAIRS = 2048
@@ -58,6 +64,7 @@ REPLACES = {
     "simgnn_head": "src/repro/kernels/simgnn_head.py:37",
     "topm": "src/repro/kernels/retrieval.py:169",
     "topm_ntn": "src/repro/kernels/retrieval.py:197",
+    "moe_experts": "src/repro/kernels/moe_experts.py:41",
 }
 SOURCE = {"topm": "retrieval", "topm_ntn": "retrieval"}
 #: the similarity-search phase: corpus rows, two-stage queries (one
@@ -69,6 +76,21 @@ EXACT_QUERIES = 8
 PREFILTER_M = 64
 TOPK = 10
 BLOCK_COLS = 256
+#: the LM serving phase: the model, prompts of LM_PROMPT tokens for
+#: LM_BATCH sequences, LM_NEW greedy tokens, and the parity matrix's bf16
+#: band (tests/test_parity_matrix.py) for logits against the plain run.
+#: The band is widened to twice the run's own floor when that is wider:
+#: the floor is how far the plain run's logits lie from a run whose expert
+#: FFN is computed in float64, i.e. what float32 sums in one valid order
+#: do to bf16 logits through 32 layers (routing near-ties included); two
+#: runs each within the floor of the float64 run are within twice it of
+#: each other.
+LM_ARCH = "granite-moe-3b-a800m"
+LM_BATCH = 4
+LM_PROMPT = 512
+LM_NEW = 16
+LM_BF16_BOUND = 2e-2
+LM_F32_ATOL = 1e-4
 
 
 def main() -> int:
@@ -86,6 +108,7 @@ def main() -> int:
     from repro_torch.kernels.fused_gcn import fused_gcn_att
     from repro_torch.kernels.fused_pair import (fused_pair_score,
                                                 fused_pair_score_plain)
+    from repro_torch.kernels.moe_experts import moe_expert_ffn
     from repro_torch.kernels.packed_pair import (packed_pair_score,
                                                  packed_pair_score_plain)
     from repro_torch.kernels.simgnn_head import simgnn_head
@@ -225,7 +248,8 @@ def main() -> int:
                 "fused_pair": fused_pair_score,
                 "fused_gcn": fused_gcn_att, "simgnn_head": simgnn_head,
                 "topm": retrieval.blocked_topm,
-                "topm_ntn": retrieval.blocked_topm_ntn}
+                "topm_ntn": retrieval.blocked_topm_ntn,
+                "moe_experts": moe_expert_ffn}
 
     def reset_counts():
         for kern in launched.values():
@@ -327,6 +351,10 @@ def main() -> int:
               f"{err:.3e} (bound {bound:g})")
         assert err <= bound, (path, err)
 
+    # ---- phases 8-11: MoE LM serving on the card ------------------------
+    kernels["moe_experts"], report["lm"], served["moe_experts"] = lm_phases(
+        dev, reset_counts, read_counts)
+
     for name, k in kernels.items():
         k["launches"] = served[name]
         assert k["launches"] > 0, name
@@ -353,10 +381,11 @@ def main() -> int:
 
 
 def record(name, worst, ms, ms_source, call_ms, plain_ms, label, flops,
-           nbytes, err_bound=None, library_ms=None, **extra) -> dict:
+           nbytes, err_bound=None, library_ms=None,
+           peak_flops=PEAK_F32_FLOPS, **extra) -> dict:
     """One kernel's entry of the `kernels` line (launches filled in after
     the served paths ran), printed as it is recorded."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     k = {"name": name, "route": "cuda",
          "source": f"src/repro_torch/csrc/{SOURCE.get(name, name)}.cu",
          "replaces": REPLACES[name], "launches": 0, "max_abs_err": worst,
@@ -737,6 +766,359 @@ def search_phase(params, corpus, queries, reset_counts, read_counts):
           f"top-{TOPK} equal to the CPU server's but {swaps} near-tie "
           f"swaps, prefilter_degraded 0, no errors")
     return rep, counts
+
+
+def _bf16_excess(got, want) -> float:
+    """max(|got - want| - bound) where the bound is one bf16 ulp of the
+    value plus the float32 bound (rtol 1e-5, atol 1e-6) for sums taken in
+    another order before the one rounding; <= 0 passes."""
+    want = want.float()
+    _, ex = torch.frexp(want.abs())
+    ulp = torch.ldexp(torch.ones_like(want), ex - 8)
+    bound = ulp + BODY_TOL["atol"] + BODY_TOL["rtol"] * want.abs()
+    return float(((got.float() - want).abs() - bound).max())
+
+
+def _moe_work(b, e, c, d, f, elt) -> tuple[float, int]:
+    """Flops and bytes of one expert-FFN launch: 6 B E C D F flops (x W_in
+    is 4 B E C D F, h W_out 2 B E C F D), x read and y written once, both
+    weights read once."""
+    return 6.0 * b * e * c * d * f, (2 * b * e * c * d + 3 * e * d * f) * elt
+
+
+def _profile_busy(fn):
+    """Where one call of `fn` spends its time, from `torch.profiler`: wall
+    s, device busy s (the sum of every device activity's own time; one
+    stream, so activities do not overlap), the moe kernel's s, the number
+    of kernel launches the host made, and the five device activities that
+    took longest (name, s, count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = moe = 0.0
+    launches, device = 0, []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        busy += us
+        if "moe_expert_ffn_kernel" in ev.key:
+            moe += us
+        if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                      "cudaLaunchKernelExC", "cuLaunchKernelEx"):
+            launches += ev.count
+        if us > 0:
+            device.append((ev.key[:80], us / 1e6, ev.count))
+    device.sort(key=lambda t: -t[1])
+    return wall, busy / 1e6, moe / 1e6, launches, device[:5]
+
+
+def _expert_ffn_f64(x, w_in, w_out):
+    """The expert FFN computed in float64, rounded once to x's dtype: the
+    floor the served logits are compared against."""
+    h = torch.einsum("...ecd,edf->...ecf", x.double(), w_in.double())
+    gate, up = h.chunk(2, dim=-1)
+    y = torch.einsum("...ecf,efd->...ecd", gate * torch.sigmoid(gate) * up,
+                     w_out.double())
+    return y.to(x.dtype)
+
+
+def lm_phases(dev, reset_counts, read_counts):
+    """Phases 8-11: granite-moe-3b-a800m served on the card.
+
+    8 (a): the `moe_experts` kernel against its plain version at the
+       served shapes (E 40, D 1536, F 512; B 4 with C 129 for a 512-token
+       prefill and C 8 for a decode step), bf16 and float32, and an odd
+       shape (B 3, E 7, C 13, D 200, F 36);
+    9 (b): the main path: `greedy_generate` at full width and depth in
+       bf16 (random weights from `torch.Generator` seed 0, drawn on the
+       card), 4 prompts of 512 tokens from `batch_for_step(seed=17)`, 16
+       new tokens, launch counts zeroed just before and read just after;
+       then the steps timed alone, a profiled run for the idle share, and
+       the same model with the plain expert function forced on the card
+       (and, for the floor of that comparison, in float64);
+    10 (c): a 2-layer float32 model at full width on the card (kernel)
+       against the CPU (plain): last logits within LM_F32_ATOL;
+    11 (d): the kernel's work, bound and the share of dispatch rows that
+       hold a token.
+    Returns (the kernel's entry, the phase report, main-path launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels.moe_experts import (moe_expert_ffn,
+                                                 moe_expert_ffn_plain,
+                                                 moe_expert_ffn_rows)
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to, tree_leaves
+    from repro_torch.serve.step import (build_decode_step,
+                                        build_prefill_step, greedy_generate)
+
+    cfg = get_config(LM_ARCH).with_(moe_use_kernel=True)
+    e, d, f, k = cfg.n_experts, cfg.d_model, cfg.d_ff_expert, cfg.top_k
+    c_pre = moe_mod.moe_capacity(LM_PROMPT, e, k, cfg.capacity_factor)
+    c_dec = moe_mod.moe_capacity(1, e, k, cfg.capacity_factor)
+    rep: dict = {"arch": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT,
+                 "new_tokens": LM_NEW, "capacity": [c_pre, c_dec]}
+
+    # ---- (a) the kernel against its plain version ----------------------
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def inputs(b, e_, c, d_, f_, dtype):
+        x = torch.randn((b, e_, c, d_), device=dev, generator=g)
+        w_in = torch.randn((e_, d_, 2 * f_), device=dev, generator=g) * 0.02
+        w_out = torch.randn((e_, f_, d_), device=dev, generator=g) * (
+            0.02 / cfg.n_layers ** 0.5)
+        return [t.to(dtype) for t in (x, w_in, w_out)]
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("prefill bf16", (LM_BATCH, e, c_pre, d, f, bf16)),
+             ("decode bf16", (LM_BATCH, e, c_dec, d, f, bf16)),
+             ("prefill f32", (LM_BATCH, e, c_pre, d, f, f32)),
+             ("decode f32", (LM_BATCH, e, c_dec, d, f, f32)),
+             ("odd B 3 E 7 C 13 D 200 F 36, f32", (3, 7, 13, 200, 36, f32)),
+             ("odd B 3 E 7 C 13 D 200 F 36, bf16", (3, 7, 13, 200, 36, bf16))]
+    worst_bf16 = worst_f32 = 0.0
+    worst_excess = float("-inf")
+    held = {}
+    for label, shape in cases:
+        args = inputs(*shape)
+        got = moe_expert_ffn(*args)
+        want = moe_expert_ffn_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype, label
+        assert torch.isfinite(got.float()).all(), label
+        err = float((got.float() - want.float()).abs().max())
+        rows = moe_expert_ffn_rows(*args)
+        if shape[-1] == bf16:
+            excess = _bf16_excess(got, want)
+            print(f"  moe_experts [{label}]: rows/CTA {rows}, max abs err "
+                  f"{err:.3e}, excess over one bf16 ulp + f32 bound "
+                  f"{excess:.3e}")
+            assert excess <= 0, (label, excess)
+            worst_bf16, worst_excess = max(worst_bf16, err), max(
+                worst_excess, excess)
+        else:
+            print(f"  moe_experts [{label}]: rows/CTA {rows}, max abs err "
+                  f"{err:.3e} (rtol 1e-05, atol 1e-06)")
+            torch.testing.assert_close(got, want, **BODY_TOL)
+            worst_f32 = max(worst_f32, err)
+        if label.endswith("bf16") and not label.startswith("odd"):
+            held[label.split()[0]] = args
+    rep["kernel_vs_plain"] = {"max_abs_err_bf16": worst_bf16,
+                              "max_abs_err_f32": worst_f32,
+                              "bf16_excess_over_bound": worst_excess}
+
+    # ---- (d) work and bound at the served shapes -----------------------
+    timed = {}
+    for phase, c in (("prefill", c_pre), ("decode", c_dec)):
+        args = held[phase]
+        flops, nbytes = _moe_work(LM_BATCH, e, c, d, f, 2)
+        ms, src, call_ms, plain_ms = timings(
+            lambda: moe_expert_ffn(*args),
+            lambda: moe_expert_ffn_plain(*args), "moe_expert_ffn_kernel")
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES \
+            * 1e3
+        timed[phase] = {"ms": ms, "ms_source": src, "call_ms": call_ms,
+                        "plain_ms": plain_ms, "flops": flops,
+                        "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+                        "bound_by": "operations" if t_ops >= t_bytes
+                        else "bytes", "rows_per_cta":
+                        moe_expert_ffn_rows(*args)}
+        print(f"  moe_experts {phase} (B {LM_BATCH}, C {c}): kernel "
+              f"{ms:.4f} ms, wrapper {call_ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms; bound {timed[phase]['bound_ms'] * 1e3:.3f} us "
+              f"({timed[phase]['bound_by']}: {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.3f} MB)")
+    del held
+    rep["kernel_times"] = timed
+    pre = timed["prefill"]
+    entry = record(
+        "moe_experts", max(worst_bf16, worst_f32), pre["ms"],
+        pre["ms_source"], pre["call_ms"], pre["plain_ms"],
+        f"prefill bf16 (B, E, C, D, F) = ({LM_BATCH}, {e}, {c_pre}, {d}, "
+        f"{f})", pre["flops"], pre["bytes"],
+        err_bound="bf16: one bf16 ulp + (rtol 1e-05, atol 1e-06); f32: "
+        "rtol 1e-05, atol 1e-06", peak_flops=PEAK_BF16_FLOPS,
+        decode=timed["decode"])
+
+    # ---- (b) the main path: greedy_generate at full width and depth ----
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rep["init_s"], rep["n_params"] = time.perf_counter() - t0, n_params
+    prompt = torch.from_numpy(batch_for_step(
+        cfg, 0, global_batch=LM_BATCH, seq_len=LM_PROMPT,
+        seed=17)["tokens"]).to(dev)
+    greedy_generate(params, cfg, prompt[:, :16], max_new=2,
+                    device=dev)                                   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = greedy_generate(params, cfg, prompt, max_new=LM_NEW, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"lm serve launches: {counts}")
+    launches = counts["moe_experts"]
+    assert launches == cfg.n_layers * LM_NEW, counts
+    assert sum(counts.values()) == launches, counts
+    assert toks.shape == (LM_BATCH, LM_NEW)
+    assert int(toks.max()) < cfg.vocab_size and int(toks.min()) >= 0
+
+    # the steps alone, each ended by a synchronize
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    t0 = time.perf_counter()
+    last, caches, pos = prefill(params, prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    kern_last = last.clone()
+    nxt = torch.argmax(last, -1)
+    step_s = []
+    for _ in range(LM_NEW - 1):
+        t0 = time.perf_counter()
+        logits, caches, pos = decode(params, nxt[:, None], caches, pos)
+        nxt = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    wall, busy, moe_s, n_launch, top = _profile_busy(
+        lambda: greedy_generate(params, cfg, prompt, max_new=LM_NEW,
+                                device=dev))
+    step_prof = _profile_busy(
+        lambda: decode(params, nxt[:, None], caches, pos))
+    del caches
+    decode_ms = 1e3 * statistics.fmean(step_s)
+    rep.update({
+        "generate_s": gen_s, "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
+        "prefill_ms": 1e3 * prefill_s,
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+        "decode_ms_per_step": decode_ms,
+        "decode_step_ms": [1e3 * x for x in step_s],
+        "decode_tokens_per_s": LM_BATCH / (decode_ms / 1e3),
+        "profiled_wall_s": wall, "device_busy_s": busy,
+        "idle_share": 1 - busy / wall, "moe_kernel_s": moe_s,
+        "host_kernel_launches": n_launch, "top_device": top,
+        "decode_step_profile": dict(zip(
+            ("wall_s", "device_busy_s", "moe_kernel_s", "host_kernel_launches",
+             "top_device"), step_prof)),
+        "launches": counts})
+    print(f"lm serve: {LM_ARCH} ({n_params / 1e9:.3f} B params, bf16, "
+          f"{cfg.n_layers} layers), {LM_BATCH} x {LM_PROMPT}-token prompts, "
+          f"{LM_NEW} greedy tokens in {gen_s:.3f} s "
+          f"({rep['tokens_per_s']:.1f} tokens/s); prefill {1e3 * prefill_s:.3f}"
+          f" ms ({rep['prefill_tokens_per_s']:.0f} prompt tokens/s), decode "
+          f"{decode_ms:.3f} ms/step ({rep['decode_tokens_per_s']:.1f} "
+          f"tokens/s)")
+    print(f"lm serve profiled run: wall {wall:.3f} s, device busy "
+          f"{busy:.3f} s (idle share {1 - busy / wall:.4f}), of which the "
+          f"moe_experts kernel {moe_s:.3f} s; {n_launch} kernel launches "
+          f"by the host")
+    print("lm serve profiled run, longest device activities: " + "; ".join(
+        f"{name} {t:.4f} s x{c}" for name, t, c in top))
+    print(f"lm one decode step profiled: wall {1e3 * step_prof[0]:.3f} ms, "
+          f"device busy {1e3 * step_prof[1]:.3f} ms (moe_experts "
+          f"{1e3 * step_prof[2]:.3f} ms), {step_prof[3]} kernel launches")
+
+    # the same model with the plain expert function forced on the card,
+    # and with the expert FFN in float64 (the floor of the comparison)
+    fill = []
+
+    def plain_expert(x, w_in, w_out):
+        fill.append(float((x != 0).any(-1).float().mean()))
+        return moe_expert_ffn_plain(x, w_in, w_out)
+
+    saved = moe_mod.moe_expert_ffn
+    before = read_counts()["moe_experts"]
+    try:
+        moe_mod.moe_expert_ffn = plain_expert
+        last, caches, pos = prefill(params, prompt)
+        plain_logits = [last]
+        nxt = torch.argmax(last, -1)
+        plain_toks = [nxt]
+        for _ in range(LM_NEW - 1):
+            logits, caches, pos = decode(params, nxt[:, None], caches, pos)
+            nxt = torch.argmax(logits, -1)
+            plain_logits.append(logits)
+            plain_toks.append(nxt)
+        del caches
+        moe_mod.moe_expert_ffn = _expert_ffn_f64
+        f64_last = prefill(params, prompt)[0]
+    finally:
+        moe_mod.moe_expert_ffn = saved
+    assert read_counts()["moe_experts"] == before
+    plain_toks = torch.stack(plain_toks, 1).to(torch.int32)
+    v = cfg.vocab_size
+    errs = {name: (a[:, :v] - b[:, :v]).abs() for name, a, b in (
+        ("kernel_vs_plain", kern_last, plain_logits[0]),
+        ("kernel_vs_f64", kern_last, f64_last),
+        ("plain_vs_f64", plain_logits[0], f64_last))}
+    floor = float(errs["plain_vs_f64"].max())
+    bound = max(LM_BF16_BOUND, 2 * floor)
+    for name, err in errs.items():
+        print(f"lm prefill logits {name.replace('_', ' ')}: max abs err "
+              f"{float(err.max()):.3e}, mean {float(err.mean()):.3e}, "
+              f"{int((err > LM_BF16_BOUND).sum())} of {err.numel()} above "
+              f"{LM_BF16_BOUND:g}")
+    print(f"lm prefill logits bound: max({LM_BF16_BOUND:g}, 2 x floor "
+          f"{floor:.3e}) = {bound:.3e} (logit std "
+          f"{float(kern_last[:, :v].std()):.3f})")
+    for name in ("kernel_vs_plain", "kernel_vs_f64"):
+        assert float(errs[name].max()) <= bound, (name, bound)
+    flips, compared = [], 0
+    for b in range(LM_BATCH):
+        for t in range(LM_NEW):
+            top2 = torch.topk(plain_logits[t][b], 2).values
+            margin = float(top2[0] - top2[1])
+            if int(toks[b, t]) == int(plain_toks[b, t]):
+                compared += 1
+                continue
+            assert margin <= bound, (b, t, margin)
+            flips.append({"sequence": b, "step": t, "margin": margin})
+            print(f"  token flip under the margin: sequence {b}, step {t}, "
+                  f"plain top-2 margin {margin:.3e}; later steps of this "
+                  f"sequence not compared")
+            break
+    print(f"lm tokens: {compared} equal to the plain run's, "
+          f"{len(flips)} flips under the {bound:.3e} margin")
+    prefill_err = float(errs["kernel_vs_plain"].max())
+    share_pre = statistics.fmean(fill[:cfg.n_layers])
+    share_dec = statistics.fmean(fill[cfg.n_layers:])
+    print(f"dispatch rows holding a token: prefill {share_pre:.4f} of "
+          f"B*E*C = {LM_BATCH * e * c_pre}, decode {share_dec:.4f} of "
+          f"{LM_BATCH * e * c_dec}")
+    rep.update({"prefill_logits_err_vs_plain": prefill_err,
+                "prefill_logits_err": {n: {"max": float(e_.max()),
+                                           "mean": float(e_.mean())}
+                                       for n, e_ in errs.items()},
+                "prefill_logits_bound": bound,
+                "tokens_compared": compared, "flips": flips,
+                "row_fill_prefill": share_pre, "row_fill_decode": share_dec})
+    entry["row_fill"] = {"prefill": share_pre, "decode": share_dec}
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- (c) float32, full width, 2 layers: card against CPU -----------
+    cfg32 = cfg.with_(n_layers=2, param_dtype="float32", dtype="float32")
+    p32 = init_params(torch.Generator().manual_seed(1), cfg32, device=dev)
+    short = torch.from_numpy(batch_for_step(
+        cfg32, 1, global_batch=2, seq_len=64, seed=17)["tokens"])
+    step32 = build_prefill_step(cfg32)
+    card_last = step32(p32, short.to(dev))[0]
+    host_last = step32(params_to(p32, "cpu"), short)[0]
+    err32 = float((card_last.cpu() - host_last).abs().max())
+    print(f"lm float32 2 layers, 2 x 64 tokens: card (kernel) vs CPU "
+          f"(plain) last logits max abs err {err32:.3e} "
+          f"(bound {LM_F32_ATOL:g})")
+    assert err32 <= LM_F32_ATOL, err32
+    rep["f32_2layer_err_vs_cpu"] = err32
+    del p32
+    torch.cuda.empty_cache()
+    return entry, rep, launches
 
 
 class RequestTimer:

@@ -15,6 +15,12 @@ the port is held to (1e-6 on post-sigmoid scores, `tests/
 test_parity_matrix.py`) is out of reach when float32 matmuls or
 convolutions round their inputs to TF32's 10-bit mantissa, and the plain
 PyTorch versions run as the card's on-device reference in `chip_smoke.py`.
+
+bf16 matrix products (the LM's projections, router and logits) keep
+float32 accumulation end to end: cuBLAS may otherwise reduce split-K
+partial sums in bf16 (`allow_bf16_reduced_precision_reduction`), which
+the JAX package's products (float32 accumulation, one rounding of the
+output) never do.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:

@@ -34,8 +34,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("sparse_pair", "packed_pair", "fused_pair", "fused_gcn",
-           "simgnn_head", "retrieval")
+#: the libraries that take the `SimgnnParams` struct
+SIMGNN_SOURCES = ("sparse_pair", "packed_pair", "fused_pair", "fused_gcn",
+                  "simgnn_head", "retrieval")
+SOURCES = SIMGNN_SOURCES + ("moe_experts",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -122,10 +124,11 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build_all() / f"{name}.so"))
-        lib.simgnn_params_size.restype = ctypes.c_int
-        if lib.simgnn_params_size() != ctypes.sizeof(SimgnnParams):
-            raise RuntimeError(f"{name}: SimgnnParams layout differs from the "
-                               "ctypes mirror")
+        if name in SIMGNN_SOURCES:
+            lib.simgnn_params_size.restype = ctypes.c_int
+            if lib.simgnn_params_size() != ctypes.sizeof(SimgnnParams):
+                raise RuntimeError(f"{name}: SimgnnParams layout differs from "
+                                   "the ctypes mirror")
         _LIBS[name] = lib
     return lib
 

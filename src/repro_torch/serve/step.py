@@ -1,0 +1,66 @@
+"""Serving steps: prefill, decode and greedy generation for attention-block
+decoder LMs — port of `repro.serve.step`.
+
+The JAX package jits each step; the port runs them eagerly under
+`torch.inference_mode`. With `cfg.moe_use_kernel` every MoE layer's expert
+FFN is one launch of the CUDA kernel `csrc/moe_experts.cu` on the card.
+Enc-dec models are not ported yet (ROADMAP Queue 1, enc-dec/VLM).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+from repro_torch.params import params_to
+
+
+def _no_enc_dec(cfg: ModelConfig) -> None:
+    if cfg.is_enc_dec:
+        raise NotImplementedError("enc-dec serving is not ported yet "
+                                  "(ROADMAP Queue 1, enc-dec/VLM)")
+
+
+def build_prefill_step(cfg: ModelConfig):
+    _no_enc_dec(cfg)
+
+    @torch.inference_mode()
+    def step(params, tokens, embeds=None):
+        return lm.prefill(params, cfg, tokens, embeds=embeds)
+    return step
+
+
+def build_decode_step(cfg: ModelConfig):
+    _no_enc_dec(cfg)
+
+    @torch.inference_mode()
+    def step(params, token, caches, cache_pos):
+        return lm.decode_step(params, cfg, token, caches, cache_pos)
+    return step
+
+
+def greedy_generate(params, cfg: ModelConfig, prompt, *, max_new: int = 16,
+                    embeds=None, device=None) -> torch.Tensor:
+    """Greedy decoding of `max_new` tokens after `prompt` [B, S] (tensor or
+    array): prefill, then `max_new - 1` decode steps against a cache of the
+    prompt's length, as the JAX package's host loop. Runs on `device`
+    (None = the card; raises without CUDA unless "cpu"); params and inputs
+    are moved there (a no-op for tensors already there). Returns [B,
+    max_new] int32 token ids."""
+    _no_enc_dec(cfg)
+    dev = resolve_device(device)
+    params = params_to(params, dev)
+    prompt = torch.as_tensor(np.asarray(prompt) if not isinstance(
+        prompt, torch.Tensor) else prompt).to(dev)
+    if embeds is not None:
+        embeds = torch.as_tensor(embeds).to(dev)
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    last, caches, pos = prefill(params, prompt, embeds)
+    toks = [torch.argmax(last, -1)]
+    for _ in range(max_new - 1):
+        logits, caches, pos = decode(params, toks[-1][:, None], caches, pos)
+        toks.append(torch.argmax(logits, -1))
+    return torch.stack(toks, dim=1).to(torch.int32)

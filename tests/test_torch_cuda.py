@@ -12,6 +12,9 @@ CUDA kernels against the plain versions. Bounds are the parity matrix's
 bucketed one, on post-sigmoid scores; embeddings and top-M scores rtol
 1e-5 / atol 1e-6 (float32 sums in another order), head scores 1e-6,
 top-M indices exact on inputs whose score gaps are wider than that.
+The MoE expert kernel: float32 rtol 1e-5 / atol 1e-6 (the JAX kernel
+sweep's bound) at the model's weight scale; bfloat16 one bf16 ulp of the
+value plus that float32 bound (both sides round one float32 sum once).
 """
 
 import numpy as np
@@ -35,6 +38,13 @@ from repro_torch.kernels.simgnn_head import simgnn_head, simgnn_head_plain
 from repro_torch.kernels.sparse_pair import (sparse_pair_score,
                                              sparse_pair_score_plain)
 from repro_torch.serve.search import SimilaritySearchServer
+from repro_torch.configs import reduced_config
+from repro_torch.kernels.moe_experts import (moe_expert_ffn,
+                                             moe_expert_ffn_plain)
+from repro_torch.models import moe as tmoe
+from repro_torch.models.init import init_params as init_lm_params
+from repro_torch.params import params_to
+from repro_torch.serve.step import greedy_generate
 
 ATOL_PACKED = 1e-6
 ATOL_BUCKETED = 2e-5
@@ -421,3 +431,115 @@ def test_search_on_the_card_matches_the_cpu_server(cuda):
     assert es.tobytes() == ts.tobytes()
     assert card.stats.prefilter_degraded == 0
     assert not [k for k in card.engine.counters if k.startswith("errors:")]
+
+
+# ------------------------------------------------------------ moe_experts
+
+MOE_CASES = {
+    # (B or None for [E, C, D], E, C, D, F, dtype)
+    "prefill_bf16": (4, 40, 129, 1536, 512, torch.bfloat16),
+    "decode_bf16": (4, 40, 8, 1536, 512, torch.bfloat16),
+    "prefill_f32": (4, 40, 129, 1536, 512, torch.float32),
+    "odd_f32": (3, 7, 13, 200, 36, torch.float32),
+    "odd_bf16": (3, 7, 13, 200, 36, torch.bfloat16),
+    "rank3_f32": (None, 5, 21, 64, 32, torch.float32),
+}
+
+
+def _moe_inputs(dev, b, e, c, d, f, dtype, seed=0):
+    """x ~ N(0, 1) (an RMS-normed activation), weights at the model's
+    init scale (0.02, and 0.02 / sqrt(32 layers) for W_out)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lead = () if b is None else (b,)
+    x = torch.randn(lead + (e, c, d), device=dev, generator=g)
+    w_in = torch.randn((e, d, 2 * f), device=dev, generator=g) * 0.02
+    w_out = torch.randn((e, f, d), device=dev, generator=g) * 0.0035
+    return x.to(dtype), w_in.to(dtype), w_out.to(dtype)
+
+
+def _bf16_bound(want):
+    _, ex = torch.frexp(want.float().abs())
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), ex - 8)
+    return ulp + BODY_TOL["atol"] + BODY_TOL["rtol"] * want.float().abs()
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_expert_kernel_matches_plain(cuda, case):
+    b, e, c, d, f, dtype = MOE_CASES[case]
+    x, w_in, w_out = _moe_inputs(cuda, b, e, c, d, f, dtype)
+    before = moe_expert_ffn.launches
+    got = moe_expert_ffn(x, w_in, w_out)
+    want = moe_expert_ffn_plain(x, w_in, w_out)
+    torch.cuda.synchronize()
+    assert moe_expert_ffn.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **BODY_TOL)
+    else:
+        excess = (got.float() - want.float()).abs() - _bf16_bound(want)
+        assert float(excess.max()) <= 0
+
+
+def test_moe_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, w_in, w_out = _moe_inputs(cuda, 2, 4, 5, 64, 32, torch.float32)
+    with pytest.raises(ValueError, match="mixed"):
+        moe_expert_ffn(x, w_in.cpu(), w_out)
+    with pytest.raises(ValueError, match="ranks"):
+        moe_expert_ffn(x[0, 0], w_in, w_out)
+    with pytest.raises(ValueError, match="ranks"):
+        moe_expert_ffn(x[None], w_in, w_out)
+    with pytest.raises(ValueError, match="disagree"):
+        moe_expert_ffn(x, w_in[:3], w_out)
+    with pytest.raises(ValueError, match="one dtype"):
+        moe_expert_ffn(x, w_in.bfloat16(), w_out)
+    with pytest.raises(ValueError, match="one dtype"):
+        moe_expert_ffn(x.double(), w_in.double(), w_out.double())
+    with pytest.raises(ValueError, match="multiples of 4"):
+        moe_expert_ffn(x[..., :62], w_in[:, :62], w_out[..., :62])
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_expert_ffn(x.transpose(0, 1).contiguous().transpose(0, 1),
+                       w_in, w_out)
+    before = moe_expert_ffn.launches
+    assert moe_expert_ffn(x[:, :, :0], w_in, w_out).shape == (2, 4, 0, 64)
+    assert moe_expert_ffn.launches == before
+
+
+def test_moe_kernel_failure_raises_and_nothing_falls_back(cuda):
+    """Shapes whose smallest row tile does not fit in shared memory make
+    the launch fail: the wrapper raises, counts no launch, and the model
+    layer raises too (no plain version stands in on the card)."""
+    d, f = 14000, 1000
+    x, w_in, w_out = _moe_inputs(cuda, 1, 1, 2, d, f, torch.float32)
+    before = moe_expert_ffn.launches
+    with pytest.raises(RuntimeError, match="moe_expert_ffn launch failed"):
+        moe_expert_ffn(x, w_in, w_out)
+    assert moe_expert_ffn.launches == before
+    cfg = reduced_config("granite-moe-3b-a800m").with_(
+        moe_use_kernel=True, d_model=d, d_ff_expert=f, n_experts=2, top_k=1)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    p = {"router": torch.randn((d, 2), device=cuda, generator=g),
+         "w_in": torch.randn((2, d, 2 * f), device=cuda, generator=g) * 0.02,
+         "w_out": torch.randn((2, f, d), device=cuda, generator=g) * 0.02}
+    with pytest.raises(RuntimeError, match="moe_expert_ffn launch failed"):
+        tmoe.moe_ffn(p, torch.randn((1, 3, d), device=cuda, generator=g),
+                     cfg)
+
+
+@pytest.mark.parametrize("arch", ("granite-moe-3b-a800m",
+                                  "phi3.5-moe-42b-a6.6b"))
+def test_lm_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced float32 MoE model served with the kernel on the card and
+    with the plain version on the CPU: the same greedy tokens, one launch
+    per MoE layer and step."""
+    cfg = reduced_config(arch).with_(moe_use_kernel=True)
+    host = init_lm_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32))
+    before = moe_expert_ffn.launches
+    got = greedy_generate(params_to(host, cuda), cfg, prompt, max_new=5)
+    launched = moe_expert_ffn.launches - before
+    want = greedy_generate(host, cfg, prompt, max_new=5, device="cpu")
+    assert launched == 5 * cfg.n_layers
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

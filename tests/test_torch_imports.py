@@ -47,7 +47,7 @@ def test_every_port_module_is_checked():
     cannot slip past it)."""
     packages = {p.parent for p in PORT.rglob("__init__.py")}
     assert packages == {p.parent for p in SOURCES if p.name == "__init__.py"}
-    assert {"core", "kernels", "serve", "data", "configs"} <= {
+    assert {"core", "kernels", "serve", "data", "configs", "models"} <= {
         p.name for p in packages}
 
 
