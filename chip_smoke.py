@@ -12,12 +12,20 @@ plain path on the CPU. Then it serves similarity search: a
 `SimilaritySearchServer` indexes an 8192-graph corpus, answers exact and
 two-stage (prefilter + rerank) top-10 queries, saves and reloads its index,
 and is held against the same server on the CPU; and it forces the engine's
-`embedding_cache` and `two_kernel` paths on one batch each. Last it serves
+`embedding_cache` and `two_kernel` paths on one batch each. Then it serves
 the MoE language model granite-moe-3b-a800m at full width and depth in
 bf16 (4 prompts of 512 tokens, 16 greedy tokens) through `greedy_generate`
 with the expert FFN in the `moe_experts` kernel, holds it against the same
 model with the plain expert function on the card, and a 2-layer float32
-model on the card against the CPU. Every failed check exits non-zero.
+model on the card against the CPU. Last (phases 12-17) it holds the
+`flash_attn`, `wkv6` and `mamba_scan` kernels against their plain versions
+at the served shapes, serves rwkv6-7b at full width and depth in bf16 (the
+same 4 x 512-token prompts and 16 greedy tokens, one `wkv6` launch per
+layer and step), runs granite's prefill on a 4096-token prompt (one
+`flash_attn` launch per layer), runs Jamba's Mamba block at full width
+(prefill and 16 decode steps), and holds 2-layer float32 rwkv6 and granite
+models and the reduced Jamba hybrid on the card against the CPU. Every
+failed check exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -26,8 +34,8 @@ card's name and power limit, and as the last line `{"ok": true, "device":
 (mean of warm launches; both passes for the top-M scans);
 the wrapper call and the plain version are timed with CUDA events (warm,
 median); bounds come from this run's inputs against the H100 SXM peaks of
-67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16 expert FFN) and
-3.35 TB/s. Details go to
+67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16 expert FFN and the bf16
+attention) and 3.35 TB/s. Each phase prints its seconds. Details go to
 `chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2 without one.
 """
 
@@ -65,6 +73,9 @@ REPLACES = {
     "topm": "src/repro/kernels/retrieval.py:169",
     "topm_ntn": "src/repro/kernels/retrieval.py:197",
     "moe_experts": "src/repro/kernels/moe_experts.py:41",
+    "flash_attn": "src/repro/kernels/flash_attn.py:88",
+    "wkv6": "src/repro/kernels/wkv6.py:54",
+    "mamba_scan": "src/repro/kernels/mamba_scan.py:61",
 }
 SOURCE = {"topm": "retrieval", "topm_ntn": "retrieval"}
 #: the similarity-search phase: corpus rows, two-stage queries (one
@@ -91,6 +102,26 @@ LM_PROMPT = 512
 LM_NEW = 16
 LM_BF16_BOUND = 2e-2
 LM_F32_ATOL = 1e-4
+#: phases 12-17: the recurrent and long-prompt paths. Kernel-vs-plain
+#: bounds are the JAX kernel sweeps' (tests/test_kernels.py): the scans
+#: rtol 1e-4 / atol 1e-5, flash attention rtol 2e-4 / atol 2e-5; outputs
+#: rounded to bf16 get one bf16 ulp more.
+RWKV_ARCH = "rwkv6-7b"
+JAMBA_ARCH = "jamba-1.5-large-398b"
+LONG_PROMPT = 4096
+MAMBA_BATCH, MAMBA_PROMPT, MAMBA_STEPS = 2, 2048, 16
+HYBRID_PROMPT, HYBRID_NEW = 2048, 8
+#: phase 12's shapes: attention (B, T, S, H, KV, D) at granite's long
+#: prompt, gemma2-9b's 8192 tokens (softcap 50, window 4096) and a ragged
+#: GQA shape; wkv6 (B, T, H, K, V) at rwkv6-7b's serving shape; the scan
+#: (B, T, Din, N) at Jamba's Mamba block.
+FLASH_GRANITE = (1, LONG_PROMPT, LONG_PROMPT, 24, 8, 64)
+FLASH_GEMMA, GEMMA_WINDOW = (1, 8192, 8192, 16, 8, 256), 4096
+FLASH_RAGGED = (2, 333, 517, 12, 3, 80)
+WKV_SERVED = (LM_BATCH, LM_PROMPT, 64, 64, 64)
+MAMBA_SERVED = (MAMBA_BATCH, MAMBA_PROMPT, 16384, 16)
+SCAN_TOL = dict(rtol=1e-4, atol=1e-5)
+FLASH_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
 def main() -> int:
@@ -106,14 +137,17 @@ def main() -> int:
                                          zipf_query_stream)
     from repro_torch.kernels import build, ops, retrieval
     from repro_torch.kernels.fused_gcn import fused_gcn_att
+    from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.kernels.fused_pair import (fused_pair_score,
                                                 fused_pair_score_plain)
+    from repro_torch.kernels.mamba_scan import mamba_selective_scan_state
     from repro_torch.kernels.moe_experts import moe_expert_ffn
     from repro_torch.kernels.packed_pair import (packed_pair_score,
                                                  packed_pair_score_plain)
     from repro_torch.kernels.simgnn_head import simgnn_head
     from repro_torch.kernels.sparse_pair import (sparse_pair_score,
                                                  sparse_pair_score_plain)
+    from repro_torch.kernels.wkv6 import wkv6_state
     from repro_torch.serve.batching import simgnn_query_server
 
     dev = torch.device("cuda")
@@ -128,6 +162,7 @@ def main() -> int:
                     "cuda": torch.version.cuda}
 
     # ---- phase 2: build ------------------------------------------------
+    phase = PhaseClock()
     t0 = time.perf_counter()
     out_dir = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f}s wall, nvcc "
@@ -136,6 +171,7 @@ def main() -> int:
         log = (out_dir / f"{name}.log").read_text()
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"ptxas {name}: {' | '.join(regs)}")
+    phase("2 build")
 
     gen = torch.Generator().manual_seed(0)
     params = init_simgnn_params(gen, CFG, device=dev)
@@ -234,11 +270,14 @@ def main() -> int:
         nbytes += param_bytes(params) + out_bytes(name, arrays)
         kernels[name] = record(name, worst, *timed, label, flops, nbytes)
 
+    phase("3 SimGNN kernels against their plain versions")
+
     # ---- phase 3b: the search kernels against their plain versions -----
     corpus = zipf_corpus(2, SEARCH_CORPUS)
     stream = zipf_query_stream(3, 2, n_corpus=16)
     queries = [next(stream)["query"] for _ in range(SEARCH_QUERIES)]
     kernels.update(search_kernels(params, narrow, corpus, queries, dev))
+    phase("3b search kernels against their plain versions")
 
     # ---- phase 4: serve 2048 pairs through the packed-sparse path -------
     # Every path below is driven with all launch counts set to 0 just
@@ -249,7 +288,9 @@ def main() -> int:
                 "fused_gcn": fused_gcn_att, "simgnn_head": simgnn_head,
                 "topm": retrieval.blocked_topm,
                 "topm_ntn": retrieval.blocked_topm_ntn,
-                "moe_experts": moe_expert_ffn}
+                "moe_experts": moe_expert_ffn,
+                "flash_attn": flash_attention, "wkv6": wkv6_state,
+                "mamba_scan": mamba_selective_scan_state}
 
     def reset_counts():
         for kern in launched.values():
@@ -309,6 +350,8 @@ def main() -> int:
                        "err_ref": err_ref, "err_cpu": err_cpu,
                        "pack_stats": score.last_pack_stats}
 
+    phase("4 pair scoring served")
+
     # ---- phase 5: forced packed-dense and bucketed paths ----------------
     for path, name in (("packed_dense", "packed_pair"),
                        ("bucketed_mega", "fused_pair")):
@@ -327,11 +370,14 @@ def main() -> int:
               f"{err:.3e} (bound {ATOL[name]:g})")
         assert err <= ATOL[name], (path, err)
 
+    phase("5 forced packed-dense and bucketed paths")
+
     # ---- phase 6: similarity search served on the card ----------------
     report["search"], counts = search_phase(params, corpus, queries,
                                             reset_counts, read_counts)
     for name in ("fused_gcn", "simgnn_head", "topm", "topm_ntn"):
         served[name] = counts[name]
+    phase("6 similarity search served")
 
     # ---- phase 7: the engine's embedding-cached and two-kernel paths ---
     for path, bound in (("embedding_cache", 1e-6), ("two_kernel", 2e-5)):
@@ -351,9 +397,29 @@ def main() -> int:
               f"{err:.3e} (bound {bound:g})")
         assert err <= bound, (path, err)
 
+    phase("7 forced embedding_cache and two_kernel paths")
+
     # ---- phases 8-11: MoE LM serving on the card ------------------------
-    kernels["moe_experts"], report["lm"], served["moe_experts"] = lm_phases(
+    (kernels["moe_experts"], report["lm"], served["moe_experts"], granite,
+     granite_cfg) = lm_phases(dev, reset_counts, read_counts)
+    phase("8-11 granite-moe-3b-a800m serving")
+
+    # ---- phases 12-17: the recurrent and long-prompt paths -------------
+    kernels.update(lm_kernel_checks(dev))
+    phase("12 (a) flash_attn, wkv6, mamba_scan against their plain versions")
+    report["rwkv"], served["wkv6"] = rwkv_phases(dev, reset_counts,
+                                                 read_counts, phase)
+    report["long_prompt"], served["flash_attn"] = long_prompt_phase(
+        dev, granite, granite_cfg, reset_counts, read_counts)
+    del granite
+    torch.cuda.empty_cache()
+    phase("15 (d) granite prefill of a 4096-token prompt")
+    report["mamba"], served["mamba_scan"] = mamba_block_phase(
         dev, reset_counts, read_counts)
+    phase("16 (e) Jamba's Mamba block at full width")
+    report["hybrid"] = hybrid_phase(dev, reset_counts, read_counts)
+    phase("17 (f) the reduced Jamba hybrid, card against CPU")
+    report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
         k["launches"] = served[name]
@@ -768,14 +834,15 @@ def search_phase(params, corpus, queries, reset_counts, read_counts):
     return rep, counts
 
 
-def _bf16_excess(got, want) -> float:
+def _bf16_excess(got, want, tol=BODY_TOL) -> float:
     """max(|got - want| - bound) where the bound is one bf16 ulp of the
-    value plus the float32 bound (rtol 1e-5, atol 1e-6) for sums taken in
-    another order before the one rounding; <= 0 passes."""
+    value plus the float32 bound `tol` (by default rtol 1e-5, atol 1e-6)
+    for sums taken in another order before the one rounding; <= 0
+    passes."""
     want = want.float()
     _, ex = torch.frexp(want.abs())
     ulp = torch.ldexp(torch.ones_like(want), ex - 8)
-    bound = ulp + BODY_TOL["atol"] + BODY_TOL["rtol"] * want.abs()
+    bound = ulp + tol["atol"] + tol["rtol"] * want.abs()
     return float(((got.float() - want).abs() - bound).max())
 
 
@@ -786,12 +853,12 @@ def _moe_work(b, e, c, d, f, elt) -> tuple[float, int]:
     return 6.0 * b * e * c * d * f, (2 * b * e * c * d + 3 * e * d * f) * elt
 
 
-def _profile_busy(fn):
+def _profile_busy(fn, symbol="moe_expert_ffn_kernel"):
     """Where one call of `fn` spends its time, from `torch.profiler`: wall
     s, device busy s (the sum of every device activity's own time; one
-    stream, so activities do not overlap), the moe kernel's s, the number
-    of kernel launches the host made, and the five device activities that
-    took longest (name, s, count)."""
+    stream, so activities do not overlap), the s of the kernel named
+    `symbol`, the number of kernel launches the host made, and the five
+    device activities that took longest (name, s, count)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -807,7 +874,7 @@ def _profile_busy(fn):
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         busy += us
-        if "moe_expert_ffn_kernel" in ev.key:
+        if symbol in ev.key:
             moe += us
         if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
                       "cudaLaunchKernelExC", "cuLaunchKernelEx"):
@@ -846,7 +913,8 @@ def lm_phases(dev, reset_counts, read_counts):
        against the CPU (plain): last logits within LM_F32_ATOL;
     11 (d): the kernel's work, bound and the share of dispatch rows that
        hold a token.
-    Returns (the kernel's entry, the phase report, main-path launches)."""
+    Returns (the kernel's entry, the phase report, main-path launches,
+    the served params and config, which phase 15 reuses)."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import batch_for_step
     from repro_torch.kernels.moe_experts import (moe_expert_ffn,
@@ -971,58 +1039,14 @@ def lm_phases(dev, reset_counts, read_counts):
     assert toks.shape == (LM_BATCH, LM_NEW)
     assert int(toks.max()) < cfg.vocab_size and int(toks.min()) >= 0
 
-    # the steps alone, each ended by a synchronize
+    rep.update({"generate_s": gen_s,
+                "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
+                "launches": counts})
+    timed, kern_last = _serve_timings(params, cfg, prompt, LM_NEW,
+                                      "moe_expert_ffn_kernel")
+    rep.update(timed)
+    _print_serving("lm", "moe_experts", n_params, cfg, prompt, rep)
     prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
-    t0 = time.perf_counter()
-    last, caches, pos = prefill(params, prompt)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    kern_last = last.clone()
-    nxt = torch.argmax(last, -1)
-    step_s = []
-    for _ in range(LM_NEW - 1):
-        t0 = time.perf_counter()
-        logits, caches, pos = decode(params, nxt[:, None], caches, pos)
-        nxt = torch.argmax(logits, -1)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    wall, busy, moe_s, n_launch, top = _profile_busy(
-        lambda: greedy_generate(params, cfg, prompt, max_new=LM_NEW,
-                                device=dev))
-    step_prof = _profile_busy(
-        lambda: decode(params, nxt[:, None], caches, pos))
-    del caches
-    decode_ms = 1e3 * statistics.fmean(step_s)
-    rep.update({
-        "generate_s": gen_s, "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
-        "prefill_ms": 1e3 * prefill_s,
-        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
-        "decode_ms_per_step": decode_ms,
-        "decode_step_ms": [1e3 * x for x in step_s],
-        "decode_tokens_per_s": LM_BATCH / (decode_ms / 1e3),
-        "profiled_wall_s": wall, "device_busy_s": busy,
-        "idle_share": 1 - busy / wall, "moe_kernel_s": moe_s,
-        "host_kernel_launches": n_launch, "top_device": top,
-        "decode_step_profile": dict(zip(
-            ("wall_s", "device_busy_s", "moe_kernel_s", "host_kernel_launches",
-             "top_device"), step_prof)),
-        "launches": counts})
-    print(f"lm serve: {LM_ARCH} ({n_params / 1e9:.3f} B params, bf16, "
-          f"{cfg.n_layers} layers), {LM_BATCH} x {LM_PROMPT}-token prompts, "
-          f"{LM_NEW} greedy tokens in {gen_s:.3f} s "
-          f"({rep['tokens_per_s']:.1f} tokens/s); prefill {1e3 * prefill_s:.3f}"
-          f" ms ({rep['prefill_tokens_per_s']:.0f} prompt tokens/s), decode "
-          f"{decode_ms:.3f} ms/step ({rep['decode_tokens_per_s']:.1f} "
-          f"tokens/s)")
-    print(f"lm serve profiled run: wall {wall:.3f} s, device busy "
-          f"{busy:.3f} s (idle share {1 - busy / wall:.4f}), of which the "
-          f"moe_experts kernel {moe_s:.3f} s; {n_launch} kernel launches "
-          f"by the host")
-    print("lm serve profiled run, longest device activities: " + "; ".join(
-        f"{name} {t:.4f} s x{c}" for name, t, c in top))
-    print(f"lm one decode step profiled: wall {1e3 * step_prof[0]:.3f} ms, "
-          f"device busy {1e3 * step_prof[1]:.3f} ms (moe_experts "
-          f"{1e3 * step_prof[2]:.3f} ms), {step_prof[3]} kernel launches")
 
     # the same model with the plain expert function forced on the card,
     # and with the expert FFN in float64 (the floor of the comparison)
@@ -1099,8 +1123,6 @@ def lm_phases(dev, reset_counts, read_counts):
                 "tokens_compared": compared, "flips": flips,
                 "row_fill_prefill": share_pre, "row_fill_decode": share_dec})
     entry["row_fill"] = {"prefill": share_pre, "decode": share_dec}
-    del params
-    torch.cuda.empty_cache()
 
     # ---- (c) float32, full width, 2 layers: card against CPU -----------
     cfg32 = cfg.with_(n_layers=2, param_dtype="float32", dtype="float32")
@@ -1118,7 +1140,773 @@ def lm_phases(dev, reset_counts, read_counts):
     rep["f32_2layer_err_vs_cpu"] = err32
     del p32
     torch.cuda.empty_cache()
-    return entry, rep, launches
+    return entry, rep, launches, params, cfg
+
+
+class PhaseClock:
+    """Prints the seconds each phase took since the previous call."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.seconds: dict = {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t0
+        print(f"phase {name}: {now - self.t0:.1f} s")
+        self.t0 = now
+
+
+def _held(name, label, got, want, tol, bf16=False) -> float:
+    """Hold a kernel's output against its plain version's: float32 within
+    `tol`, bf16 within one bf16 ulp more. Prints; returns the max abs
+    error."""
+    assert got.shape == want.shape and got.dtype == want.dtype, (name, label)
+    assert torch.isfinite(got.float()).all(), (name, label)
+    err = float((got.float() - want.float()).abs().max())
+    if bf16:
+        excess = _bf16_excess(got, want, tol)
+        print(f"  {name} [{label}]: max abs err {err:.3e}, excess over one "
+              f"bf16 ulp + (rtol {tol['rtol']:g}, atol {tol['atol']:g}) "
+              f"{excess:.3e}")
+        assert excess <= 0, (name, label, excess)
+    else:
+        print(f"  {name} [{label}]: max abs err {err:.3e} (rtol "
+              f"{tol['rtol']:g}, atol {tol['atol']:g})")
+        torch.testing.assert_close(got, want, **tol)
+    return err
+
+
+def _held_f64(name, label, got, want, ref, tol) -> dict:
+    """Hold a kernel's output on captured model inputs against its plain
+    version's through a float64 run of the same arithmetic: the kernel's
+    distance to the float64 result must be within twice the plain float32
+    version's, plus the stated atol. (Model activations make the sums
+    cancel, so an error relative to each output's own size is not the
+    measure: both float32 versions are as far from float64 as float32
+    sums in one valid order leave them.) Prints; returns the distances."""
+    ref = ref.double()
+    kern = float((got.double() - ref).abs().max())
+    plain = float((want.double() - ref).abs().max())
+    diff = float((got.float() - want.float()).abs().max())
+    bound = 2 * plain + tol["atol"]
+    print(f"  {name} [{label}]: kernel vs plain {diff:.3e}; against float64 "
+          f"kernel {kern:.3e}, plain {plain:.3e} (bound 2 x plain + "
+          f"{tol['atol']:g} = {bound:.3e}; output max "
+          f"{float(ref.abs().max()):.3e})")
+    assert torch.isfinite(got.float()).all(), (name, label)
+    assert kern <= bound, (name, label, kern, bound)
+    return {"kernel_vs_plain": diff, "kernel_vs_f64": kern,
+            "plain_vs_f64": plain, "bound": bound}
+
+
+def _wkv6_f64(r, k, v, w, u, s0=None):
+    """The WKV recurrence in float64 (the floor of the captured-input
+    check): (o, final state)."""
+    b, t, h, kd = r.shape
+    r, k, v, w, u = (x.double() for x in (r, k, v, w, u))
+    s = (torch.zeros((b, h, kd, v.shape[-1]), dtype=torch.float64,
+                     device=r.device) if s0 is None else s0.double())
+    o = torch.empty(v.shape, dtype=torch.float64, device=r.device)
+    for i in range(t):
+        o[:, i] = torch.einsum("bhk,bhkv->bhv", r[:, i], s) + torch.sum(
+            r[:, i] * u * k[:, i], -1, keepdim=True) * v[:, i]
+        s = w[:, i][..., None] * s + k[:, i][..., None] * v[:, i][..., None, :]
+    return o, s
+
+
+def _mamba_f64(dt, x, b, c, a, d, h0=None):
+    """The selective scan in float64 (the floor of the captured-input
+    check): (y with D * x, final state)."""
+    dt, x, b, c, a, d = (z.double() for z in (dt, x, b, c, a, d))
+    h = (torch.zeros((x.shape[0], x.shape[2], a.shape[1]),
+                     dtype=torch.float64, device=x.device)
+         if h0 is None else h0.double())
+    y = torch.empty(x.shape, dtype=torch.float64, device=x.device)
+    for i in range(x.shape[1]):
+        h = torch.exp(dt[:, i][..., None] * a) * h \
+            + (dt[:, i] * x[:, i])[..., None] * b[:, i][:, None, :]
+        y[:, i] = torch.einsum("bdn,bn->bd", h, c[:, i]) + d * x[:, i]
+    return y, h
+
+
+def _flash_f64(q, k, v, *, causal=True, window=None, softcap=None,
+               rows=512):
+    """Masked softmax attention in float64 over blocks of query rows (the
+    floor of the captured-input check)."""
+    t, h, d = q.shape[1:]
+    s_len, group = k.shape[1], h // k.shape[2]
+    k64 = k.double().repeat_interleave(group, dim=2)
+    v64 = v.double().repeat_interleave(group, dim=2)
+    kv_pos = torch.arange(s_len, device=q.device)[None, :]
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for t0 in range(0, t, rows):
+        sc = torch.einsum("bthd,bshd->bhts", q[:, t0:t0 + rows].double(),
+                          k64) * d ** -0.5
+        if softcap is not None:
+            sc = softcap * torch.tanh(sc / softcap)
+        q_pos = torch.arange(t0, t0 + sc.shape[2], device=q.device)[:, None]
+        mask = torch.ones_like(sc[0, 0], dtype=torch.bool)
+        if causal:
+            mask &= kv_pos <= q_pos
+        if window is not None:
+            mask &= (q_pos - kv_pos) < window
+        p = torch.where(mask, torch.softmax(torch.where(mask, sc, -1e300),
+                                            -1), 0.0)
+        out[:, t0:t0 + rows] = torch.einsum("bhts,bshd->bthd", p, v64)
+    return out
+
+
+def time_cuda_batch(fn, iters: int = 10) -> float:
+    """Mean ms per call of `fn` from CUDA events around `iters` warm calls
+    launched back to back (one synchronize at the end): a cross-check of
+    the profiler's kernel time."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _flash_work(b, t, s, h, kv, d, elt, causal=True, window=None,
+                **_) -> tuple[float, int]:
+    """Flops and bytes of one attention call: 4 D flops per (head, query,
+    kv) pair that the masks keep (QK^T and PV), q, k, v read once and o
+    written once."""
+    rows = np.arange(t)
+    hi = np.minimum(rows, s - 1) if causal else np.full(t, s - 1)
+    lo = np.maximum(rows - window + 1, 0) if window is not None \
+        else np.zeros(t, np.int64)
+    pairs = float(np.clip(hi - lo + 1, 0, None).sum())
+    return 4.0 * b * h * d * pairs, (2 * b * t * h * d + 2 * b * s * kv * d) \
+        * elt
+
+
+def _wkv_work(b, t, h, kd, vd, elt, state=False) -> tuple[float, int]:
+    """Flops and bytes of one wkv6 launch: per token and head r.S (2KV),
+    the update w*S + k v^T (3KV), the bonus (3K) and its product with v
+    (2V); r, k, v read once in their dtype, w and u in float32, o and the
+    final state (and a given state) in float32."""
+    flops = float(b * t * h) * (5 * kd * vd + 3 * kd + 2 * vd)
+    nbytes = (b * t * h * (2 * kd + vd)) * elt + 4 * (
+        b * t * h * kd + h * kd + b * t * h * vd + (2 if state else 1)
+        * b * h * kd * vd)
+    return flops, nbytes
+
+
+def _mamba_work(bsz, t, din, n, elt, state=False) -> tuple[float, int]:
+    """Flops and bytes of one scan launch: per (token, channel, state) the
+    exp argument, the exp, a_bar*h, dt*x*B, the add and the C dot (2);
+    per (token, channel) dt*x and D*x + y; dt and x read once in their
+    dtype, B, C, A, D in float32, y and the final state (and a given
+    state) in float32."""
+    flops = float(bsz * t * din) * (7 * n + 3)
+    nbytes = 2 * bsz * t * din * elt + 4 * (
+        2 * bsz * t * n + din * n + din + bsz * t * din
+        + (2 if state else 1) * bsz * din * n)
+    return flops, nbytes
+
+
+def lm_kernel_checks(dev) -> dict:
+    """Phase 12 (a): `flash_attention`, `wkv6` and `mamba_selective_scan`
+    against their plain versions on the card, bf16 and float32:
+
+      flash: granite's prefill (B 1, T = S = 4096, H 24, KV 8, D 64,
+        causal), gemma2-9b's (T = S = 8192, H 16, KV 8, D 256, softcap 50,
+        without and with window 4096), and a ragged T != S shape; the SDPA
+        call on granite's shape is the library yardstick;
+      wkv6: the served shape (B 4, T 512, H 64, K = V 64) from a zero and
+        a given state, a decode step (T 1), and an odd shape;
+      mamba: Jamba's block (B 2, T 2048, Din 16384, N 16) from a zero and
+        a given state, a decode step, and an odd shape.
+
+    Inputs come from a seeded device generator at the model's scales.
+    Returns the three kernels' entries (launches filled in later)."""
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain)
+    from repro_torch.kernels.mamba_scan import (
+        mamba_selective_scan, mamba_selective_scan_plain,
+        mamba_selective_scan_state, mamba_selective_scan_state_plain)
+    from repro_torch.kernels.wkv6 import (wkv6, wkv6_plain, wkv6_state,
+                                          wkv6_state_plain)
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=g) * scale
+
+    out = {}
+    # ---- flash_attention
+    granite, gemma, odd = FLASH_GRANITE, FLASH_GEMMA, FLASH_RAGGED
+    fcases = [
+        ("granite 4096 causal, bf16", granite, bf16, dict(causal=True)),
+        ("granite 4096 causal, f32", granite, f32, dict(causal=True)),
+        ("gemma2 8192 softcap 50, bf16", gemma, bf16,
+         dict(causal=True, softcap=50.0)),
+        ("gemma2 8192 softcap 50 window 4096, bf16", gemma, bf16,
+         dict(causal=True, window=GEMMA_WINDOW, softcap=50.0)),
+        ("gemma2 8192 softcap 50 window 4096, f32", gemma, f32,
+         dict(causal=True, window=GEMMA_WINDOW, softcap=50.0)),
+        ("ragged T 333 S 517 H 12 KV 3 D 80 window 100 softcap 30, bf16",
+         odd, bf16, dict(causal=True, window=100, softcap=30.0)),
+        ("ragged T 333 S 517 H 12 KV 3 D 80 window 100 softcap 30, f32",
+         odd, f32, dict(causal=True, window=100, softcap=30.0)),
+        ("ragged T 333 S 517 not causal, f32", odd, f32, dict(causal=False)),
+    ]
+    worst, extra = 0.0, {}
+    for label, (b, t, s, h, kv, d), dtype, kw in fcases:
+        q = randn((b, t, h, d)).to(dtype)
+        k, v = (randn((b, s, kv, d)).to(dtype) for _ in range(2))
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, _held("flash_attn", label, got, want, FLASH_TOL,
+                                 bf16=dtype == bf16))
+        if label.startswith("gemma2") and dtype == bf16:
+            run = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+            ms = kernel_device_ms(run, "flash_attn_kernel", iters=5)
+            events_ms = time_cuda_batch(run, iters=5)
+            flops, nbytes = _flash_work(b, t, s, h, kv, d, 2, **kw)
+            bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+            extra[label] = {"ms": ms, "events_ms": events_ms, "flops": flops,
+                            "bytes": nbytes, "bound_ms": bound}
+            prof = "no device time traced" if ms is None else f"{ms:.4f} ms"
+            print(f"  flash_attn [{label}]: kernel {prof} (profiler), "
+                  f"{events_ms:.4f} ms (events over 5 back-to-back calls) "
+                  f"against a bound of {bound * 1e3:.3f} us "
+                  f"({flops / 1e9:.3f} GFLOP)")
+        if label == fcases[0][0]:
+            main = (q, k, v)
+        del q, k, v, got, want
+    q, k, v = main
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in main)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    library_ms = time_cuda(sdpa)
+    sdpa_err = float((sdpa().transpose(1, 2).float()
+                      - flash_attention_plain(q, k, v).float()).abs().max())
+    print(f"  flash_attn yardstick scaled_dot_product_attention(is_causal, "
+          f"enable_gqa) on granite's shape: {library_ms:.4f} ms, max abs "
+          f"err against the plain version {sdpa_err:.3e}")
+    flops, nbytes = _flash_work(*granite, 2, causal=True)
+    out["flash_attn"] = record(
+        "flash_attn", worst,
+        *timings(lambda: flash_attention(q, k, v),
+                 lambda: flash_attention_plain(q, k, v),
+                 "flash_attn_kernel"),
+        "granite 4096 causal, bf16 (B 1, T = S 4096, H 24, KV 8, D 64)",
+        flops, nbytes, library_ms=library_ms, peak_flops=PEAK_BF16_FLOPS,
+        err_bound="f32: rtol 0.0002, atol 2e-05; bf16: one bf16 ulp more",
+        sdpa_err_vs_plain=sdpa_err, gemma2=extra,
+        events_ms=time_cuda_batch(lambda: flash_attention(q, k, v)))
+    del main, q, k, v, qt, kt, vt
+
+    # ---- wkv6
+    def wkv_in(b, t, h, kd, vd, dtype):
+        r, k = (randn((b, t, h, kd), 0.5).to(dtype) for _ in range(2))
+        v = randn((b, t, h, vd), 0.5).to(dtype)
+        w = torch.sigmoid(randn((b, t, h, kd)))
+        return r, k, v, w, randn((h, kd), 0.1), randn((b, h, kd, vd), 0.5)
+
+    served = WKV_SERVED
+    wcases = [("served bf16 r/k/v, zero state", served, bf16, False),
+              ("served f32, zero state", served, f32, False),
+              ("served bf16, given state", served, bf16, True),
+              ("decode T 1 bf16, given state",
+               (served[0], 1) + served[2:], bf16, True),
+              ("odd B 3 T 37 H 5 K 24 V 40 f32, given state",
+               (3, 37, 5, 24, 40), f32, True)]
+    worst = 0.0
+    for label, shape, dtype, with_state in wcases:
+        r, k, v, w, u, s0 = wkv_in(*shape, dtype)
+        s0 = s0 if with_state else None
+        got, want = wkv6_state(r, k, v, w, u, s0), \
+            wkv6_state_plain(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        worst = max(worst, _held("wkv6", label + ": o", got[0], want[0],
+                                 SCAN_TOL),
+                    _held("wkv6", label + ": final state", got[1], want[1],
+                          SCAN_TOL))
+        if dtype == bf16 and not with_state:     # the JAX entry: bf16 o
+            worst = max(worst, _held("wkv6", label + ": wkv6() bf16 o",
+                                     wkv6(r, k, v, w, u),
+                                     wkv6_plain(r, k, v, w, u), SCAN_TOL,
+                                     bf16=True))
+            main = (r, k, v, w, u)
+    flops, nbytes = _wkv_work(*served, 2)
+    out["wkv6"] = record(
+        "wkv6", worst,
+        *timings(lambda: wkv6_state(*main), lambda: wkv6_state_plain(*main),
+                 "wkv6_kernel"),
+        "served bf16 r/k/v, float32 w and o (B 4, T 512, H 64, K = V 64)",
+        flops, nbytes, err_bound="rtol 0.0001, atol 1e-05 (bf16 o: one "
+        "bf16 ulp more)", events_ms=time_cuda_batch(lambda: wkv6_state(*main)))
+    del main
+
+    # ---- mamba_selective_scan
+    def mamba_in(bsz, t, din, n, dtype):
+        dt = torch.nn.functional.softplus(randn((bsz, t, din))) * 0.1
+        x = randn((bsz, t, din))
+        b, c = (randn((bsz, t, n), 0.5) for _ in range(2))
+        a = -torch.exp(randn((din, n), 0.3))
+        return (dt.to(dtype), x.to(dtype), b, c, a, randn((din,)),
+                randn((bsz, din, n), 0.5))
+
+    jamba = MAMBA_SERVED
+    mcases = [("Jamba block f32, zero state", jamba, f32, False),
+              ("Jamba block bf16 dt/x, zero state", jamba, bf16, False),
+              ("Jamba block f32, given state", jamba, f32, True),
+              ("decode T 1 f32, given state", (jamba[0], 1) + jamba[2:],
+               f32, True),
+              ("odd B 3 T 37 Din 200 N 5 bf16, given state", (3, 37, 200, 5),
+               bf16, True)]
+    worst = 0.0
+    for label, shape, dtype, with_state in mcases:
+        dt, x, b, c, a, d, h0 = mamba_in(*shape, dtype)
+        h0 = h0 if with_state else None
+        got = mamba_selective_scan_state(dt, x, b, c, a, d, h0)
+        want = mamba_selective_scan_state_plain(dt, x, b, c, a, d, h0)
+        torch.cuda.synchronize()
+        worst = max(worst, _held("mamba_scan", label + ": y", got[0],
+                                 want[0], SCAN_TOL),
+                    _held("mamba_scan", label + ": final state", got[1],
+                          want[1], SCAN_TOL))
+        if dtype == bf16 and not with_state:     # the JAX entry: bf16 y
+            worst = max(worst, _held(
+                "mamba_scan", label + ": mamba_selective_scan() bf16 y",
+                mamba_selective_scan(dt, x, b, c, a, d),
+                mamba_selective_scan_plain(dt, x, b, c, a, d), SCAN_TOL,
+                bf16=True))
+        if label == mcases[0][0]:
+            main = (dt, x, b, c, a, d)
+        del dt, x, b, c, a, d, h0, got, want
+    flops, nbytes = _mamba_work(*jamba, 4)
+    out["mamba_scan"] = record(
+        "mamba_scan", worst,
+        *timings(lambda: mamba_selective_scan_state(*main),
+                 lambda: mamba_selective_scan_state_plain(*main),
+                 "mamba_scan_kernel"),
+        "Jamba block f32 (B 2, T 2048, Din 16384, N 16)", flops, nbytes,
+        err_bound="rtol 0.0001, atol 1e-05 (bf16 y: one bf16 ulp more)",
+        events_ms=time_cuda_batch(
+            lambda: mamba_selective_scan_state(*main)))
+    del main
+    torch.cuda.empty_cache()
+    return out
+
+
+def _capture(module, name, keep):
+    """Swap `module.name` for a wrapper that calls it and keeps its
+    arguments in `keep` when `keep` asks for this call; returns the
+    restore function."""
+    real = getattr(module, name)
+    calls = [0]
+
+    def wrapper(*args, **kwargs):
+        if calls[0] in keep["calls"]:
+            keep["args"].append((args, kwargs))
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, real)
+
+
+def _serve_timings(params, cfg, prompt, n_new, symbol):
+    """Prefill and the decode steps timed alone (each ended by a
+    synchronize), then a profiled `greedy_generate` and a profiled decode
+    step; `symbol` names the kernel whose device time is split out.
+    Returns (report entries, the prefill's last logits)."""
+    from repro_torch.serve.step import (build_decode_step,
+                                        build_prefill_step, greedy_generate)
+
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    t0 = time.perf_counter()
+    last, caches, pos = prefill(params, prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    assert torch.isfinite(last).all()
+    nxt = torch.argmax(last, -1)
+    step_s = []
+    for _ in range(n_new - 1):
+        t0 = time.perf_counter()
+        logits, caches, pos = decode(params, nxt[:, None], caches, pos)
+        nxt = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    assert torch.isfinite(logits).all()
+    wall, busy, kern_s, n_launch, top = _profile_busy(
+        lambda: greedy_generate(params, cfg, prompt, max_new=n_new,
+                                device=prompt.device), symbol)
+    step_prof = _profile_busy(
+        lambda: decode(params, nxt[:, None], caches, pos), symbol)
+    b, s = prompt.shape
+    decode_ms = 1e3 * statistics.fmean(step_s)
+    return {"prefill_ms": 1e3 * prefill_s,
+            "prefill_tokens_per_s": b * s / prefill_s,
+            "decode_ms_per_step": decode_ms,
+            "decode_step_ms": [1e3 * x for x in step_s],
+            "decode_tokens_per_s": b / (decode_ms / 1e3),
+            "profiled_wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall, "kernel_s": kern_s,
+            "host_kernel_launches": n_launch, "top_device": top,
+            "decode_step_profile": dict(zip(
+                ("wall_s", "device_busy_s", "kernel_s",
+                 "host_kernel_launches", "top_device"), step_prof))}, last
+
+
+def _print_serving(tag, kernel, n_params, cfg, prompt, rep):
+    """The serving lines of one model: generate, prefill, decode, the
+    profiled run's idle share and the kernel's share of it."""
+    b, s = prompt.shape
+    sp = rep["decode_step_profile"]
+    print(f"{tag} serve: {cfg.name} ({n_params / 1e9:.3f} B params, bf16, "
+          f"{cfg.n_layers} layers), {b} x {s}-token prompts, {LM_NEW} greedy "
+          f"tokens in {rep['generate_s']:.3f} s ({rep['tokens_per_s']:.1f} "
+          f"tokens/s); prefill {rep['prefill_ms']:.3f} ms "
+          f"({rep['prefill_tokens_per_s']:.0f} prompt tokens/s), decode "
+          f"{rep['decode_ms_per_step']:.3f} ms/step "
+          f"({rep['decode_tokens_per_s']:.1f} tokens/s)")
+    print(f"{tag} serve profiled run: wall {rep['profiled_wall_s']:.3f} s, "
+          f"device busy {rep['device_busy_s']:.3f} s (idle share "
+          f"{rep['idle_share']:.4f}), of which the {kernel} kernel "
+          f"{rep['kernel_s']:.4f} s; {rep['host_kernel_launches']} kernel "
+          f"launches by the host; one decode step: wall "
+          f"{1e3 * sp['wall_s']:.3f} ms, device busy "
+          f"{1e3 * sp['device_busy_s']:.3f} ms ({kernel} "
+          f"{1e3 * sp['kernel_s']:.3f} ms), {sp['host_kernel_launches']} "
+          f"kernel launches")
+    print(f"{tag} serve profiled run, longest device activities: " + "; ".join(
+        f"{name} {t:.4f} s x{c}" for name, t, c in rep["top_device"]))
+
+
+def rwkv_phases(dev, reset_counts, read_counts, phase):
+    """Phases 13-14.
+
+    13 (b): the main path of this slice: rwkv6-7b at full width and depth
+       in bf16 (random weights from `torch.Generator` seed 0, drawn on the
+       card) serves 4 prompts of 512 tokens from `batch_for_step(seed=17)`
+       through `greedy_generate`, 16 new tokens, launch counts zeroed just
+       before and read just after (one `wkv6` launch per layer and step:
+       512); then the steps timed alone and profiled, and one served
+       prefill's last-layer `wkv6` inputs held kernel against plain;
+    14 (c): 2 layers at full width in float32, prefill and one decode step
+       on the card (kernel) against the CPU (plain): logits within
+       LM_F32_ATOL.
+    Returns (the phase report, main-path launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels.wkv6 import wkv6_state, wkv6_state_plain
+    from repro_torch.models import rwkv6 as rwkv_mod
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to, tree_leaves
+    from repro_torch.serve.step import (build_decode_step,
+                                        build_prefill_step, greedy_generate)
+
+    cfg = get_config(RWKV_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rep: dict = {"arch": RWKV_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT,
+                 "new_tokens": LM_NEW, "n_params": n_params,
+                 "init_s": time.perf_counter() - t0}
+    prompt = torch.from_numpy(batch_for_step(
+        cfg, 0, global_batch=LM_BATCH, seq_len=LM_PROMPT,
+        seed=17)["tokens"]).to(dev)
+    greedy_generate(params, cfg, prompt[:, :16], max_new=2,
+                    device=dev)                                   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = greedy_generate(params, cfg, prompt, max_new=LM_NEW, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"rwkv serve launches: {counts}")
+    launches = counts["wkv6"]
+    assert launches == cfg.n_layers * LM_NEW, counts
+    assert sum(counts.values()) == launches, counts
+    assert toks.shape == (LM_BATCH, LM_NEW)
+    assert int(toks.max()) < cfg.vocab_size and int(toks.min()) >= 0
+    rep.update({"generate_s": gen_s,
+                "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
+                "launches": counts})
+    rep.update(_serve_timings(params, cfg, prompt, LM_NEW, "wkv6_kernel")[0])
+    _print_serving("rwkv", "wkv6", n_params, cfg, prompt, rep)
+
+    # the last layer's wkv6 inputs in one served prefill, kernel vs plain
+    keep = {"calls": {cfg.n_layers - 1}, "args": []}
+    restore = _capture(rwkv_mod, "wkv6_state", keep)
+    try:
+        build_prefill_step(cfg)(params, prompt)
+    finally:
+        restore()
+    (r, k, v, w, u, s0), _ = keep["args"][0]
+    assert s0 is None and r.dtype == torch.bfloat16 and w.dtype == \
+        torch.float32
+    got, want = wkv6_state(r, k, v, w, u), wkv6_state_plain(r, k, v, w, u)
+    ref = _wkv6_f64(r, k, v, w, u)
+    torch.cuda.synchronize()
+    rep["captured_layer_err"] = {
+        "o": _held_f64("wkv6", f"served prefill, layer {cfg.n_layers - 1}: "
+                       f"o", got[0], want[0], ref[0], SCAN_TOL),
+        "state": _held_f64("wkv6", f"served prefill, layer "
+                           f"{cfg.n_layers - 1}: final state", got[1],
+                           want[1], ref[1], SCAN_TOL)}
+    del params, keep, r, k, v, w, u, got, want, ref
+    torch.cuda.empty_cache()
+    phase("13 (b) rwkv6-7b serving at full width and depth")
+
+    # ---- (c) float32, full width, 2 layers: card against CPU -----------
+    cfg32 = cfg.with_(n_layers=2, param_dtype="float32", dtype="float32")
+    p32 = init_params(torch.Generator().manual_seed(1), cfg32, device=dev)
+    host = params_to(p32, "cpu")
+    short = torch.from_numpy(batch_for_step(
+        cfg32, 1, global_batch=2, seq_len=64, seed=17)["tokens"])
+    prefill, decode = build_prefill_step(cfg32), build_decode_step(cfg32)
+    errs = []
+    for_card = prefill(p32, short.to(dev))
+    for_host = prefill(host, short)
+    errs.append(float((for_card[0].cpu() - for_host[0]).abs().max()))
+    nxt = torch.argmax(for_host[0], -1)[:, None]
+    card_dec = decode(p32, nxt.to(dev), *for_card[1:])[0]
+    host_dec = decode(host, nxt, *for_host[1:])[0]
+    errs.append(float((card_dec.cpu() - host_dec).abs().max()))
+    print(f"rwkv float32 2 layers, 2 x 64 tokens: card (kernel) vs CPU "
+          f"(plain) last logits max abs err {errs[0]:.3e}, after one decode "
+          f"step {errs[1]:.3e} (bound {LM_F32_ATOL:g})")
+    assert max(errs) <= LM_F32_ATOL, errs
+    rep["f32_2layer_err_vs_cpu"] = {"prefill": errs[0], "decode": errs[1]}
+    del p32, host, for_card, card_dec
+    torch.cuda.empty_cache()
+    phase("14 (c) rwkv6 2 layers float32, card against CPU")
+    return rep, launches
+
+
+def long_prompt_phase(dev, params, cfg, reset_counts, read_counts):
+    """Phase 15 (d): granite-moe-3b-a800m (the params phase 9 drew) runs
+    prefill on one prompt of 4096 tokens: every layer takes the
+    long-prompt branch, one `flash_attn` launch each (and one
+    `moe_experts`); the last layer's q/k/v are held kernel against plain.
+    Then a 2-layer float32 granite at full width with a 2048-token prompt
+    on the card (kernel) against the CPU (chunked plain attention):
+    last logits within LM_F32_ATOL. Returns (report, launches)."""
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain)
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to
+    from repro_torch.serve.step import build_prefill_step
+
+    prompt = torch.from_numpy(batch_for_step(
+        cfg, 0, global_batch=1, seq_len=LONG_PROMPT, seed=23)["tokens"]
+    ).to(dev)
+    prefill = build_prefill_step(cfg)
+    prefill(params, prompt)                                       # warm-up
+    keep = {"calls": {cfg.n_layers - 1}, "args": []}
+    restore = _capture(layers_mod, "flash_attention", keep)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        last = prefill(params, prompt)[0]
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        restore()
+    print(f"long prompt launches: {counts}")
+    launches = counts["flash_attn"]
+    assert launches == cfg.n_layers, counts
+    assert counts["moe_experts"] == cfg.n_layers, counts
+    assert sum(counts.values()) == 2 * cfg.n_layers, counts
+    assert torch.isfinite(last).all()
+    (q, k, v), kw = keep["args"][0]
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    err = _held_f64("flash_attn", f"served 4096-token prefill, layer "
+                    f"{cfg.n_layers - 1}", got, want,
+                    _flash_f64(q, k, v, **kw), FLASH_TOL)
+    rep = {"arch": LM_ARCH, "prompt": LONG_PROMPT, "prefill_ms": 1e3 * pre_s,
+           "prefill_tokens_per_s": LONG_PROMPT / pre_s, "launches": counts,
+           "captured_layer_err": err}
+    print(f"long prompt: {LM_ARCH} prefill of 1 x {LONG_PROMPT} tokens in "
+          f"{1e3 * pre_s:.3f} ms ({LONG_PROMPT / pre_s:.0f} prompt "
+          f"tokens/s)")
+    del keep, q, k, v, got, want
+
+    # ---- float32, full width, 2 layers, a long prompt: card vs CPU -----
+    from repro_torch.models.layers import CHUNK_THRESHOLD
+
+    cfg32 = cfg.with_(n_layers=2, param_dtype="float32", dtype="float32")
+    p32 = init_params(torch.Generator().manual_seed(1), cfg32, device=dev)
+    toks = torch.from_numpy(batch_for_step(
+        cfg32, 1, global_batch=1, seq_len=CHUNK_THRESHOLD,
+        seed=17)["tokens"])
+    step32 = build_prefill_step(cfg32)
+    before = flash_attention.launches
+    card_last = step32(p32, toks.to(dev))[0]
+    assert flash_attention.launches - before == cfg32.n_layers
+    host_last = step32(params_to(p32, "cpu"), toks)[0]
+    err32 = float((card_last.cpu() - host_last).abs().max())
+    print(f"long prompt float32 2 layers, 1 x {CHUNK_THRESHOLD} tokens: card "
+          f"(flash kernel) vs CPU (chunked plain) last logits max abs err "
+          f"{err32:.3e} (bound {LM_F32_ATOL:g})")
+    assert err32 <= LM_F32_ATOL, err32
+    rep["f32_2layer_err_vs_cpu"] = err32
+    del p32
+    torch.cuda.empty_cache()
+    return rep, launches
+
+
+def mamba_block_phase(dev, reset_counts, read_counts):
+    """Phase 16 (e): Jamba's first layer (a Mamba block with its dense
+    FFN) at full width in bf16 through `lm.apply_block`: a prefill of
+    B 2 x T 2048, then 16 single-token steps against the carried conv /
+    ssm state (one `mamba_scan` launch each: 17). The prefill's and the
+    first decode step's scan inputs are held kernel against plain.
+    Returns (report, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import (
+        mamba_selective_scan_state, mamba_selective_scan_state_plain)
+    from repro_torch.models import lm
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models.init import _Draw, init_block
+    from repro_torch.params import tree_leaves
+
+    cfg = get_config(JAMBA_ARCH)
+    kind, is_moe = cfg.layer_kinds()[0], cfg.layer_is_moe()[0]
+    assert kind == "mamba" and not is_moe
+    p = init_block(_Draw(torch.Generator().manual_seed(3), dev), cfg, kind,
+                   is_moe, torch.bfloat16)
+    n_mamba = sum(t.numel() for t in tree_leaves(p["mamba"]))
+    g = torch.Generator(device=dev).manual_seed(8)
+    d = cfg.d_model
+    x = torch.randn((MAMBA_BATCH, MAMBA_PROMPT, d), device=dev,
+                    generator=g).to(torch.bfloat16)
+    steps = torch.randn((MAMBA_STEPS, MAMBA_BATCH, 1, d), device=dev,
+                        generator=g).to(torch.bfloat16)
+    pos = torch.arange(MAMBA_PROMPT, dtype=torch.int32,
+                       device=dev).expand(MAMBA_BATCH, MAMBA_PROMPT)
+    step_pos = torch.full((MAMBA_BATCH, 1), MAMBA_PROMPT, dtype=torch.int32,
+                          device=dev)
+
+    def block(h, cache=None):
+        return lm.apply_block(p, h, cfg, kind, is_moe,
+                              positions=pos if cache is None else step_pos,
+                              cache=cache)
+
+    with torch.inference_mode():
+        block(x[:, :64])                                          # warm-up
+        keep = {"calls": {0, 1}, "args": []}
+        restore = _capture(mamba_mod, "mamba_selective_scan_state", keep)
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            y, cache, _ = block(x)
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t0
+            step_s = []
+            for i in range(MAMBA_STEPS):
+                t0 = time.perf_counter()
+                y1, cache, _ = block(steps[i], cache)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            counts = read_counts()
+        finally:
+            restore()
+    print(f"mamba block launches: {counts}")
+    launches = counts["mamba_scan"]
+    assert launches == 1 + MAMBA_STEPS and sum(counts.values()) == launches
+    assert y.shape == x.shape and y1.shape == steps[0].shape
+    assert torch.isfinite(y.float()).all() and torch.isfinite(
+        y1.float()).all()
+    st = cache["mamba"]
+    assert st["ssm"].dtype == torch.float32 and torch.isfinite(
+        st["ssm"]).all()
+    errs = {}
+    for (args, kw), label in zip(keep["args"], ("prefill", "decode step 1")):
+        assert (args[-1] is None) == (label == "prefill")
+        got = mamba_selective_scan_state(*args, **kw)
+        want = mamba_selective_scan_state_plain(*args, **kw)
+        ref = _mamba_f64(*args, **kw)
+        errs[label] = {
+            "y": _held_f64("mamba_scan", f"Jamba block {label}: y", got[0],
+                           want[0], ref[0], SCAN_TOL),
+            "state": _held_f64("mamba_scan", f"Jamba block {label}: final "
+                               f"state", got[1], want[1], ref[1], SCAN_TOL)}
+    decode_ms = 1e3 * statistics.fmean(step_s)
+    rep = {"arch": JAMBA_ARCH, "layer": "0 (mamba, dense FFN)",
+           "mamba_params": n_mamba, "batch": MAMBA_BATCH,
+           "prompt": MAMBA_PROMPT, "steps": MAMBA_STEPS,
+           "prefill_ms": 1e3 * pre_s, "decode_ms_per_step": decode_ms,
+           "decode_step_ms": [1e3 * s for s in step_s], "launches": counts,
+           "captured_err": errs}
+    print(f"mamba block: {JAMBA_ARCH} layer 0 ({n_mamba / 1e9:.3f} B Mamba "
+          f"params, d_inner {cfg.mamba_d_inner}, N {cfg.mamba_d_state}, "
+          f"dt_rank {cfg.dt_rank}, bf16): prefill {MAMBA_BATCH} x "
+          f"{MAMBA_PROMPT} tokens {1e3 * pre_s:.3f} ms, decode "
+          f"{decode_ms:.3f} ms/step over {MAMBA_STEPS} steps")
+    del p, x, steps, cache, keep
+    torch.cuda.empty_cache()
+    return rep, launches
+
+
+def hybrid_phase(dev, reset_counts, read_counts):
+    """Phase 17 (f): the reduced Jamba hybrid (`reduced_config`: 16 layers
+    of mamba, attention and MoE) in float32 with `moe_use_kernel`, params
+    drawn on the CPU and copied: `greedy_generate` of 8 tokens after 2
+    prompts of 2048 tokens (long enough for the flash kernel) on the card
+    (kernels) and on the CPU (plain): tokens equal, prefill logits within
+    LM_F32_ATOL. Returns the report."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to
+    from repro_torch.serve.step import build_prefill_step, greedy_generate
+
+    cfg = reduced_config(JAMBA_ARCH).with_(moe_use_kernel=True)
+    host = init_params(torch.Generator().manual_seed(2), cfg, device="cpu")
+    card = params_to(host, dev)
+    prompt = torch.from_numpy(batch_for_step(
+        cfg, 0, global_batch=2, seq_len=HYBRID_PROMPT, seed=29)["tokens"])
+    reset_counts()
+    card_toks = greedy_generate(card, cfg, prompt, max_new=HYBRID_NEW,
+                                device=dev)
+    counts = read_counts()
+    kinds = cfg.layer_kinds() * cfg.n_groups
+    n_moe = sum(cfg.layer_is_moe()) * cfg.n_groups
+    assert counts["mamba_scan"] == HYBRID_NEW * kinds.count("mamba"), counts
+    assert counts["flash_attn"] == kinds.count("attn"), counts
+    assert counts["moe_experts"] == HYBRID_NEW * n_moe, counts
+    host_toks = greedy_generate(host, cfg, prompt, max_new=HYBRID_NEW,
+                                device="cpu")
+    same = bool(torch.equal(card_toks.cpu(), host_toks))
+    step = build_prefill_step(cfg)
+    err = float((step(card, prompt.to(dev))[0].cpu()
+                 - step(host, prompt)[0]).abs().max())
+    print(f"hybrid: reduced {JAMBA_ARCH} ({cfg.n_layers} layers: "
+          f"{kinds.count('mamba')} mamba, {kinds.count('attn')} attention, "
+          f"{n_moe} MoE; float32), 2 x {HYBRID_PROMPT}-token prompts, "
+          f"{HYBRID_NEW} tokens: launches {counts}; tokens equal to the "
+          f"CPU's {same}; prefill logits max abs err {err:.3e} (bound "
+          f"{LM_F32_ATOL:g})")
+    assert same and err <= LM_F32_ATOL, (same, err)
+    return {"arch": JAMBA_ARCH, "layers": cfg.n_layers,
+            "prompt": HYBRID_PROMPT, "new_tokens": HYBRID_NEW,
+            "launches": counts, "tokens_equal": same,
+            "prefill_logits_err_vs_cpu": err}
 
 
 class RequestTimer:
@@ -1182,10 +1970,12 @@ class RequestTimer:
 
 
 def kernel_device_ms(fn, symbols, iters: int = 20) -> float | None:
-    """Mean device time (ms) per call of `fn` of the CUDA kernels whose
-    names contain one of `symbols` (a string or a tuple), from a
-    `torch.profiler` trace of `iters` warm calls; None when the trace holds
-    no device time for them."""
+    """Device time (ms) per call of `fn` of the CUDA kernels whose names
+    contain one of `symbols` (a string or a tuple), from a `torch.profiler`
+    trace of `iters` warm calls: each kernel's time is averaged over the
+    launches the trace recorded (it can drop some: it kept 1 of 5 launches
+    of a 25 ms kernel), and the kernels of one call are summed. None when
+    the trace holds no device time for them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1195,13 +1985,19 @@ def kernel_device_ms(fn, symbols, iters: int = 20) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    ms, traced = 0.0, []
     for ev in prof.key_averages():
         if any(sym in ev.key for sym in (
                 (symbols,) if isinstance(symbols, str) else symbols)):
-            us += getattr(ev, "device_time_total",
-                          getattr(ev, "cuda_time_total", 0.0))
-    return us / iters / 1e3 if us > 0 else None
+            us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0))
+            if us > 0 and ev.count:
+                ms += us / ev.count / 1e3
+                traced.append(ev.count)
+    if any(n != iters for n in traced):
+        print(f"  (the profiler traced {traced} of {iters} launches of "
+              f"{symbols})")
+    return ms if ms > 0 else None
 
 
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:

@@ -37,7 +37,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: the libraries that take the `SimgnnParams` struct
 SIMGNN_SOURCES = ("sparse_pair", "packed_pair", "fused_pair", "fused_gcn",
                   "simgnn_head", "retrieval")
-SOURCES = SIMGNN_SOURCES + ("moe_experts",)
+SOURCES = SIMGNN_SOURCES + ("moe_experts", "flash_attn", "wkv6",
+                            "mamba_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -20,7 +20,10 @@ the CPU:
     one embedding launch, then the head;
   * `blocked_topm`, `blocked_topm_ntn`, `collapse_query_ntn`,
     `retrieval_block_cols` — the retrieval prefilter scans
-    (`kernels/retrieval.py`), re-exported.
+    (`kernels/retrieval.py`), re-exported;
+  * `flash_attention` and `wkv6` — the LM substrate's attention and RWKV
+    kernels (`kernels/flash_attn.py`, `kernels/wkv6.py`), re-exported as
+    the JAX package's ops module does.
 
 The CUDA kernels run one CTA per pair or tile and take any batch size, so
 the JAX wrappers' block policies (`megakernel_block_pairs`,
@@ -37,6 +40,7 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.fused_gcn import fused_gcn_att
 from repro_torch.kernels.fused_pair import fused_pair_score
 from repro_torch.kernels.packed_pair import packed_pair_score
@@ -45,9 +49,10 @@ from repro_torch.kernels.retrieval import (blocked_topm, blocked_topm_ntn,
                                            retrieval_block_cols)
 from repro_torch.kernels.simgnn_head import simgnn_head
 from repro_torch.kernels.sparse_pair import sparse_pair_score
+from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.params import params_to
 
-__all__ = ["graph_embeddings_fused", "pair_scores_fused",
+__all__ = ["flash_attention", "wkv6", "graph_embeddings_fused", "pair_scores_fused",
            "simgnn_pair_score_kernel", "pair_score_megakernel",
            "pair_score_packed", "packed_node_budget", "pair_score_sparse",
            "packed_edge_budget", "blocked_topm", "blocked_topm_ntn",

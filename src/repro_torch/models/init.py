@@ -10,9 +10,8 @@ keys, key order (sorted, as JAX returns a vmapped dict), shapes and dtypes.
 the parity tests convert the JAX package's params (`params.
 params_from_numpy`) instead of re-initializing. Every leaf is drawn on the
 target device from a device generator seeded by the caller's generator, so
-a 3B-parameter tree is never copied from the host. Mamba, RWKV, cross-
-attention and enc-dec blocks are not ported yet (ROADMAP Queue 2, the
-path-less kernels with their model modules; Queue 1, enc-dec/VLM).
+a 3B-parameter tree is never copied from the host. Cross-attention and
+enc-dec blocks are not ported yet (ROADMAP Queue 1, enc-dec/VLM).
 """
 
 from __future__ import annotations
@@ -98,22 +97,83 @@ def init_moe(draw: _Draw, cfg: ModelConfig, dtype, stack=None):
                                 stack=stack)}
 
 
+def _full(draw: _Draw, shape, value, dtype, stack=None):
+    lead = () if stack is None else (stack,)
+    return torch.full(lead + tuple(shape), value, dtype=dtype,
+                      device=draw.device)
+
+
+def init_mamba(draw: _Draw, cfg: ModelConfig, dtype, stack=None):
+    d, din, n, r = cfg.d_model, cfg.mamba_d_inner, cfg.mamba_d_state, \
+        cfg.dt_rank
+    lead = () if stack is None else (stack,)
+    # softplus^-1 of uniform [1e-3, 1e-1]
+    dt = torch.empty(lead + (din,), dtype=torch.float32, device=draw.device)
+    dt.uniform_(1e-3, 1e-1, generator=draw.gen)
+    # S4D-real A init: A[:, j] = -(j+1) -> a_log = log(j+1)
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=draw.device)
+    return {
+        "in_proj": draw.dense((d, 2 * din), dtype, stack=stack),
+        "conv_w": draw.dense((din, cfg.mamba_d_conv), dtype, 0.3,
+                             stack=stack),
+        "conv_b": _full(draw, (din,), 0.0, dtype, stack),
+        "x_proj": draw.dense((din, r + 2 * n), dtype, stack=stack),
+        "dt_proj": draw.dense((r, din), dtype, r ** -0.5, stack=stack),
+        "dt_bias": torch.log(torch.expm1(dt)),
+        "a_log": torch.log(a).expand(lead + (din, n)).contiguous(),
+        "d": _full(draw, (din,), 1.0, torch.float32, stack),
+        "out_proj": draw.dense((din, d), dtype, _out_scale(cfg),
+                               stack=stack),
+    }
+
+
+def init_rwkv(draw: _Draw, cfg: ModelConfig, dtype, stack=None):
+    d, lora_rank = cfg.d_model, 32
+    h, hk = cfg.n_rwkv_heads, cfg.rwkv_head_dim
+    p = {name: draw.dense((d, d), dtype, stack=stack)
+         for name in ("wr", "wk", "wv", "wg")}
+    p.update({
+        "wo": draw.dense((d, d), dtype, _out_scale(cfg), stack=stack),
+        "lora_a_w": draw.dense((d, lora_rank), dtype, stack=stack),
+        "lora_b_w": draw.dense((lora_rank, d), dtype, 0.01, stack=stack),
+        "w0": _full(draw, (h, hk), -6.0, torch.float32, stack),
+        "u": draw.dense((h, hk), torch.float32, 0.5, stack=stack),
+    })
+    for name in ("r", "k", "v", "g", "w"):
+        p[f"mix_{name}"] = _full(draw, (d,), 0.5, dtype, stack)
+    return p
+
+
+def init_cmix(draw: _Draw, cfg: ModelConfig, dtype, stack=None):
+    d = cfg.d_model
+    return {"w_in": draw.dense((d, cfg.d_ff), dtype, stack=stack),
+            "w_out": draw.dense((cfg.d_ff, d), dtype, _out_scale(cfg),
+                                stack=stack),
+            "wr": draw.dense((d, d), dtype, stack=stack),
+            "mix_ck": _full(draw, (d,), 0.5, dtype, stack),
+            "mix_cr": _full(draw, (d,), 0.5, dtype, stack)}
+
+
+_MIXERS = {"attn": ("attn", init_attn), "attn_local": ("attn", init_attn),
+           "mamba": ("mamba", init_mamba), "rwkv": ("rwkv", init_rwkv)}
+
+
 def init_block(draw: _Draw, cfg: ModelConfig, kind: str, is_moe: bool,
                dtype, stack=None):
-    """One layer's params for an attention kind (leaves [stack, ...] when
+    """One layer's params for a block kind (leaves [stack, ...] when
     `stack` is given)."""
-    if kind not in ("attn", "attn_local"):
-        raise NotImplementedError(
-            f"{kind!r} blocks are not ported yet (ROADMAP Queue 2: the "
-            f"path-less kernels wkv6 / mamba_selective_scan with their model "
-            f"modules)")
+    if kind not in _MIXERS:
+        raise ValueError(kind)
     d, dev = cfg.d_model, draw.device
+    name, init_mixer = _MIXERS[kind]
     p = {"ln1": _norm(d, dtype, dev, stack),
-         "attn": init_attn(draw, cfg, dtype, stack)}
+         name: init_mixer(draw, cfg, dtype, stack)}
     if cfg.post_block_norm:
         p["post_ln1"] = _norm(d, dtype, dev, stack)
     p["ln2"] = _norm(d, dtype, dev, stack)
-    if is_moe:
+    if kind == "rwkv":
+        p["cmix"] = init_cmix(draw, cfg, dtype, stack)
+    elif is_moe:
         p["moe"] = init_moe(draw, cfg, dtype, stack)
     else:
         p["mlp"] = init_mlp(draw, cfg, dtype, stack)

@@ -4,12 +4,17 @@
 Attention has two exact paths, as in the JAX package:
   * dense — score matrix materialized; used for short sequences and for
     single-token decode against a KV cache (scores are [B,H,1,S] — tiny);
-  * chunked — a loop over KV blocks with online softmax (the FlashAttention
-    recurrence in plain PyTorch); used for prompts of `CHUNK_THRESHOLD`
-    tokens or more so the [T,S] score matrix never materializes.
+  * chunked — online softmax over KV blocks, so the [T,S] score matrix
+    never materializes; used for prompts of `CHUNK_THRESHOLD` tokens or
+    more. On CUDA tensors it is the kernel `kernels.flash_attn.
+    flash_attention` (`csrc/flash_attn.cu`, the realization the JAX package
+    names for this recurrence), one launch per layer; on CPU tensors the
+    plain loop `chunked_attention_core`. The kernel masks by index from 0,
+    which equals the positions' masks because prefill positions are
+    arange(S).
 
-All of it is plain PyTorch: the JAX package computes these products with
-XLA outside any Pallas kernel. Masks follow the JAX package's causal,
+The rest is plain PyTorch, as the JAX package computes it with XLA
+outside any Pallas kernel. Masks follow the JAX package's causal,
 sliding-window and softcap semantics. `cross_attention` (enc-dec) is not
 ported yet (ROADMAP Queue 1, the enc-dec/VLM slice).
 """
@@ -17,6 +22,8 @@ ported yet (ROADMAP Queue 1, the enc-dec/VLM slice).
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.flash_attn import flash_attention
 
 NEG_INF = -1e30
 CHUNK_THRESHOLD = 2048
@@ -166,7 +173,12 @@ def self_attention(p, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     q, k, v = _qkv(p, x, cfg, positions)
 
     if cache is None:
-        if x.shape[1] >= CHUNK_THRESHOLD:
+        if x.shape[1] >= CHUNK_THRESHOLD and q.is_cuda:
+            # prefill positions are arange(S) (`lm._embed_inputs`), which is
+            # what the kernel's index-based masks assume
+            out = flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=cfg.attn_softcap)
+        elif x.shape[1] >= CHUNK_THRESHOLD:
             out = chunked_attention_core(q, k, v, cfg, q_pos=positions,
                                          kv_pos=positions, causal=True,
                                          window=window)

@@ -1,14 +1,15 @@
-"""LM assembly for attention-block decoders: block dispatch, the group
-stack, forward / prefill / decode — port of `repro.models.lm`.
+"""LM assembly for decoder LMs: block dispatch, the group stack, forward /
+prefill / decode — port of `repro.models.lm`.
 
 The layer stack is a plain loop over groups (the JAX package runs it under
 `lax.scan`; serving needs no remat). Params and caches keep the JAX
 layout: a list over group positions whose leaves are stacked [G, ...];
-  attn -> {"k","v" [G,B,W,KV,hd], "pos" [G,B,W]}   (W = window for local)
+  attn  -> {"k","v" [G,B,W,KV,hd], "pos" [G,B,W]}   (W = window for local)
+  mamba -> {"conv" [G,B,K-1,Din], "ssm" [G,B,Din,N] float32}
+  rwkv  -> {"shift_t","shift_c" [G,B,1,D], "wkv" [G,B,H,K,V] float32}
 
-Not ported yet, and raising `NotImplementedError`: mamba and rwkv blocks
-(ROADMAP Queue 2, with the wkv6 / mamba_selective_scan kernels), enc-dec
-and cross-attention (Queue 1, enc-dec/VLM), and `lm_loss` (Queue 1,
+Not ported yet, and raising `NotImplementedError`: enc-dec and
+cross-attention (ROADMAP Queue 1, enc-dec/VLM) and `lm_loss` (Queue 1,
 training).
 """
 
@@ -16,45 +17,63 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import torch_dtype
+from repro_torch.models.mamba import mamba_block
 from repro_torch.models.moe import moe_ffn
 from repro_torch.params import tree_map
 
 _ATTN = ("attn", "attn_local")
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in _ATTN:
-        raise NotImplementedError(
-            f"{kind!r} blocks are not ported yet (ROADMAP Queue 2: the "
-            f"path-less kernels wkv6 / mamba_selective_scan with their model "
-            f"modules)")
-
-
 # ------------------------------------------------------------------ blocks
+
+def _mixer(p, h, cfg, kind: str, positions, cache, cache_pos):
+    """The block's sequence mixer: (y, its new cache entry). Prefill
+    (cache None) gives {"attn_kv": (k, v)} for attention and the final
+    state for mamba / rwkv; decode gives the updated cache entry."""
+    if kind in _ATTN:
+        y, c = layers.self_attention(
+            p["attn"], h, cfg, positions=positions,
+            local=(kind == "attn_local"),
+            cache=None if cache is None else cache["attn"],
+            cache_pos=cache_pos)
+        return y, ({"attn_kv": c} if cache is None else {"attn": c})
+    if kind == "mamba":
+        y, c = mamba_block(p["mamba"], h, cfg,
+                           state=None if cache is None else cache["mamba"])
+        return y, {"mamba": c}
+    if kind == "rwkv":
+        st = None if cache is None else cache["rwkv"]
+        y, shift_t, wkv = rwkv6.time_mix(
+            p["rwkv"], h, cfg,
+            shift_state=None if st is None else st["shift_t"],
+            wkv_state=None if st is None else st["wkv"])
+        return y, {"rwkv": {"shift_t": shift_t, "wkv": wkv}}
+    raise ValueError(kind)
+
 
 def apply_block(p, x: torch.Tensor, cfg, kind: str, is_moe: bool, *,
                 positions: torch.Tensor, cache=None, cache_pos=None):
-    """One layer: (attention + residual) then (FFN + residual). Returns
-    (x, new_cache, aux_loss); new_cache is {"attn": ring cache} in decode
-    and {"attn_kv": (k, v)} in prefill."""
-    _check_kind(kind)
+    """One layer: (mixer + residual) then (FFN + residual). Returns
+    (x, new_cache, aux_loss)."""
     h = layers.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
-    y, c = layers.self_attention(
-        p["attn"], h, cfg, positions=positions, local=(kind == "attn_local"),
-        cache=None if cache is None else cache["attn"], cache_pos=cache_pos)
-    new_cache = {"attn_kv": c} if cache is None else {"attn": c}
+    y, new_cache = _mixer(p, h, cfg, kind, positions, cache, cache_pos)
     if cfg.post_block_norm:
         y = layers.rmsnorm(y, p["post_ln1"]["scale"], cfg.norm_eps)
     x = x + y
 
     h = layers.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
-    if is_moe:
+    aux = 0.0
+    if kind == "rwkv":
+        y, new_cache["rwkv"]["shift_c"] = rwkv6.channel_mix(
+            p["cmix"], h,
+            shift_state=None if cache is None else cache["rwkv"]["shift_c"])
+    elif is_moe:
         y, aux = moe_ffn(p["moe"], h, cfg)
     else:
-        y, aux = layers.swiglu_mlp(p["mlp"], h), 0.0
+        y = layers.swiglu_mlp(p["mlp"], h)
     if cfg.post_block_norm:
         y = layers.rmsnorm(y, p["post_ln2"]["scale"], cfg.norm_eps)
     return x + y, new_cache, aux
@@ -151,21 +170,36 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     g = cfg.n_groups
     quant = cfg.kv_cache_dtype == "int8"
     kv_dtype = torch.int8 if quant else dtype
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
     caches = []
     for kind in cfg.layer_kinds():
-        _check_kind(kind)
-        w = _attn_alloc(cfg, kind, cache_len)
-        shape = (g, batch, w, cfg.n_kv_heads, cfg.head_dim)
-        c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
-             "v": torch.zeros(shape, dtype=kv_dtype, device=device),
-             "pos": torch.full((g, batch, w), -1, dtype=torch.int32,
-                               device=device)}
-        if quant:
-            c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                       device=device)
-            c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                       device=device)
-        caches.append({"attn": c})
+        if kind in _ATTN:
+            w = _attn_alloc(cfg, kind, cache_len)
+            shape = (g, batch, w, cfg.n_kv_heads, cfg.head_dim)
+            c = {"k": zeros(shape, kv_dtype), "v": zeros(shape, kv_dtype),
+                 "pos": torch.full((g, batch, w), -1, dtype=torch.int32,
+                                   device=device)}
+            if quant:
+                c["k_scale"] = zeros(shape[:-1], torch.float32)
+                c["v_scale"] = zeros(shape[:-1], torch.float32)
+            caches.append({"attn": c})
+        elif kind == "mamba":
+            caches.append({"mamba": {
+                "conv": zeros((g, batch, cfg.mamba_d_conv - 1,
+                               cfg.mamba_d_inner)),
+                "ssm": zeros((g, batch, cfg.mamba_d_inner,
+                              cfg.mamba_d_state), torch.float32)}})
+        elif kind == "rwkv":
+            h, hk = cfg.n_rwkv_heads, cfg.rwkv_head_dim
+            caches.append({"rwkv": {
+                "shift_t": zeros((g, batch, 1, cfg.d_model)),
+                "shift_c": zeros((g, batch, 1, cfg.d_model)),
+                "wkv": zeros((g, batch, h, hk, hk), torch.float32)}})
+        else:
+            raise ValueError(kind)
     return caches
 
 
@@ -177,10 +211,14 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     cache_len = cache_len or s
     x, kv_stacks, _ = _run_groups(params, cfg, x, positions=positions)
 
-    # Build the decode cache from the per-layer (k, v) stacks.
+    # Build the decode cache from the per-layer (k, v) stacks; mamba and
+    # rwkv layers hand over their final states as they are.
     caches = init_cache(cfg, b, cache_len, device=x.device)
     quant = cfg.kv_cache_dtype == "int8"
     for j, c in enumerate(caches):
+        if "attn" not in c:
+            caches[j] = kv_stacks[j]
+            continue
         c = c["attn"]
         k_all, v_all = kv_stacks[j]["attn_kv"]                # [G,B,S,KV,hd]
         w = c["k"].shape[2]

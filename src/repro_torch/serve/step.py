@@ -1,10 +1,14 @@
-"""Serving steps: prefill, decode and greedy generation for attention-block
-decoder LMs — port of `repro.serve.step`.
+"""Serving steps: prefill, decode and greedy generation for decoder LMs
+(attention, mamba and rwkv blocks: dense, MoE, RWKV-6 and the Jamba
+hybrid) — port of `repro.serve.step`.
 
 The JAX package jits each step; the port runs them eagerly under
-`torch.inference_mode`. With `cfg.moe_use_kernel` every MoE layer's expert
-FFN is one launch of the CUDA kernel `csrc/moe_experts.cu` on the card.
-Enc-dec models are not ported yet (ROADMAP Queue 1, enc-dec/VLM).
+`torch.inference_mode`. On the card the model's kernels launch from the
+layers: with `cfg.moe_use_kernel` every MoE layer's expert FFN is one
+launch of `csrc/moe_experts.cu`; every rwkv layer runs `csrc/wkv6.cu` and
+every mamba layer `csrc/mamba_scan.cu` once per step; prompts of 2048
+tokens or more run `csrc/flash_attn.cu` once per attention layer in
+prefill. Enc-dec models are not ported yet (ROADMAP Queue 1, enc-dec/VLM).
 """
 
 from __future__ import annotations

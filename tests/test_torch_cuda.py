@@ -15,6 +15,9 @@ top-M indices exact on inputs whose score gaps are wider than that.
 The MoE expert kernel: float32 rtol 1e-5 / atol 1e-6 (the JAX kernel
 sweep's bound) at the model's weight scale; bfloat16 one bf16 ulp of the
 value plus that float32 bound (both sides round one float32 sum once).
+The wkv6 and mamba scans: rtol 1e-4 / atol 1e-5, flash attention rtol
+2e-4 / atol 2e-5 (the JAX kernel sweeps' bounds, tests/test_kernels.py);
+outputs rounded to bfloat16 within one bf16 ulp plus that bound.
 """
 
 import numpy as np
@@ -39,8 +42,15 @@ from repro_torch.kernels.sparse_pair import (sparse_pair_score,
                                              sparse_pair_score_plain)
 from repro_torch.serve.search import SimilaritySearchServer
 from repro_torch.configs import reduced_config
+from repro_torch.kernels.flash_attn import (flash_attention,
+                                            flash_attention_plain)
+from repro_torch.kernels.mamba_scan import (
+    mamba_selective_scan, mamba_selective_scan_plain,
+    mamba_selective_scan_state, mamba_selective_scan_state_plain)
 from repro_torch.kernels.moe_experts import (moe_expert_ffn,
                                              moe_expert_ffn_plain)
+from repro_torch.kernels.wkv6 import (wkv6, wkv6_plain, wkv6_state,
+                                      wkv6_state_plain)
 from repro_torch.models import moe as tmoe
 from repro_torch.models.init import init_params as init_lm_params
 from repro_torch.params import params_to
@@ -542,4 +552,225 @@ def test_lm_on_the_card_matches_the_cpu(cuda, arch):
     launched = moe_expert_ffn.launches - before
     want = greedy_generate(host, cfg, prompt, max_new=5, device="cpu")
     assert launched == 5 * cfg.n_layers
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# ------------------------------------------- wkv6, flash_attn, mamba_scan
+
+SCAN_TOL = dict(rtol=1e-4, atol=1e-5)
+FLASH_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def _excess(got, want, tol):
+    """max(|got - want| - (one bf16 ulp of want + the float32 bound));
+    <= 0 passes."""
+    want = want.float()
+    _, ex = torch.frexp(want.abs())
+    ulp = torch.ldexp(torch.ones_like(want), ex - 8)
+    bound = ulp + tol["atol"] + tol["rtol"] * want.abs()
+    return float(((got.float() - want).abs() - bound).max())
+
+
+def _randn(g, shape, dev, scale=1.0):
+    return torch.randn(shape, device=dev, generator=g) * scale
+
+
+WKV_CASES = {  # (B, T, H, K, V): ragged time blocks, padded K, odd V
+    "odd": (3, 37, 5, 24, 40),
+    "head64": (2, 40, 4, 64, 64),
+    "widest": (1, 9, 2, 128, 256),
+    "tiny": (2, 1, 3, 5, 3),
+}
+
+
+def _wkv_inputs(dev, b, t, h, kd, vd, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k = (_randn(g, (b, t, h, kd), dev, 0.5) for _ in range(2))
+    v = _randn(g, (b, t, h, vd), dev, 0.5)
+    w = torch.sigmoid(_randn(g, (b, t, h, kd), dev))
+    u = _randn(g, (h, kd), dev, 0.1)
+    s0 = _randn(g, (b, h, kd, vd), dev, 0.5)
+    return [x.to(dtype) for x in (r, k, v)] + [w, u, s0]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("case", sorted(WKV_CASES))
+def test_wkv6_kernel_matches_plain(cuda, case, dtype):
+    """o and the final state, from a zero and from a given state; the JAX
+    entry `wkv6` rounds o to r's dtype."""
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, *WKV_CASES[case], dtype)
+    for init in (None, s0):
+        before = wkv6_state.launches
+        got_o, got_s = wkv6_state(r, k, v, w, u, init)
+        want_o, want_s = wkv6_state_plain(r, k, v, w, u, init)
+        torch.cuda.synchronize()
+        assert wkv6_state.launches == before + 1
+        assert got_o.dtype == torch.float32 and got_s.dtype == torch.float32
+        torch.testing.assert_close(got_o, want_o, **SCAN_TOL)
+        torch.testing.assert_close(got_s, want_s, **SCAN_TOL)
+    got, want = wkv6(r, k, v, w, u), wkv6_plain(r, k, v, w, u)
+    assert got.dtype == dtype and got.shape == v.shape
+    assert _excess(got, want.float(), SCAN_TOL) <= 0
+
+
+def test_wkv6_state_carries_across_calls(cuda):
+    """Two launches with the state handed over equal one launch over the
+    whole sequence (decode's use of the kernel at T = 1)."""
+    r, k, v, w, u, _ = _wkv_inputs(cuda, 2, 20, 3, 16, 16, torch.float32)
+    whole_o, whole_s = wkv6_state(r, k, v, w, u)
+    head, tail = ([x[:, sl].contiguous() for x in (r, k, v, w)]
+                  for sl in (slice(0, 19), slice(19, None)))
+    o1, s1 = wkv6_state(*head, u)
+    o2, s2 = wkv6_state(*tail, u, s1)
+    torch.testing.assert_close(torch.cat([o1, o2], 1), whole_o, **SCAN_TOL)
+    torch.testing.assert_close(s2, whole_s, **SCAN_TOL)
+
+
+MAMBA_CASES = {  # (B, T, Din, N)
+    "odd": (2, 45, 200, 16),
+    "small_n": (1, 33, 70, 5),
+    "widest_n": (3, 20, 130, 32),
+}
+
+
+def _mamba_inputs(dev, bsz, t, din, n, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.nn.functional.softplus(_randn(g, (bsz, t, din), dev)) * 0.1
+    x = _randn(g, (bsz, t, din), dev)
+    b, c = (_randn(g, (bsz, t, n), dev, 0.5) for _ in range(2))
+    a = -torch.exp(_randn(g, (din, n), dev, 0.3))
+    d = _randn(g, (din,), dev)
+    h0 = _randn(g, (bsz, din, n), dev, 0.5)
+    return [dt.to(dtype), x.to(dtype), b, c, a, d, h0]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("case", sorted(MAMBA_CASES))
+def test_mamba_scan_kernel_matches_plain(cuda, case, dtype):
+    dt, x, b, c, a, d, h0 = _mamba_inputs(cuda, *MAMBA_CASES[case], dtype)
+    for init in (None, h0):
+        before = mamba_selective_scan_state.launches
+        got_y, got_h = mamba_selective_scan_state(dt, x, b, c, a, d, init)
+        want_y, want_h = mamba_selective_scan_state_plain(dt, x, b, c, a, d,
+                                                          init)
+        torch.cuda.synchronize()
+        assert mamba_selective_scan_state.launches == before + 1
+        torch.testing.assert_close(got_y, want_y, **SCAN_TOL)
+        torch.testing.assert_close(got_h, want_h, **SCAN_TOL)
+    got = mamba_selective_scan(dt, x, b, c, a, d)
+    want = mamba_selective_scan_plain(dt, x, b, c, a, d)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _excess(got, want.float(), SCAN_TOL) <= 0
+
+
+FLASH_CASES = {  # (B, T, S, H, KV, D, causal, window, softcap)
+    "odd_gqa": (2, 77, 77, 6, 3, 40, True, None, None),
+    "t_above_s": (1, 100, 37, 4, 2, 64, True, None, None),
+    "t_below_s": (1, 37, 100, 4, 2, 64, True, None, None),
+    "window_softcap_d96": (1, 130, 130, 4, 1, 96, True, 17, 30.0),
+    "not_causal": (2, 65, 90, 4, 4, 16, False, None, None),
+    "d256_window_softcap": (1, 70, 70, 2, 1, 256, True, 32, 50.0),
+    "masked_rows": (1, 128, 32, 2, 2, 32, True, 16, None),
+    "d120": (1, 66, 66, 3, 1, 120, True, None, None),
+}
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    b, t, s, h, kv, d, causal, window, softcap = FLASH_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(g, (b, t, h, d), cuda).to(dtype)
+    k, v = (_randn(g, (b, s, kv, d), cuda).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **FLASH_TOL)
+    else:
+        assert _excess(got, want, FLASH_TOL) <= 0
+    if case == "masked_rows":            # rows t >= S + window - 1 see nothing
+        assert float(got[:, s + window - 1:].float().abs().max()) == 0.0
+        assert float(got[:, :s + window - 1].float().abs().max()) > 0.0
+
+
+def test_new_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """A wrong dtype, shape or layout raises on CUDA tensors; nothing runs
+    the plain version there and no launch is counted."""
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 2, 5, 3, 16, 16, torch.float32)
+    counts = (wkv6_state.launches, flash_attention.launches,
+              mamba_selective_scan_state.launches)
+    with pytest.raises(ValueError, match="mixed"):
+        wkv6_state(r, k, v, w.cpu(), u)
+    with pytest.raises(ValueError, match="one dtype"):
+        wkv6_state(r.double(), k.double(), v.double(), w, u)
+    with pytest.raises(ValueError, match="one dtype"):
+        wkv6_state(r, k.bfloat16(), v, w, u)
+    with pytest.raises(ValueError, match="disagree"):
+        wkv6_state(r, k[:, :4], v, w, u)
+    with pytest.raises(ValueError, match="float32 s0"):
+        wkv6_state(r, k, v, w, u, s0.bfloat16())
+    with pytest.raises(ValueError, match="K <= 128"):
+        big = torch.zeros((1, 2, 1, 130), device=cuda)
+        wkv6_state(big, big, big[..., :4], big, big[0, 0])
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6_state(r.transpose(0, 1).contiguous().transpose(0, 1), k, v, w,
+                   u)
+    q = torch.zeros((1, 8, 4, 32), device=cuda)
+    kk = torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention(q.half(), kk.half(), kk.half())
+    with pytest.raises(ValueError, match="H % KV"):
+        flash_attention(q[:, :, :3], kk, kk)
+    with pytest.raises(ValueError, match="D <= 256"):
+        big = torch.zeros((1, 4, 1, 264), device=cuda)
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), kk,
+                        kk)
+    dt, x, b, c, a, d, h0 = _mamba_inputs(cuda, 2, 6, 10, 4, torch.float32)
+    with pytest.raises(ValueError, match="one dtype"):
+        mamba_selective_scan_state(dt.bfloat16(), x, b, c, a, d)
+    with pytest.raises(ValueError, match="disagree"):
+        mamba_selective_scan_state(dt, x, b[:, :5], c, a, d)
+    with pytest.raises(ValueError, match="N <= 32"):
+        wide = torch.zeros((2, 6, 40), device=cuda)
+        mamba_selective_scan_state(dt, x, wide, wide,
+                                   torch.zeros((10, 40), device=cuda), d)
+    with pytest.raises(ValueError, match="float32 h0"):
+        mamba_selective_scan_state(dt, x, b, c, a, d, h0.bfloat16())
+    assert counts == (wkv6_state.launches, flash_attention.launches,
+                      mamba_selective_scan_state.launches)
+
+
+@pytest.mark.parametrize("arch,prompt_len", (("rwkv6-7b", 12),
+                                             ("jamba-1.5-large-398b", 2048)))
+def test_recurrent_lm_on_the_card_matches_the_cpu(cuda, arch, prompt_len):
+    """Reduced float32 rwkv6 and Jamba hybrid (mamba + attention + MoE,
+    a prompt long enough for the flash kernel) served on the card and on
+    the CPU: the same greedy tokens, one scan launch per recurrent layer
+    and step, one flash launch per attention layer in prefill."""
+    cfg = reduced_config(arch).with_(moe_use_kernel=True)
+    host = init_lm_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, prompt_len)).astype(np.int32))
+    kinds = cfg.layer_kinds() * cfg.n_groups
+    before = (wkv6_state.launches, mamba_selective_scan_state.launches,
+              flash_attention.launches)
+    got = greedy_generate(params_to(host, cuda), cfg, prompt, max_new=5)
+    launched = (wkv6_state.launches - before[0],
+                mamba_selective_scan_state.launches - before[1],
+                flash_attention.launches - before[2])
+    want = greedy_generate(host, cfg, prompt, max_new=5, device="cpu")
+    assert launched == (5 * kinds.count("rwkv"), 5 * kinds.count("mamba"),
+                        kinds.count("attn") if prompt_len >= 2048 else 0)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
