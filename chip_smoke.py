@@ -31,7 +31,10 @@ Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as the last line `{"ok": true, "device":
 {...}}`. Kernel `ms` is the kernel's device time from `torch.profiler`
-(mean of warm launches; both passes for the top-M scans);
+(mean of warm launches; both passes for the top-M scans, both launches of
+a bf16 expert FFN call); the bf16 `moe_experts` and `flash_attn` calls run
+tensor-core kernels, and each call's path and tiling is printed beside
+the float32 FMA body's time at the same shape;
 the wrapper call and the plain version are timed with CUDA events (warm,
 median); bounds come from this run's inputs against the H100 SXM peaks of
 67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16 expert FFN and the bf16
@@ -122,6 +125,13 @@ WKV_SERVED = (LM_BATCH, LM_PROMPT, 64, 64, 64)
 MAMBA_SERVED = (MAMBA_BATCH, MAMBA_PROMPT, 16384, 16)
 SCAN_TOL = dict(rtol=1e-4, atol=1e-5)
 FLASH_TOL = dict(rtol=2e-4, atol=2e-5)
+#: the kernels behind each of the two tensor-core wrappers, as the
+#: profiler names them: bf16 calls launch the wgmma kernels (an expert FFN
+#: call two of them, whose times are summed per call), float32 calls the
+#: FMA bodies.
+MOE_KERNELS = ("moe_up_wgmma_kernel", "moe_down_wgmma_kernel",
+               "moe_expert_ffn_kernel")
+FLASH_KERNELS = ("flash_attn_wgmma_kernel", "flash_attn_kernel")
 
 
 def main() -> int:
@@ -846,6 +856,20 @@ def _bf16_excess(got, want, tol=BODY_TOL) -> float:
     return float(((got.float() - want).abs() - bound).max())
 
 
+def _ms(ms) -> str:
+    return "not traced" if ms is None else f"{ms:.4f} ms"
+
+
+def _moe_tiling(plan) -> str:
+    """One line for `moe_expert_ffn_plan`: the path and each launch's
+    kernel, tile, CTAs and shared bytes."""
+    return f"path {plan['path']}" + (" (swapped)" if plan["swapped"] else "") \
+        + "; " + "; ".join(
+            f"{s['kernel']} tile {s['tile'][0]} x {s['tile'][1]}, "
+            f"{s['ctas']} CTAs, {s['smem_bytes']} B shared"
+            for s in plan["launches"])
+
+
 def _moe_work(b, e, c, d, f, elt) -> tuple[float, int]:
     """Flops and bytes of one expert-FFN launch: 6 B E C D F flops (x W_in
     is 4 B E C D F, h W_out 2 B E C F D), x read and y written once, both
@@ -853,12 +877,13 @@ def _moe_work(b, e, c, d, f, elt) -> tuple[float, int]:
     return 6.0 * b * e * c * d * f, (2 * b * e * c * d + 3 * e * d * f) * elt
 
 
-def _profile_busy(fn, symbol="moe_expert_ffn_kernel"):
+def _profile_busy(fn, symbol=MOE_KERNELS):
     """Where one call of `fn` spends its time, from `torch.profiler`: wall
     s, device busy s (the sum of every device activity's own time; one
-    stream, so activities do not overlap), the s of the kernel named
-    `symbol`, the number of kernel launches the host made, and the five
-    device activities that took longest (name, s, count)."""
+    stream, so activities do not overlap), the s of the kernels whose
+    names contain `symbol` (a string or a tuple), the number of kernel
+    launches the host made, and the five device activities that took
+    longest (name, s, count)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -874,7 +899,8 @@ def _profile_busy(fn, symbol="moe_expert_ffn_kernel"):
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         busy += us
-        if symbol in ev.key:
+        if any(s in ev.key for s in (
+                (symbol,) if isinstance(symbol, str) else symbol)):
             moe += us
         if ev.key in ("cudaLaunchKernel", "cuLaunchKernel",
                       "cudaLaunchKernelExC", "cuLaunchKernelEx"):
@@ -911,15 +937,17 @@ def lm_phases(dev, reset_counts, read_counts):
        (and, for the floor of that comparison, in float64);
     10 (c): a 2-layer float32 model at full width on the card (kernel)
        against the CPU (plain): last logits within LM_F32_ATOL;
-    11 (d): the kernel's work, bound and the share of dispatch rows that
-       hold a token.
+    11 (d): the kernel's work, bound and time at the served shapes and at
+       the 4096-token prompt's capacity (B 1, C 1025), the float32 FMA
+       body's time beside the bf16 kernels', and the share of dispatch
+       rows that hold a token.
     Returns (the kernel's entry, the phase report, main-path launches,
     the served params and config, which phase 15 reuses)."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import batch_for_step
     from repro_torch.kernels.moe_experts import (moe_expert_ffn,
                                                  moe_expert_ffn_plain,
-                                                 moe_expert_ffn_rows)
+                                                 moe_expert_ffn_plan)
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.init import init_params
     from repro_torch.params import params_to, tree_leaves
@@ -930,8 +958,9 @@ def lm_phases(dev, reset_counts, read_counts):
     e, d, f, k = cfg.n_experts, cfg.d_model, cfg.d_ff_expert, cfg.top_k
     c_pre = moe_mod.moe_capacity(LM_PROMPT, e, k, cfg.capacity_factor)
     c_dec = moe_mod.moe_capacity(1, e, k, cfg.capacity_factor)
+    c_long = moe_mod.moe_capacity(LONG_PROMPT, e, k, cfg.capacity_factor)
     rep: dict = {"arch": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT,
-                 "new_tokens": LM_NEW, "capacity": [c_pre, c_dec]}
+                 "new_tokens": LM_NEW, "capacity": [c_pre, c_dec, c_long]}
 
     # ---- (a) the kernel against its plain version ----------------------
     g = torch.Generator(device=dev).manual_seed(5)
@@ -961,47 +990,66 @@ def lm_phases(dev, reset_counts, read_counts):
         assert got.shape == want.shape and got.dtype == want.dtype, label
         assert torch.isfinite(got.float()).all(), label
         err = float((got.float() - want.float()).abs().max())
-        rows = moe_expert_ffn_rows(*args)
+        plan = moe_expert_ffn_plan(*args)
+        assert plan["path"] == ("wgmma" if shape[-1] == bf16 else "fma")
+        print(f"  moe_experts [{label}]: {_moe_tiling(plan)}")
         if shape[-1] == bf16:
             excess = _bf16_excess(got, want)
-            print(f"  moe_experts [{label}]: rows/CTA {rows}, max abs err "
-                  f"{err:.3e}, excess over one bf16 ulp + f32 bound "
-                  f"{excess:.3e}")
+            print(f"  moe_experts [{label}]: max abs err {err:.3e}, excess "
+                  f"over one bf16 ulp + f32 bound {excess:.3e}")
             assert excess <= 0, (label, excess)
             worst_bf16, worst_excess = max(worst_bf16, err), max(
                 worst_excess, excess)
         else:
-            print(f"  moe_experts [{label}]: rows/CTA {rows}, max abs err "
-                  f"{err:.3e} (rtol 1e-05, atol 1e-06)")
+            print(f"  moe_experts [{label}]: max abs err {err:.3e} (rtol "
+                  f"1e-05, atol 1e-06)")
             torch.testing.assert_close(got, want, **BODY_TOL)
             worst_f32 = max(worst_f32, err)
-        if label.endswith("bf16") and not label.startswith("odd"):
-            held[label.split()[0]] = args
+        if not label.startswith("odd"):
+            held[label] = args
     rep["kernel_vs_plain"] = {"max_abs_err_bf16": worst_bf16,
                               "max_abs_err_f32": worst_f32,
                               "bf16_excess_over_bound": worst_excess}
 
     # ---- (d) work and bound at the served shapes -----------------------
+    # (the 4096-token prompt of phase 15 too: B 1, C = c_long)
+    held["long prompt bf16"] = inputs(1, e, c_long, d, f, bf16)
+    held["long prompt f32"] = inputs(1, e, c_long, d, f, f32)
+    excess = _bf16_excess(moe_expert_ffn(*held["long prompt bf16"]),
+                          moe_expert_ffn_plain(*held["long prompt bf16"]))
+    print(f"  moe_experts [long prompt bf16, B 1 C {c_long}]: excess over "
+          f"one bf16 ulp + f32 bound {excess:.3e}")
+    assert excess <= 0, excess
     timed = {}
-    for phase, c in (("prefill", c_pre), ("decode", c_dec)):
-        args = held[phase]
-        flops, nbytes = _moe_work(LM_BATCH, e, c, d, f, 2)
+    for phase, b_, c in (("prefill", LM_BATCH, c_pre),
+                         ("decode", LM_BATCH, c_dec),
+                         ("long prompt", 1, c_long)):
+        args, args32 = held[f"{phase} bf16"], held[f"{phase} f32"]
+        flops, nbytes = _moe_work(b_, e, c, d, f, 2)
         ms, src, call_ms, plain_ms = timings(
             lambda: moe_expert_ffn(*args),
-            lambda: moe_expert_ffn_plain(*args), "moe_expert_ffn_kernel")
+            lambda: moe_expert_ffn_plain(*args), MOE_KERNELS)
+        fma_ms = kernel_device_ms(lambda: moe_expert_ffn(*args32),
+                                  MOE_KERNELS)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES \
             * 1e3
         timed[phase] = {"ms": ms, "ms_source": src, "call_ms": call_ms,
                         "plain_ms": plain_ms, "flops": flops,
                         "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
                         "bound_by": "operations" if t_ops >= t_bytes
-                        else "bytes", "rows_per_cta":
-                        moe_expert_ffn_rows(*args)}
-        print(f"  moe_experts {phase} (B {LM_BATCH}, C {c}): kernel "
-              f"{ms:.4f} ms, wrapper {call_ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms; bound {timed[phase]['bound_ms'] * 1e3:.3f} us "
+                        else "bytes", "plan": moe_expert_ffn_plan(*args),
+                        "fma_f32_ms": fma_ms,
+                        "events_ms": time_cuda_batch(
+                            lambda: moe_expert_ffn(*args))}
+        print(f"  moe_experts {phase} (B {b_}, C {c}): bf16 kernels "
+              f"{ms:.4f} ms ({src}; events over 10 back-to-back calls "
+              f"{timed[phase]['events_ms']:.4f} ms), wrapper {call_ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms; the float32 FMA body at the "
+              f"same shape {_ms(fma_ms)}; bound "
+              f"{timed[phase]['bound_ms'] * 1e3:.3f} us "
               f"({timed[phase]['bound_by']}: {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.3f} MB)")
+              f"{nbytes / 1e6:.3f} MB), {timed[phase]['bound_ms'] / ms:.2%} "
+              f"of it")
     del held
     rep["kernel_times"] = timed
     pre = timed["prefill"]
@@ -1012,7 +1060,9 @@ def lm_phases(dev, reset_counts, read_counts):
         f"{f})", pre["flops"], pre["bytes"],
         err_bound="bf16: one bf16 ulp + (rtol 1e-05, atol 1e-06); f32: "
         "rtol 1e-05, atol 1e-06", peak_flops=PEAK_BF16_FLOPS,
-        decode=timed["decode"])
+        plan=pre["plan"], fma_f32_ms=pre["fma_f32_ms"],
+        events_ms=pre["events_ms"], decode=timed["decode"],
+        long_prompt=timed["long prompt"])
 
     # ---- (b) the main path: greedy_generate at full width and depth ----
     t0 = time.perf_counter()
@@ -1043,7 +1093,7 @@ def lm_phases(dev, reset_counts, read_counts):
                 "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
                 "launches": counts})
     timed, kern_last = _serve_timings(params, cfg, prompt, LM_NEW,
-                                      "moe_expert_ffn_kernel")
+                                      MOE_KERNELS)
     rep.update(timed)
     _print_serving("lm", "moe_experts", n_params, cfg, prompt, rep)
     prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
@@ -1327,7 +1377,8 @@ def lm_kernel_checks(dev) -> dict:
     Inputs come from a seeded device generator at the model's scales.
     Returns the three kernels' entries (launches filled in later)."""
     from repro_torch.kernels.flash_attn import (flash_attention,
-                                                flash_attention_plain)
+                                                flash_attention_plain,
+                                                flash_attention_plan)
     from repro_torch.kernels.mamba_scan import (
         mamba_selective_scan, mamba_selective_scan_plain,
         mamba_selective_scan_state, mamba_selective_scan_state_plain)
@@ -1365,21 +1416,32 @@ def lm_kernel_checks(dev) -> dict:
         got = flash_attention(q, k, v, **kw)
         want = flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        plan = flash_attention_plan(q, k, v)
+        assert plan["path"] == ("wgmma" if dtype == bf16 else "fma")
+        print(f"  flash_attn [{label}]: path {plan['path']}, "
+              f"{plan['kernel']}<DP {plan['dp']}>, {plan['ctas']} CTAs of "
+              f"{plan['threads']} threads, {plan['smem_bytes']} B shared")
         worst = max(worst, _held("flash_attn", label, got, want, FLASH_TOL,
                                  bf16=dtype == bf16))
         if label.startswith("gemma2") and dtype == bf16:
             run = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
-            ms = kernel_device_ms(run, "flash_attn_kernel", iters=5)
+            ms = kernel_device_ms(run, FLASH_KERNELS, iters=5)
             events_ms = time_cuda_batch(run, iters=5)
+            q32, k32, v32 = (x.float() for x in (q, k, v))
+            fma_ms = time_cuda_batch(
+                lambda: flash_attention(q32, k32, v32, **kw), iters=3)
+            del q32, k32, v32
             flops, nbytes = _flash_work(b, t, s, h, kv, d, 2, **kw)
             bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
             extra[label] = {"ms": ms, "events_ms": events_ms, "flops": flops,
-                            "bytes": nbytes, "bound_ms": bound}
-            prof = "no device time traced" if ms is None else f"{ms:.4f} ms"
-            print(f"  flash_attn [{label}]: kernel {prof} (profiler), "
+                            "bytes": nbytes, "bound_ms": bound,
+                            "fma_f32_events_ms": fma_ms}
+            print(f"  flash_attn [{label}]: kernel {_ms(ms)} (profiler), "
                   f"{events_ms:.4f} ms (events over 5 back-to-back calls) "
                   f"against a bound of {bound * 1e3:.3f} us "
-                  f"({flops / 1e9:.3f} GFLOP)")
+                  f"({flops / 1e9:.3f} GFLOP), {bound / events_ms:.2%} of "
+                  f"it; the float32 FMA body on the same inputs "
+                  f"{fma_ms:.4f} ms (events over 3 calls)")
         if label == fcases[0][0]:
             main = (q, k, v)
         del q, k, v, got, want
@@ -1397,15 +1459,21 @@ def lm_kernel_checks(dev) -> dict:
           f"enable_gqa) on granite's shape: {library_ms:.4f} ms, max abs "
           f"err against the plain version {sdpa_err:.3e}")
     flops, nbytes = _flash_work(*granite, 2, causal=True)
+    q32, k32, v32 = (x.float() for x in main)
+    fma_ms = kernel_device_ms(lambda: flash_attention(q32, k32, v32),
+                              FLASH_KERNELS)
+    print(f"  flash_attn [granite 4096 causal]: the float32 FMA body on the "
+          f"same inputs {_ms(fma_ms)} (profiler)")
+    del q32, k32, v32
     out["flash_attn"] = record(
         "flash_attn", worst,
         *timings(lambda: flash_attention(q, k, v),
-                 lambda: flash_attention_plain(q, k, v),
-                 "flash_attn_kernel"),
+                 lambda: flash_attention_plain(q, k, v), FLASH_KERNELS),
         "granite 4096 causal, bf16 (B 1, T = S 4096, H 24, KV 8, D 64)",
         flops, nbytes, library_ms=library_ms, peak_flops=PEAK_BF16_FLOPS,
         err_bound="f32: rtol 0.0002, atol 2e-05; bf16: one bf16 ulp more",
         sdpa_err_vs_plain=sdpa_err, gemma2=extra,
+        plan=flash_attention_plan(q, k, v), fma_f32_ms=fma_ms,
         events_ms=time_cuda_batch(lambda: flash_attention(q, k, v)))
     del main, q, k, v, qt, kt, vt
 

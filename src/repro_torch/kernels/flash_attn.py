@@ -8,11 +8,14 @@ row s when s <= t (causal) and t - s < window, also when T != S (not the
 bottom-right alignment of common FlashAttention libraries). A row that
 sees nothing gives 0.
 
-CUDA tensors launch the kernel `csrc/flash_attn.cu` (counted in
-`flash_attention.launches`); CPU tensors run `flash_attention_plain`, the
-JAX oracle `flash_attention_ref`'s dense softmax. The Pallas `block_q` /
-`block_kv` policies have no counterpart: T and S are taken unpadded. The
-kernel takes float32 or bfloat16 (one dtype for q, k, v) and D <= 256.
+CUDA tensors launch a kernel of `csrc/flash_attn.cu` (counted in
+`flash_attention.launches`): bfloat16 inputs the tensor-core kernel
+(wgmma, P split into two bf16 terms), float32 inputs the FMA body;
+`flash_attention_plan` says which. CPU tensors run
+`flash_attention_plain`, the JAX oracle `flash_attention_ref`'s dense
+softmax. The Pallas `block_q` / `block_kv` policies have no counterpart:
+T and S are taken unpadded. The kernels take float32 or bfloat16 (one
+dtype for q, k, v) and D <= 256.
 """
 
 from __future__ import annotations
@@ -73,6 +76,8 @@ def _lib():
                [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_float]
                + [ctypes.c_void_p])
+    build.bind(lib.flash_attn_plan,
+               [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
     return lib
 
 
@@ -98,10 +103,25 @@ def _shapes(q, k, v) -> tuple[int, int, int, int, int, int]:
     return b, t, s, h, kv, d
 
 
+def flash_attention_plan(q, k, v) -> dict:
+    """What a call on these CUDA tensors launches: the path ("wgmma" for
+    bfloat16, "fma" for float32), its kernel, the padded head width DP,
+    CTAs, threads and shared bytes per CTA."""
+    b, t, _, h, _, d = _shapes(q, k, v)
+    out = (ctypes.c_int * 5)()
+    build.check_launch(_lib().flash_attn_plan(_DTYPE_CODE[q.dtype], b, t, h,
+                                              d, out), "flash_attn_plan")
+    return {"path": "wgmma" if out[0] else "fma",
+            "kernel": ("flash_attn_wgmma_kernel" if out[0]
+                       else "flash_attn_kernel"),
+            "dp": out[1], "ctas": out[2], "threads": out[3],
+            "smem_bytes": out[4]}
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     """q [B,T,H,D], k/v [B,S,KV,D] -> [B,T,H,D] in q's dtype. CUDA tensors
-    launch `csrc/flash_attn.cu` (counted in `flash_attention.launches`);
-    CPU tensors run `flash_attention_plain`."""
+    launch a kernel of `csrc/flash_attn.cu` (counted in
+    `flash_attention.launches`); CPU tensors run `flash_attention_plain`."""
     if not on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap)

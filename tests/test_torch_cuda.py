@@ -17,7 +17,10 @@ sweep's bound) at the model's weight scale; bfloat16 one bf16 ulp of the
 value plus that float32 bound (both sides round one float32 sum once).
 The wkv6 and mamba scans: rtol 1e-4 / atol 1e-5, flash attention rtol
 2e-4 / atol 2e-5 (the JAX kernel sweeps' bounds, tests/test_kernels.py);
-outputs rounded to bfloat16 within one bf16 ulp plus that bound.
+outputs rounded to bfloat16 within one bf16 ulp plus that bound. bf16
+calls of the expert FFN and of flash attention run the tensor-core
+(wgmma) kernels, float32 calls the FMA bodies; both are held to the same
+bounds.
 """
 
 import numpy as np
@@ -42,13 +45,17 @@ from repro_torch.kernels.sparse_pair import (sparse_pair_score,
                                              sparse_pair_score_plain)
 from repro_torch.serve.search import SimilaritySearchServer
 from repro_torch.configs import reduced_config
+from repro_torch.kernels import flash_attn as flash_mod
+from repro_torch.kernels import moe_experts as moe_kernel_mod
 from repro_torch.kernels.flash_attn import (flash_attention,
-                                            flash_attention_plain)
+                                            flash_attention_plain,
+                                            flash_attention_plan)
 from repro_torch.kernels.mamba_scan import (
     mamba_selective_scan, mamba_selective_scan_plain,
     mamba_selective_scan_state, mamba_selective_scan_state_plain)
 from repro_torch.kernels.moe_experts import (moe_expert_ffn,
-                                             moe_expert_ffn_plain)
+                                             moe_expert_ffn_plain,
+                                             moe_expert_ffn_plan)
 from repro_torch.kernels.wkv6 import (wkv6, wkv6_plain, wkv6_state,
                                       wkv6_state_plain)
 from repro_torch.models import moe as tmoe
@@ -453,6 +460,17 @@ MOE_CASES = {
     "odd_f32": (3, 7, 13, 200, 36, torch.float32),
     "odd_bf16": (3, 7, 13, 200, 36, torch.bfloat16),
     "rank3_f32": (None, 5, 21, 64, 32, torch.float32),
+    # bf16 tile edges of the tensor-core kernels: B*C of 1, 32 and 33 (the
+    # swapped tiles end at 32 rows), 63, 65 and 516 (64-row tiles), D and F
+    # off the 64-deep stages and the 16-byte chunks, rank-3 x
+    "bc1_bf16": (1, 3, 1, 200, 36, torch.bfloat16),
+    "bc32_bf16": (4, 3, 8, 200, 36, torch.bfloat16),
+    "bc33_bf16": (3, 3, 11, 200, 36, torch.bfloat16),
+    "bc63_bf16": (None, 4, 63, 200, 36, torch.bfloat16),
+    "bc65_bf16": (5, 3, 13, 200, 36, torch.bfloat16),
+    "bc516_bf16": (4, 3, 129, 200, 36, torch.bfloat16),
+    "aligned_bf16": (2, 3, 40, 264, 136, torch.bfloat16),
+    "rank3_bf16": (None, 5, 21, 64, 32, torch.bfloat16),
 }
 
 
@@ -534,6 +552,48 @@ def test_moe_kernel_failure_raises_and_nothing_falls_back(cuda):
     with pytest.raises(RuntimeError, match="moe_expert_ffn launch failed"):
         tmoe.moe_ffn(p, torch.randn((1, 3, d), device=cuda, generator=g),
                      cfg)
+
+
+def _kernel_names(fn, calls=5) -> set:
+    """Names of the CUDA kernels that calls of `fn` launched, from
+    `torch.profiler` (over several calls: the trace can drop a launch's
+    record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key for ev in prof.key_averages()
+            if getattr(ev, "device_time_total",
+                       getattr(ev, "cuda_time_total", 0)) > 0}
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("c", (8, 129), ids=("decode", "prefill"))
+def test_moe_bf16_runs_the_tensor_cores_and_f32_the_fma_body(cuda, dtype, c):
+    """bf16 takes the two wgmma launches (swapped tiles at B*C <= 32),
+    float32 the FMA body; the plan, the profiler's kernel names and the
+    launch count (one per call) agree."""
+    x, w_in, w_out = _moe_inputs(cuda, 4, 3, c, 256, 128, dtype)
+    plan = moe_expert_ffn_plan(x, w_in, w_out)
+    names = _kernel_names(lambda: moe_expert_ffn(x, w_in, w_out))
+    wgmma = dtype == torch.bfloat16
+    assert plan["path"] == ("wgmma" if wgmma else "fma")
+    assert plan["swapped"] == (wgmma and 4 * c <= 32)
+    want = [s["kernel"] for s in plan["launches"]]
+    assert want == (["moe_up_wgmma_kernel", "moe_down_wgmma_kernel"] if wgmma
+                    else ["moe_expert_ffn_kernel"])
+    for kernel in want:
+        assert any(kernel in n for n in names), (kernel, names)
+    other = "moe_expert_ffn_kernel" if wgmma else "wgmma"
+    assert not any(other in n for n in names), names
+    before = moe_expert_ffn.launches
+    moe_expert_ffn(x, w_in, w_out)
+    assert moe_expert_ffn.launches == before + 1
 
 
 @pytest.mark.parametrize("arch", ("granite-moe-3b-a800m",
@@ -674,6 +734,17 @@ FLASH_CASES = {  # (B, T, S, H, KV, D, causal, window, softcap)
     "d256_window_softcap": (1, 70, 70, 2, 1, 256, True, 32, 50.0),
     "masked_rows": (1, 128, 32, 2, 2, 32, True, 16, None),
     "d120": (1, 66, 66, 3, 1, 120, True, None, None),
+    # the tensor-core kernel's tile edges: T and S of 63, 65 and 129
+    # (64-row query and kv tiles), D of 16, 40, 80 and 256 (16-deep steps,
+    # 32-wide P.V blocks, zero padding)
+    "t63_s63_d16": (2, 63, 63, 4, 2, 16, True, None, None),
+    "t65_s65_d40": (1, 65, 65, 4, 1, 40, True, None, None),
+    "t129_s129_d80": (1, 129, 129, 6, 2, 80, True, None, None),
+    "t63_s129_d256": (1, 63, 129, 2, 1, 256, True, None, None),
+    "t129_s65_d40_window": (1, 129, 65, 4, 2, 40, True, 33, None),
+    "t65_s63_d80_softcap": (2, 65, 63, 2, 2, 80, False, None, 30.0),
+    "t129_s129_d256_window_softcap": (1, 129, 129, 2, 1, 256, True, 65,
+                                      50.0),
 }
 
 
@@ -700,6 +771,57 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     if case == "masked_rows":            # rows t >= S + window - 1 see nothing
         assert float(got[:, s + window - 1:].float().abs().max()) == 0.0
         assert float(got[:, :s + window - 1].float().abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+def test_flash_bf16_runs_the_tensor_cores_and_f32_the_fma_body(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(g, (1, 130, 4, 64), cuda).to(dtype)
+    k, v = (_randn(g, (1, 130, 2, 64), cuda).to(dtype) for _ in range(2))
+    plan = flash_attention_plan(q, k, v)
+    names = _kernel_names(lambda: flash_attention(q, k, v))
+    wgmma = dtype == torch.bfloat16
+    assert plan["path"] == ("wgmma" if wgmma else "fma")
+    assert plan["kernel"] == ("flash_attn_wgmma_kernel" if wgmma
+                              else "flash_attn_kernel")
+    # 128 query rows a CTA on the tensor cores, 64 in the FMA body
+    assert plan["ctas"] == (2 if wgmma else 3) * 4 and plan["dp"] == 64
+    other = "flash_attn_kernel" if wgmma else "flash_attn_wgmma_kernel"
+    assert any(plan["kernel"] in n for n in names), names
+    assert not any(other in n for n in names), names
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+def test_flash_kernel_failure_raises_and_nothing_falls_back(cuda, dtype,
+                                                           monkeypatch):
+    """More batch rows than the grid takes (B > 65535) make the launch
+    fail: the wrapper raises, counts no launch and never runs the plain
+    version in its place."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for CUDA tensors")
+
+    monkeypatch.setattr(flash_mod, "flash_attention_plain", plain)
+    q = torch.zeros((65536, 1, 2, 16), device=cuda, dtype=dtype)
+    kv = torch.zeros((65536, 1, 1, 16), device=cuda, dtype=dtype)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="flash_attention launch failed"):
+        flash_attention(q, kv, kv)
+    assert flash_attention.launches == before
+
+
+def test_moe_bf16_never_falls_back(cuda, monkeypatch):
+    """A bf16 call on the card runs the tensor-core kernels only: the plain
+    version is never called in their place."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for CUDA tensors")
+
+    monkeypatch.setattr(moe_kernel_mod, "moe_expert_ffn_plain", plain)
+    x, w_in, w_out = _moe_inputs(cuda, 2, 3, 5, 64, 32, torch.bfloat16)
+    y = moe_expert_ffn(x, w_in, w_out)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
 
 
 def test_new_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
