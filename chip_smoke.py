@@ -36,7 +36,11 @@ a bf16 expert FFN call); the bf16 `moe_experts` and `flash_attn` calls run
 tensor-core kernels, and each call's path and tiling is printed beside
 the float32 FMA body's time at the same shape;
 the wrapper call and the plain version are timed with CUDA events (warm,
-median); bounds come from this run's inputs against the H100 SXM peaks of
+median); `fused_gcn` is also timed launch by launch for the search phase
+(each corpus bucket and each kind of query launch, summed over the
+phase's launches), and `wkv6` at the decode shape (T 1) from events
+around a CUDA graph of back-to-back launches, with each `wkv6` call's
+plan printed; bounds come from this run's inputs against the H100 SXM peaks of
 67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16 expert FFN and the bf16
 attention) and 3.35 TB/s. Each phase prints its seconds. Details go to
 `chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2 without one.
@@ -177,10 +181,20 @@ def main() -> int:
     out_dir = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f}s wall, nvcc "
           f"{build.last_build_seconds:.1f}s, into {out_dir}")
+    spills = {}
     for name in build.SOURCES:
         log = (out_dir / f"{name}.log").read_text()
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"ptxas {name}: {' | '.join(regs)}")
+        spills[name] = sum(int(ln.split("bytes spill stores")[0].split(
+            ",")[-1]) for ln in log.splitlines() if "spill stores" in ln)
+        print(f"ptxas {name}: {' | '.join(regs)}; spill stores "
+              f"{spills[name]} bytes in all")
+    report["ptxas_spill_store_bytes"] = spills
+    assert spills["wkv6"] == 0, "wkv6 spills registers"
+    report["wkv6_registers"] = _wkv_registers(
+        (out_dir / "wkv6.log").read_text())
+    print("wkv6 registers by instantiation (type, KMAX, VB): " + ", ".join(
+        f"{k} {v}" for k, v in report["wkv6_registers"].items()))
     phase("2 build")
 
     gen = torch.Generator().manual_seed(0)
@@ -383,8 +397,10 @@ def main() -> int:
     phase("5 forced packed-dense and bucketed paths")
 
     # ---- phase 6: similarity search served on the card ----------------
-    report["search"], counts = search_phase(params, corpus, queries,
-                                            reset_counts, read_counts)
+    report["search"], counts = search_phase(
+        params, corpus, queries, reset_counts, read_counts,
+        {(t["graphs"], t["bucket"]): t
+         for t in kernels["fused_gcn"]["per_launch"]})
     for name in ("fused_gcn", "simgnn_head", "topm", "topm_ntn"):
         served[name] = counts[name]
     phase("6 similarity search served")
@@ -515,6 +531,26 @@ def _topm_work(q, n, m, f, k=0, fcn=()) -> tuple[float, int]:
     return float(q * n * per), 4 * inputs + 8 * q * m
 
 
+def _gcn_launch_time(arrays, params) -> dict:
+    """Kernel ms (profiler; events around back-to-back calls when it sees
+    none) and bound of one `fused_gcn_att` launch on these arrays."""
+    from repro_torch.configs.simgnn_aids import CONFIG as CFG
+    from repro_torch.kernels.fused_gcn import fused_gcn_att
+
+    def fn():
+        return fused_gcn_att(*arrays, params["gcn"], params["att"]["w"])
+
+    ms = kernel_device_ms(fn, ("fused_gcn_kernel",)) or time_cuda_batch(fn)
+    flops, nbytes = _embed_work(*arrays, CFG)
+    nbytes += param_bytes({"gcn": params["gcn"], "att": params["att"]})
+    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    graphs, bucket = arrays[0].shape[:2]
+    print(f"  fused_gcn launch of {graphs} graphs at bucket {bucket}: "
+          f"{ms:.4f} ms, bound {bound * 1e3:.3f} us "
+          f"({bound / ms:.2%} of it)")
+    return {"graphs": graphs, "bucket": bucket, "ms": ms, "bound_ms": bound}
+
+
 def search_kernels(params, narrow, corpus, queries, dev) -> dict:
     """Phase 3b: the embedding, head and both top-M kernels against their
     plain versions at the search path's shapes (the corpus's embed
@@ -589,6 +625,17 @@ def search_kernels(params, narrow, corpus, queries, dev) -> dict:
                  ("fused_gcn_kernel",)),
         cases[2][0], flops, nbytes, err_bound="rtol 1e-05, atol 1e-06",
         bit_identical=identical)}
+    # One launch of each corpus bucket (the index's launches) and of one
+    # graph alone (an exact query's), timed for the search phase's
+    # launch-by-launch sum.
+    per_launch = []
+    q = queries[0]
+    for arrays in [a for label, a, prm in cases
+                   if prm is params and label.startswith("corpus")] + [
+            embed_in([q], bucket_for(q["adj"].shape[0],
+                                     allow_oversize=True))]:
+        per_launch.append(_gcn_launch_time(arrays, params))
+    out["fused_gcn"]["per_launch"] = per_launch
 
     # The head at B = N: one query against the whole corpus.
     hq = torch.cat([fused_gcn_att(*embed_in([q], bucket_for(
@@ -720,21 +767,34 @@ def _same_ranking(got, want, scores) -> int:
     return swaps
 
 
-def search_phase(params, corpus, queries, reset_counts, read_counts):
+def search_phase(params, corpus, queries, reset_counts, read_counts,
+                 gcn_timed):
     """Phase 6: `SimilaritySearchServer` on the card. Index the corpus,
     serve exact and two-stage top-k queries, drive the prefilter kernel
     the calibration did not pick through `engine.prefilter_topm` at the
     same shapes, check M = N two-stage against exact and a save/load
     round trip bit for bit, and hold embeddings and rankings against the
-    same server on the CPU. Returns (report, launch counts)."""
+    same server on the CPU. Each `fused_gcn` launch of the served run is
+    recorded by (graphs, bucket); a kind that `gcn_timed` (phase 3b's
+    per-launch times) lacks is timed on its recorded inputs, and the
+    launches' time over their bounds is summed launch by launch. Returns
+    (report, launch counts)."""
     import tempfile
 
     from repro_torch.configs.simgnn_aids import CONFIG as CFG
-    from repro_torch.kernels import retrieval
+    from repro_torch.kernels import ops, retrieval
     from repro_torch.serve.search import SimilaritySearchServer
 
     srv = SimilaritySearchServer(params, CFG, cache_size=16384)
     n = len(corpus)
+    gcn_calls: list = []
+    real_gcn = ops.fused_gcn_att
+
+    def recording_gcn(adj, feats, mask, *weights):
+        gcn_calls.append((adj, feats, mask))
+        return real_gcn(adj, feats, mask, *weights)
+
+    ops.fused_gcn_att = recording_gcn
     reset_counts()
     timer = SpanTimer()
     with timer:
@@ -783,7 +843,23 @@ def search_phase(params, corpus, queries, reset_counts, read_counts):
     ti, ts = srv.topk(queries[0], k=TOPK, mode="two_stage", prefilter_m=n)
     m_eq_n = bool(np.array_equal(ei, ti) and es.tobytes() == ts.tobytes())
     counts = read_counts()
+    ops.fused_gcn_att = real_gcn
     print(f"search launches: {counts}")
+    kinds: dict = {}
+    for arrays in gcn_calls:
+        kinds.setdefault(tuple(arrays[0].shape[:2]), []).append(arrays)
+    assert sum(map(len, kinds.values())) == counts["fused_gcn"], kinds.keys()
+    gcn_lost, gcn_kinds = 0.0, []
+    for kind, calls in sorted(kinds.items()):
+        t = gcn_timed.get(kind) or _gcn_launch_time(calls[0], params)
+        gcn_lost += len(calls) * (t["ms"] - t["bound_ms"])
+        gcn_kinds.append(dict(t, launches=len(calls)))
+    print("search fused_gcn launches (graphs x bucket: launches, ms): "
+          + "; ".join(f"{k['graphs']} x {k['bucket']}: {k['launches']}, "
+                      f"{k['ms']:.4f}" for k in gcn_kinds)
+          + f"; time over the bound summed launch by launch "
+          f"{gcn_lost:.4f} ms")
+    del gcn_calls, kinds
     assert m_eq_n, "two-stage at M = N differs from the exact scan"
     c = srv.engine.counters
     assert srv.stats.prefilter_degraded == 0 and not c["prefilter_degraded"]
@@ -821,7 +897,8 @@ def search_phase(params, corpus, queries, reset_counts, read_counts):
            "m_eq_n_bit_identical": m_eq_n, "reload_bit_identical": reload_ok,
            "embedding_max_abs_err_vs_cpu": emb_err,
            "near_tie_swaps_vs_cpu": swaps, "launches": counts,
-           "counters": dict(c)}
+           "fused_gcn_launches": gcn_kinds,
+           "fused_gcn_lost_ms": gcn_lost, "counters": dict(c)}
     exact_ms = statistics.median(rep["exact_query_ms"])
     print(f"search: index {n} graphs in {index_s:.3f} s "
           f"({n / index_s:.1f} graphs/s, device span {index_dev:.4f} s); "
@@ -1307,6 +1384,63 @@ def _flash_f64(q, k, v, *, causal=True, window=None, softcap=None,
     return out
 
 
+def time_cuda_graph(fn, iters: int = 50) -> float:
+    """Mean ms per call of `fn` from CUDA events around one replay of a
+    CUDA graph that holds `iters` calls back to back: a short kernel's
+    device time without the host's gaps between launches."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _wkv_registers(log: str) -> dict:
+    """Registers of each `wkv6_kernel<Elt, KMAX, VB>` instantiation in a
+    ptxas report, keyed "bf16|f32 KMAX VB"."""
+    import re
+
+    regs, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*wkv6_kernelI(\w+?)"
+                      r"Li(\d+)ELi(\d+)E", line)
+        if m:
+            name = (f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'} "
+                    f"{m.group(2)} {m.group(3)}")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name], name = int(m.group(1)), None
+    return dict(sorted(regs.items()))
+
+
+def _print_wkv_plan(label, shape, dtype) -> dict:
+    """Print and return what a `wkv6_state` launch at (B, T, H, K, V)
+    runs."""
+    from repro_torch.kernels.wkv6 import wkv6_plan
+
+    plan = wkv6_plan(*shape, dtype)
+    print(f"  wkv6 plan [{label}, {str(dtype).split('.')[-1]}]: "
+          f"{plan['ctas']} CTAs of {plan['threads']} threads "
+          f"({plan['vb']} value columns a CTA, {plan['cols_per_thread']} a "
+          f"thread), TB {plan['tb']}, {plan['route']} staging, "
+          f"{plan['smem_bytes']} shared bytes")
+    return plan
+
+
 def time_cuda_batch(fn, iters: int = 10) -> float:
     """Mean ms per call of `fn` from CUDA events around `iters` warm calls
     launched back to back (one synchronize at the end): a cross-check of
@@ -1494,8 +1628,11 @@ def lm_kernel_checks(dev) -> dict:
                (3, 37, 5, 24, 40), f32, True)]
     worst = 0.0
     for label, shape, dtype, with_state in wcases:
+        _print_wkv_plan(label, shape, dtype)
         r, k, v, w, u, s0 = wkv_in(*shape, dtype)
         s0 = s0 if with_state else None
+        if shape[1] == 1:
+            decode = (r, k, v, w, u, s0)
         got, want = wkv6_state(r, k, v, w, u, s0), \
             wkv6_state_plain(r, k, v, w, u, s0)
         torch.cuda.synchronize()
@@ -1510,14 +1647,29 @@ def lm_kernel_checks(dev) -> dict:
                                      bf16=True))
             main = (r, k, v, w, u)
     flops, nbytes = _wkv_work(*served, 2)
+    # the decode shape (T 1, given state): events around back-to-back
+    # launches replayed from a CUDA graph (no host gaps), and the profiler
+    dflops, dbytes = _wkv_work(served[0], 1, *served[2:], 2, state=True)
+    dbound = max(dflops / PEAK_F32_FLOPS, dbytes / PEAK_BYTES) * 1e3
+    decode_ms = {"events_graph": time_cuda_graph(
+        lambda: wkv6_state(*decode)), "profiler": kernel_device_ms(
+        lambda: wkv6_state(*decode), "wkv6_kernel"), "bound": dbound}
+    print(f"  wkv6 decode (B 4, T 1, H 64, K = V 64, bf16, given state): "
+          f"{decode_ms['events_graph']:.5f} ms (CUDA events around 50 "
+          f"launches in a CUDA graph), {decode_ms['profiler']} ms "
+          f"(profiler); bound {dbound * 1e3:.3f} us (bytes: "
+          f"{dbytes / 1e6:.3f} MB)")
     out["wkv6"] = record(
         "wkv6", worst,
         *timings(lambda: wkv6_state(*main), lambda: wkv6_state_plain(*main),
                  "wkv6_kernel"),
         "served bf16 r/k/v, float32 w and o (B 4, T 512, H 64, K = V 64)",
         flops, nbytes, err_bound="rtol 0.0001, atol 1e-05 (bf16 o: one "
-        "bf16 ulp more)", events_ms=time_cuda_batch(lambda: wkv6_state(*main)))
-    del main
+        "bf16 ulp more)", events_ms=time_cuda_batch(lambda: wkv6_state(*main)),
+        decode_ms=decode_ms)
+    print(f"  wkv6 served prefill: CUDA events around 10 back-to-back "
+          f"calls {out['wkv6']['events_ms']:.4f} ms")
+    del main, decode
 
     # ---- mamba_selective_scan
     def mamba_in(bsz, t, din, n, dtype):
@@ -1700,6 +1852,12 @@ def rwkv_phases(dev, reset_counts, read_counts, phase):
     gen_s = time.perf_counter() - t0
     counts = read_counts()
     print(f"rwkv serve launches: {counts}")
+    hd = cfg.rwkv_head_dim
+    rep["wkv6_plans"] = [
+        _print_wkv_plan(label, (LM_BATCH, t, cfg.n_rwkv_heads, hd, hd),
+                        torch.bfloat16)
+        for label, t in (("rwkv6-7b prefill", LM_PROMPT),
+                         ("rwkv6-7b decode", 1))]
     launches = counts["wkv6"]
     assert launches == cfg.n_layers * LM_NEW, counts
     assert sum(counts.values()) == launches, counts
@@ -1741,6 +1899,10 @@ def rwkv_phases(dev, reset_counts, read_counts, phase):
     short = torch.from_numpy(batch_for_step(
         cfg32, 1, global_batch=2, seq_len=64, seed=17)["tokens"])
     prefill, decode = build_prefill_step(cfg32), build_decode_step(cfg32)
+    for label, t in (("rwkv6 2-layer float32 prefill", short.shape[1]),
+                     ("rwkv6 2-layer float32 decode", 1)):
+        _print_wkv_plan(label, (short.shape[0], t, cfg.n_rwkv_heads, hd,
+                                hd), torch.float32)
     errs = []
     for_card = prefill(p32, short.to(dev))
     for_host = prefill(host, short)

@@ -15,7 +15,9 @@ the plain versions beside them on CPU tensors. The kernel takes r, k, v in
 float32 or bfloat16 (one dtype) and w, u in float32; the wrapper upcasts a
 bfloat16 w or u (exact) and rounds o to bfloat16 when asked (one rounding,
 as the TPU body). The Pallas `block_t` policy has no counterpart: T is taken
-unpadded.
+unpadded. `wkv6_plan` reports what a launch at given sizes runs: its grid
+(heads times column blocks of VB value columns), block, time block TB,
+how the rows are staged (cp.async or plain loads) and its shared memory.
 """
 
 from __future__ import annotations
@@ -64,7 +66,26 @@ def _lib():
     lib = build.library("wkv6")
     build.bind(lib.wkv6_launch, [ctypes.c_int] + [ctypes.c_void_p] * 8
                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    build.bind(lib.wkv6_plan,
+               [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
     return lib
+
+
+def wkv6_plan(b, t, h, kd, vd, dtype) -> dict:
+    """What `wkv6_state` launches for r/k/v of `dtype` at (B, T, H, K, V):
+    CTAs, threads per CTA, the time block TB, the value columns VB of a
+    CTA and those of a thread, the staging route ("async": cp.async,
+    "plain": plain loads; a launch whose base pointers are not 16-byte
+    aligned also takes plain loads), dynamic shared bytes per CTA and the
+    padded key width KMAX."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernel takes float32 or bfloat16, got {dtype}")
+    out = (ctypes.c_int * 8)()
+    build.check_launch(_lib().wkv6_plan(_DTYPE_CODE[dtype], b, t, h, kd, vd,
+                                        out), "wkv6_plan")
+    return {"ctas": out[0], "threads": out[1], "tb": out[2], "vb": out[3],
+            "route": "async" if out[4] else "plain", "smem_bytes": out[5],
+            "kmax": out[6], "cols_per_thread": out[7]}
 
 
 def _shapes(r, k, v, w, u, s0, out_dtype) -> tuple[int, int, int, int, int]:

@@ -56,8 +56,8 @@ from repro_torch.kernels.mamba_scan import (
 from repro_torch.kernels.moe_experts import (moe_expert_ffn,
                                              moe_expert_ffn_plain,
                                              moe_expert_ffn_plan)
-from repro_torch.kernels.wkv6 import (wkv6, wkv6_plain, wkv6_state,
-                                      wkv6_state_plain)
+from repro_torch.kernels.wkv6 import (wkv6, wkv6_plain, wkv6_plan,
+                                      wkv6_state, wkv6_state_plain)
 from repro_torch.models import moe as tmoe
 from repro_torch.models.init import init_params as init_lm_params
 from repro_torch.params import params_to
@@ -640,6 +640,19 @@ WKV_CASES = {  # (B, T, H, K, V): ragged time blocks, padded K, odd V
     "head64": (2, 40, 4, 64, 64),
     "widest": (1, 9, 2, 128, 256),
     "tiny": (2, 1, 3, 5, 3),
+    # around the time block of K = 64 (TB 32 in bf16, 16 in float32)
+    "tb_less_1": (2, 31, 4, 64, 64),
+    "tb": (2, 32, 4, 64, 64),
+    "tb_plus_1": (2, 33, 4, 64, 64),
+    "two_tb_plus_1": (2, 65, 4, 64, 64),
+    # V not a multiple of the CTA's VB columns (32 here; 16 for V = 3)
+    "v40_vb32": (2, 20, 80, 64, 40),
+    "v3_long": (1, 70, 2, 16, 3),
+    # bf16 rows of 10 and 24 bytes: staged by plain loads
+    "k5": (2, 40, 3, 5, 16),
+    "k12": (2, 45, 3, 12, 24),
+    "one_head": (1, 50, 1, 64, 64),
+    "served_decode": (4, 1, 64, 64, 64),
 }
 
 
@@ -685,6 +698,44 @@ def test_wkv6_state_carries_across_calls(cuda):
     o2, s2 = wkv6_state(*tail, u, s1)
     torch.testing.assert_close(torch.cat([o1, o2], 1), whole_o, **SCAN_TOL)
     torch.testing.assert_close(s2, whole_s, **SCAN_TOL)
+
+
+def test_wkv6_plan_stages_the_served_shape_asynchronously(cuda):
+    """The served shapes (rwkv6-7b, B 4, H 64, K = V 64, bf16) stage rows
+    by cp.async in 32-step blocks over at least 512 CTAs, prefill and
+    decode alike; rows that are not whole 16-byte chunks take plain loads;
+    the edge cases above do cross a column block."""
+    for t in (512, 1):
+        plan = wkv6_plan(4, t, 64, 64, 64, torch.bfloat16)
+        assert plan["route"] == "async" and plan["ctas"] >= 512, plan
+        assert plan["tb"] == 32, plan
+        assert plan["threads"] * plan["cols_per_thread"] == 4 * plan["vb"]
+    assert wkv6_plan(4, 512, 64, 64, 64, torch.float32)["route"] == "async"
+    for shape in (WKV_CASES["k5"], WKV_CASES["k12"], WKV_CASES["tiny"]):
+        assert wkv6_plan(*shape, torch.bfloat16)["route"] == "plain", shape
+    for case in ("v40_vb32", "v3_long"):
+        b, t, h, kd, vd = WKV_CASES[case]
+        plan = wkv6_plan(b, t, h, kd, vd, torch.float32)
+        assert vd % plan["vb"] != 0, (case, plan)
+    assert wkv6_plan(*WKV_CASES["one_head"], torch.float32)["ctas"] > 1
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+def test_wkv6_column_split_does_not_mix_columns(cuda, dtype):
+    """A column's output and state depend on no other column: the first 32
+    columns of o and sT from a V = 32 call equal, bit for bit, those of a
+    V = 64 call on the same r, k, w, u and the first 32 columns of v and
+    s0 (on an H100's 132 SMs the two calls take 16 and 32 columns a
+    CTA)."""
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 4, 70, 64, 64, 64, dtype)
+    for init in (None, s0):
+        wide_o, wide_s = wkv6_state(r, k, v, w, u, init)
+        narrow_o, narrow_s = wkv6_state(
+            r, k, v[..., :32].contiguous(), w, u,
+            None if init is None else init[..., :32].contiguous())
+        assert torch.equal(narrow_o, wide_o[..., :32])
+        assert torch.equal(narrow_s, wide_s[..., :32])
 
 
 MAMBA_CASES = {  # (B, T, Din, N)
