@@ -37,13 +37,15 @@ tensor-core kernels, and each call's path and tiling is printed beside
 the float32 FMA body's time at the same shape;
 the wrapper call and the plain version are timed with CUDA events (warm,
 median); `fused_gcn` is also timed launch by launch for the search phase
-(each corpus bucket and each kind of query launch, summed over the
-phase's launches), and `wkv6` at the decode shape (T 1) from events
-around a CUDA graph of back-to-back launches, with each `wkv6` call's
-plan printed; bounds come from this run's inputs against the H100 SXM peaks of
-67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16 expert FFN and the bf16
-attention) and 3.35 TB/s. Each phase prints its seconds. Details go to
-`chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2 without one.
+(each corpus bucket and each kind of query launch, with its launch
+plan, summed over the phase's launches), and `wkv6` at the decode shape
+(T 1) from events around a CUDA graph of back-to-back launches, with each
+`wkv6` call's plan printed; bounds come from this run's inputs against the
+H100 SXM peaks of 67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16
+expert FFN and the bf16 attention) and 3.35 TB/s. The build phase fails
+if `wkv6` or `fused_gcn` spills registers. Each phase prints its seconds.
+Details go to `chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2
+without one.
 """
 
 from __future__ import annotations
@@ -191,6 +193,12 @@ def main() -> int:
               f"{spills[name]} bytes in all")
     report["ptxas_spill_store_bytes"] = spills
     assert spills["wkv6"] == 0, "wkv6 spills registers"
+    assert spills["fused_gcn"] == 0, "fused_gcn spills registers"
+    report["fused_gcn_registers"] = _gcn_registers(
+        (out_dir / "fused_gcn.log").read_text())
+    print("fused_gcn registers by route: " + ", ".join(
+        f"{k} {v}" for k, v in report["fused_gcn_registers"].items())
+        + f"; spill stores {spills['fused_gcn']} bytes")
     report["wkv6_registers"] = _wkv_registers(
         (out_dir / "wkv6.log").read_text())
     print("wkv6 registers by instantiation (type, KMAX, VB): " + ", ".join(
@@ -531,9 +539,28 @@ def _topm_work(q, n, m, f, k=0, fcn=()) -> tuple[float, int]:
     return float(q * n * per), 4 * inputs + 8 * q * m
 
 
+def _gcn_plan(arrays, params) -> dict:
+    """The launch plan of `fused_gcn_att` on these arrays (what the
+    wrapper launches with), and the CTAs an SM holds for it by the CUDA
+    runtime, which must cover what the plan counts on."""
+    from repro_torch.kernels.fused_gcn import (device_limits, fused_gcn_plan,
+                                               gcn_dims, occupancy)
+
+    graphs, bucket, f0 = arrays[1].shape
+    dims = gcn_dims(f0, params["gcn"], params["att"]["w"])
+    plan = fused_gcn_plan(graphs, bucket, dims,
+                          *device_limits(arrays[0].device.index))
+    held = occupancy(plan)
+    assert held >= plan.ctas_per_sm, (plan, held)
+    return {"summary": plan.summary(), "route": plan.route,
+            "grid": plan.grid, "threads": plan.threads,
+            "ctas_per_sm": plan.ctas_per_sm, "runtime_ctas_per_sm": held,
+            "smem_bytes": plan.smem_bytes, "stages": plan.stages}
+
+
 def _gcn_launch_time(arrays, params) -> dict:
     """Kernel ms (profiler; events around back-to-back calls when it sees
-    none) and bound of one `fused_gcn_att` launch on these arrays."""
+    none), bound and plan of one `fused_gcn_att` launch on these arrays."""
     from repro_torch.configs.simgnn_aids import CONFIG as CFG
     from repro_torch.kernels.fused_gcn import fused_gcn_att
 
@@ -545,10 +572,13 @@ def _gcn_launch_time(arrays, params) -> dict:
     nbytes += param_bytes({"gcn": params["gcn"], "att": params["att"]})
     bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
     graphs, bucket = arrays[0].shape[:2]
+    plan = _gcn_plan(arrays, params)
     print(f"  fused_gcn launch of {graphs} graphs at bucket {bucket}: "
           f"{ms:.4f} ms, bound {bound * 1e3:.3f} us "
-          f"({bound / ms:.2%} of it)")
-    return {"graphs": graphs, "bucket": bucket, "ms": ms, "bound_ms": bound}
+          f"({bound / ms:.2%} of it); plan: {plan['summary']} (the runtime "
+          f"holds {plan['runtime_ctas_per_sm']} a SM)")
+    return {"graphs": graphs, "bucket": bucket, "ms": ms, "bound_ms": bound,
+            "plan": plan}
 
 
 def search_kernels(params, narrow, corpus, queries, dev) -> dict:
@@ -859,6 +889,10 @@ def search_phase(params, corpus, queries, reset_counts, read_counts,
                       f"{k['ms']:.4f}" for k in gcn_kinds)
           + f"; time over the bound summed launch by launch "
           f"{gcn_lost:.4f} ms")
+    for k in gcn_kinds:
+        print(f"  search fused_gcn {k['graphs']} x {k['bucket']}: "
+              f"{k['launches']} launch(es) of {k['ms']:.4f} ms, bound "
+              f"{k['bound_ms'] * 1e3:.3f} us; plan: {k['plan']['summary']}")
     del gcn_calls, kinds
     assert m_eq_n, "two-stage at M = N differs from the exact scan"
     c = srv.engine.counters
@@ -1407,6 +1441,23 @@ def time_cuda_graph(fn, iters: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _gcn_registers(log: str) -> dict:
+    """Registers of `fused_gcn_kernel<SCRATCH>` by route in a ptxas
+    report."""
+    import re
+
+    regs, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*fused_gcn_kernelILb(\d)E",
+                      line)
+        if m:
+            name = "scratch" if m.group(1) == "1" else "shared"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name], name = int(m.group(1)), None
+    return dict(sorted(regs.items()))
 
 
 def _wkv_registers(log: str) -> dict:

@@ -270,6 +270,66 @@ def test_fused_gcn_embedding_bit_identical_across_batch_and_bucket(cuda):
         assert torch.equal(r, rows[0])
 
 
+def _check_gcn(arrays, gcn, att, equal_nan=False):
+    before = fused_gcn_att.launches
+    got = fused_gcn_att(*arrays, gcn, att)
+    want = fused_gcn_att_plain(*arrays, gcn, att)
+    torch.cuda.synchronize()
+    assert fused_gcn_att.launches == before + 1
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, equal_nan=equal_nan, **BODY_TOL)
+    return got
+
+
+@pytest.mark.parametrize("b", (1, 7, 131, 133, 5 * 132 + 3))
+def test_fused_gcn_persistent_grid_covers_every_graph(cuda, b):
+    """Batches below, at and past the grid: the persistent loop's ragged
+    last round and CTAs that get no graph (the card has 132 SMs)."""
+    gcn, att, _, _ = _params()
+    rng = np.random.default_rng(b)
+    sizes = [int(x) for x in rng.integers(3, 33, b)]
+    _check_gcn(_embed_inputs(cuda, sizes, 32, seed=b), gcn, att)
+
+
+@pytest.mark.parametrize("gcn_dims", ((128, 64, 32), (16, 8, 8, 4), (32,),
+                                      (24, 20, 16, 12, 10, 8, 6, 5),
+                                      (256, 256)),
+                         ids=("aids", "narrow", "one_layer", "eight_layers",
+                              "wide"))
+@pytest.mark.parametrize("bucket", (16, 64, 256))
+def test_fused_gcn_widths_off_the_register_tile(cuda, gcn_dims, bucket):
+    """F0 = 29 and widths that are not multiples of the 4-column tile, one
+    and eight layers, on the shared and the scratch route; "wide" has more
+    weights than a block's shared memory, which the kernel then reads from
+    global memory."""
+    gcn, att, _, _ = _params(SimGNNConfig(gcn_dims=gcn_dims))
+    sizes = {16: (9, 16, 13), 64: (33, 64, 47), 256: (130, 200)}[bucket]
+    _check_gcn(_embed_inputs(cuda, sizes, bucket), gcn, att)
+
+
+@pytest.mark.parametrize("where", ("weight", "bias", "att", "adjacency"))
+def test_fused_gcn_nan_sits_where_the_plain_version_puts_it(cuda, where):
+    gcn, att, _, _ = _params()
+    gcn = [dict(p) for p in gcn]
+    arrays = list(_embed_inputs(cuda, (20, 7, 31), 32))
+    if where == "weight":
+        gcn[1]["w"] = gcn[1]["w"].clone()
+        gcn[1]["w"][5, 3] = float("nan")
+    elif where == "bias":
+        gcn[2]["b"] = gcn[2]["b"].clone()
+        gcn[2]["b"][7] = float("nan")
+    elif where == "att":
+        att = att.clone()
+        att[2, 9] = float("nan")
+    else:
+        arrays[0] = arrays[0].clone()
+        arrays[0][1, 2, 3] = float("nan")      # one graph's A' only
+    got = _check_gcn(arrays, gcn, att, equal_nan=True)
+    assert torch.isnan(got).any()
+    if where == "adjacency":
+        assert torch.isnan(got[1]).all() and torch.isfinite(got[[0, 2]]).all()
+
+
 @pytest.mark.parametrize("case", ("aids", "narrow", "bf16"))
 def test_simgnn_head_kernel_matches_plain(cuda, case):
     cfg = NARROW if case == "narrow" else CONFIG

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no file under `src/repro_torch/`, and not
-`chip_smoke.py`, imports `jax` or anything of the JAX package `repro`
+`chip_smoke.py` or the port's card tools under `tools/`, imports `jax` or
+anything of the JAX package `repro`
 (checked on the source, with an AST walk), and importing every module of
 the port leaves both out of `sys.modules`. The port keeps its own copies of
 the JAX package's numpy-only modules instead.
@@ -19,7 +20,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "tools").glob("*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
