@@ -40,10 +40,16 @@ median); `fused_gcn` is also timed launch by launch for the search phase
 (each corpus bucket and each kind of query launch, with its launch
 plan, summed over the phase's launches), and `wkv6` at the decode shape
 (T 1) from events around a CUDA graph of back-to-back launches, with each
-`wkv6` call's plan printed; bounds come from this run's inputs against the
+`wkv6` call's plan printed, and `mamba_scan` at the Jamba block's decode
+step (T 1) the same way; each `sparse_pair` call of phase 3 prints its
+launch plan (one tile per 2-CTA cluster), and the kernels line records
+whether `tools/sparse_pair_parent_check.py`, where it ran before in the
+same checkout, found every case equal to the parent kernel's; bounds come
+from this run's inputs against the
 H100 SXM peaks of 67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16
 expert FFN and the bf16 attention) and 3.35 TB/s. The build phase fails
-if `wkv6` or `fused_gcn` spills registers. Each phase prints its seconds.
+if `wkv6`, `fused_gcn` or `sparse_pair` spills registers. Each phase
+prints its seconds.
 Details go to `chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2
 without one.
 """
@@ -192,8 +198,8 @@ def main() -> int:
         print(f"ptxas {name}: {' | '.join(regs)}; spill stores "
               f"{spills[name]} bytes in all")
     report["ptxas_spill_store_bytes"] = spills
-    assert spills["wkv6"] == 0, "wkv6 spills registers"
-    assert spills["fused_gcn"] == 0, "fused_gcn spills registers"
+    for name in ("wkv6", "fused_gcn", "sparse_pair"):
+        assert spills[name] == 0, f"{name} spills registers"
     report["fused_gcn_registers"] = _gcn_registers(
         (out_dir / "fused_gcn.log").read_text())
     print("fused_gcn registers by route: " + ", ".join(
@@ -220,10 +226,11 @@ def main() -> int:
     slots = max(8, nb // 4)
     deg = float(np.mean([g["avg_degree"] for pr in pairs for g in pr]))
 
-    def packed_arrays(edge_budget):
+    def packed_arrays(edge_budget, overflow_budget=8):
         packed, _ = batching.pack_pairs(
             pairs, nb, slots_per_tile=slots, with_edges=True,
-            edge_budget=edge_budget, device=dev)
+            edge_budget=edge_budget, overflow_budget=overflow_budget,
+            device=dev)
         e1, e2 = packed.edges.edges1, packed.edges.edges2
         o1, o2 = packed.edges.overflow1, packed.edges.overflow2
         # The arrays the ops wrappers hand the kernels: unpadded [T, ...].
@@ -244,6 +251,7 @@ def main() -> int:
     n_spill = int(spill_packed.edges.overflow1.edge_mask.sum()
                   + spill_packed.edges.overflow2.edge_mask.sum())
     assert n_spill > 0, "overflow case has no COO edges"
+    ov_in, _, _ = packed_arrays(2 * nb, overflow_budget=128)
     buckets = batching.bucket_pairs(pairs, CFG.n_node_labels,
                                     allow_oversize=True, device=dev)
     rng = np.random.default_rng(7)
@@ -264,7 +272,9 @@ def main() -> int:
             (f"overflow ({n_spill} COO edges)", sparse_pair_score,
              sparse_pair_score_plain, spill_in, params),
             ("narrow gcn (16,8,8,4)", sparse_pair_score,
-             sparse_pair_score_plain, sparse_in, narrow)],
+             sparse_pair_score_plain, sparse_in, narrow),
+            (f"E_ov {ov_in[2].shape[-1]}, D 2", sparse_pair_score,
+             sparse_pair_score_plain, ov_in, params)],
         "packed_pair": [
             ("main", packed_pair_score, packed_pair_score_plain, dense_in,
              params),
@@ -292,6 +302,9 @@ def main() -> int:
             err = float((got - want).abs().max())
             print(f"  {name} [{label}]: shape {tuple(got.shape)} max abs err "
                   f"{err:.3e} (bound {ATOL[name]:g})")
+            if kern is sparse_pair_score:
+                print(f"  sparse_pair plan [{label}]: "
+                      f"{sparse_pair_score.last_plan.summary()}")
             assert err <= ATOL[name], (name, label, err)
             worst = max(worst, err)
         label, kern, plain, arrays, prm = runs[0] if name != "fused_pair" \
@@ -301,6 +314,7 @@ def main() -> int:
         flops, nbytes = WORK[name](arrays, CFG)
         nbytes += param_bytes(params) + out_bytes(name, arrays)
         kernels[name] = record(name, worst, *timed, label, flops, nbytes)
+    kernels["sparse_pair"].update(_sparse_plan_report(sparse_in, params))
 
     phase("3 SimGNN kernels against their plain versions")
 
@@ -358,6 +372,10 @@ def main() -> int:
     print(f"serve launches: {counts}")
     assert counts["sparse_pair"] == N_PAIRS // BATCH, counts
     served = {"sparse_pair": counts["sparse_pair"]}
+    plan = sparse_pair_score.last_plan
+    assert plan.route == "cluster" and plan.grid == 2 * \
+        score.last_pack_stats["n_tiles"], plan
+    print(f"serve: sparse_pair plan of the last request: {plan.summary()}")
     requests = N_PAIRS // BATCH
     batch, out = first
     err_ref = float(np.abs(out - ref_score(batch)).max())
@@ -450,6 +468,7 @@ def main() -> int:
     phase("15 (d) granite prefill of a 4096-token prompt")
     report["mamba"], served["mamba_scan"] = mamba_block_phase(
         dev, reset_counts, read_counts)
+    kernels["mamba_scan"]["decode_ms"] = report["mamba"]["scan_decode_ms"]
     phase("16 (e) Jamba's Mamba block at full width")
     report["hybrid"] = hybrid_phase(dev, reset_counts, read_counts)
     phase("17 (f) the reduced Jamba hybrid, card against CPU")
@@ -501,6 +520,32 @@ def record(name, worst, ms, ms_source, call_ms, plain_ms, label, flops,
           f"{k['bound_ms'] * 1e3:.3f} us set by {k['bound_by']} "
           f"({flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.4f} MB)")
     return k
+
+
+def _sparse_plan_report(arrays, params) -> dict:
+    """The packed-sparse launch plan at phase 3's main case, the clusters
+    the card holds at once for it, and, where
+    `tools/sparse_pair_parent_check.py` ran before in this checkout, whether
+    every one of its cases was equal to the parent kernel's."""
+    from repro_torch.kernels.sparse_pair import (max_clusters,
+                                                 sparse_pair_score)
+
+    sparse_pair_score(*arrays, params["gcn"], params["att"]["w"],
+                      params["ntn"], params["fcn"])
+    plan = sparse_pair_score.last_plan
+    clusters = max_clusters(plan)
+    tiles = arrays[0].shape[0]
+    print(f"sparse_pair: plan at {tiles} tiles {plan.summary()}; the card "
+          f"holds {clusters} clusters at once ({tiles} needed for one wave)")
+    out = {"plan": plan.summary(), "resident_clusters": clusters,
+           "bit_identical": None}
+    check = ROOT / "chiprun_out" / "sparse_pair_parent.json"
+    if check.exists():
+        cases = json.loads(check.read_text())["cases"]
+        out["bit_identical"] = all(c["equal"] for c in cases)
+        print(f"sparse_pair: parent check {sum(c['equal'] for c in cases)} "
+              f"of {len(cases)} cases equal to the parent kernel's")
+    return out
 
 
 def timings(kern, plain, symbols):
@@ -2127,13 +2172,36 @@ def mamba_block_phase(dev, reset_counts, read_counts):
                            want[0], ref[0], SCAN_TOL),
             "state": _held_f64("mamba_scan", f"Jamba block {label}: final "
                                f"state", got[1], want[1], ref[1], SCAN_TOL)}
+    # one T = 1 launch on the captured decode-step inputs: events around a
+    # CUDA graph of 50 back-to-back launches, and the profiler
+    args, kw = keep["args"][1]
+    dt = args[0]
+    dflops, dbytes = _mamba_work(dt.shape[0], dt.shape[1], dt.shape[2],
+                                 args[2].shape[-1], dt.element_size(),
+                                 state=True)
+    scan_decode = {
+        "events_graph": time_cuda_graph(
+            lambda: mamba_selective_scan_state(*args, **kw)),
+        "profiler": kernel_device_ms(
+            lambda: mamba_selective_scan_state(*args, **kw),
+            "mamba_scan_kernel"),
+        "bound": max(dflops / PEAK_F32_FLOPS, dbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if dflops / PEAK_F32_FLOPS
+        >= dbytes / PEAK_BYTES else "bytes", "bytes": dbytes,
+        "shape": [*dt.shape, args[2].shape[-1]], "dtype": str(dt.dtype)}
+    print(f"mamba_scan decode launch (B {dt.shape[0]}, T 1, Din "
+          f"{dt.shape[2]}, N {args[2].shape[-1]}, {dt.dtype}, given state): "
+          f"{scan_decode['events_graph']:.5f} ms (CUDA events around 50 "
+          f"launches in a CUDA graph), {scan_decode['profiler']} ms "
+          f"(profiler); bound {scan_decode['bound'] * 1e3:.3f} us "
+          f"({scan_decode['bound_by']}: {dbytes / 1e6:.3f} MB)")
     decode_ms = 1e3 * statistics.fmean(step_s)
     rep = {"arch": JAMBA_ARCH, "layer": "0 (mamba, dense FFN)",
            "mamba_params": n_mamba, "batch": MAMBA_BATCH,
            "prompt": MAMBA_PROMPT, "steps": MAMBA_STEPS,
            "prefill_ms": 1e3 * pre_s, "decode_ms_per_step": decode_ms,
            "decode_step_ms": [1e3 * s for s in step_s], "launches": counts,
-           "captured_err": errs}
+           "captured_err": errs, "scan_decode_ms": scan_decode}
     print(f"mamba block: {JAMBA_ARCH} layer 0 ({n_mamba / 1e9:.3f} B Mamba "
           f"params, d_inner {cfg.mamba_d_inner}, N {cfg.mamba_d_state}, "
           f"dt_rank {cfg.dt_rank}, bf16): prefill {MAMBA_BATCH} x "

@@ -83,12 +83,13 @@ def _params(cfg=CONFIG, dtype="float32", device="cuda"):
     return p["gcn"], p["att"]["w"], p["ntn"], p["fcn"]
 
 
-def _packed(dev, n_pairs=40, edge_budget=None, pad_to=1):
+def _packed(dev, n_pairs=40, edge_budget=None, pad_to=1, overflow_budget=8):
     """Sparse-kernel and dense-kernel argument lists of one packed batch,
     padded to a multiple of `pad_to` tiles with all-pad tiles."""
     pairs = query_pairs(3, n_pairs)
     packed, _ = batching.pack_pairs(pairs, 64, slots_per_tile=16,
                                     with_edges=True, edge_budget=edge_budget,
+                                    overflow_budget=overflow_budget,
                                     device=dev)
     e = packed.edges
     sparse = (e.edges1.senders, e.edges1.weights, e.overflow1.senders,
@@ -135,6 +136,110 @@ def test_sparse_pair_kernel_matches_plain(cuda, case):
     assert (got[live:] == 0).all()
     if case == "overflow_d2":
         assert (sparse[4] != 0).any()
+
+
+def _interleave_pad_tiles(arrays, before):
+    """`arrays` with an all-pad tile inserted before each tile in
+    `before`."""
+    out = []
+    for x in arrays:
+        parts, last = [], 0
+        for i in before:
+            parts += [x[last:i], torch.zeros_like(x[:1])]
+            last = i
+        out.append(torch.cat(parts + [x[last:]]).contiguous())
+    return out
+
+
+def test_sparse_pair_all_pad_clusters_between_live_ones(cuda):
+    """Both CTAs of a pad tile's cluster leave before any cluster barrier;
+    the live clusters around them score as the plain version does."""
+    sparse, _, live = _packed(cuda)
+    arrays = _interleave_pad_tiles(sparse, (0, 1, 2, live))
+    got = _check(sparse_pair_score, sparse_pair_score_plain, arrays,
+                 _params(), ATOL_PACKED)
+    pad = arrays[16].sum(-1) == 0
+    assert pad.sum() == 4 and (got[pad] == 0).all()
+    everything_pad = [torch.zeros_like(x[:3]) for x in sparse]
+    assert (sparse_pair_score(*everything_pad, *_params()) == 0).all()
+    # pair slots masked out whose nodes stay masked in: the kernel pools
+    # their slots too, for the Att weights of those nodes
+    dead = list(sparse)
+    dead[16] = dead[16].clone()
+    dead[16][::2, 0] = 0.0
+    got = _check(sparse_pair_score, sparse_pair_score_plain, dead,
+                 _params(), ATOL_PACKED)
+    assert (got[::2, 0] == 0).all()
+
+
+@pytest.mark.parametrize("t", (1, 2, 3))
+def test_sparse_pair_few_tiles(cuda, t):
+    sparse, _, _ = _packed(cuda)
+    _check(sparse_pair_score, sparse_pair_score_plain,
+           [x[:t].contiguous() for x in sparse], _params(), ATOL_PACKED)
+
+
+@pytest.mark.parametrize("edge_budget,e_ov", [(None, 64), (None, 128),
+                                               (128, 128)],
+                         ids=("d_auto-64", "d_auto-128", "d2-128"))
+def test_sparse_pair_wide_overflow_lists(cuda, edge_budget, e_ov):
+    sparse, _, _ = _packed(cuda, edge_budget=edge_budget,
+                           overflow_budget=e_ov)
+    assert sparse[2].shape[-1] == e_ov
+    _check(sparse_pair_score, sparse_pair_score_plain, sparse, _params(),
+           ATOL_PACKED)
+
+
+@pytest.mark.parametrize("where", ("w1", "att", "ntn"))
+@pytest.mark.parametrize("value", (float("nan"), float("inf")))
+def test_sparse_pair_non_finite_weights_sit_where_plain_puts_them(
+        cuda, where, value):
+    """On live pair slots the kernel's NaNs are where the plain version's
+    are; pad slots stay 0 in the kernel (the plain version multiplies a
+    NaN score by the zero pair mask)."""
+    sparse, _, _ = _packed(cuda, edge_budget=128)
+    gcn, att, ntn, fcn = _params()
+    gcn = [dict(x) for x in gcn]
+    ntn = dict(ntn)
+    if where == "w1":
+        label = int(sparse[5][0, 0])
+        gcn[0]["w"] = gcn[0]["w"].clone()
+        gcn[0]["w"][label, 3] = value
+    elif where == "att":
+        att = att.clone()
+        att[4, 4] = value
+    else:
+        ntn["w"] = ntn["w"].clone()
+        ntn["w"][3, 5, 6] = value
+    weights = (gcn, att, ntn, fcn)
+    got = sparse_pair_score(*sparse, *weights)
+    want = sparse_pair_score_plain(*sparse, *weights)
+    torch.cuda.synchronize()
+    live = sparse[16] != 0
+    if value != value:
+        assert torch.isnan(got[live]).any()
+    torch.testing.assert_close(got[live], want[live], rtol=0,
+                               atol=ATOL_PACKED, equal_nan=True)
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.parametrize("kw", ({}, {"edge_budget": 128,
+                                     "overflow_budget": 128}),
+                         ids=("served_like", "spill"))
+def test_sparse_pair_launches_with_its_plan(cuda, kw):
+    from repro_torch.kernels.fused_gcn import device_limits
+    from repro_torch.kernels.sparse_pair import max_clusters, sparse_pair_plan
+
+    sparse, _, _ = _packed(cuda, **kw)
+    sparse_pair_score(*sparse, *_params())
+    t, e = sparse[0].shape
+    head = (CONFIG.ntn_k,) + tuple(CONFIG.fcn_dims) + (1,)
+    plan = sparse_pair_plan(t, 64, e // 64, sparse[2].shape[-1], 16,
+                            CONFIG.feature_dims,
+                            *device_limits(cuda.index or 0), head=head)
+    assert sparse_pair_score.last_plan == plan
+    assert plan.grid == 2 * t and plan.ctas_per_sm == 2
+    assert max_clusters(plan) >= t
 
 
 @pytest.mark.parametrize("case", ("main", "pad_tiles", "narrow", "bf16"))
