@@ -41,15 +41,23 @@ median); `fused_gcn` is also timed launch by launch for the search phase
 plan, summed over the phase's launches), and `wkv6` at the decode shape
 (T 1) from events around a CUDA graph of back-to-back launches, with each
 `wkv6` call's plan printed, and `mamba_scan` at the Jamba block's decode
-step (T 1) the same way; each `sparse_pair` call of phase 3 prints its
-launch plan (one tile per 2-CTA cluster), and the kernels line records
-whether `tools/sparse_pair_parent_check.py`, where it ran before in the
-same checkout, found every case equal to the parent kernel's; bounds come
+step (T 1) the same way; each `sparse_pair` and `fused_pair` call of
+phase 3 prints its launch plan (one tile per 2-CTA cluster; one pair per
+cluster of 2, 4 or 8 CTAs), `fused_pair` is timed at bucket 64, at one
+pair and at the oversize bucket 256, each with its bound, and each of the
+forced bucketed request's `fused_pair` launches is timed alone and summed
+launch by launch; phase 5 also serves auto requests of 1, 2 and 3 pairs
+(the bucketed path, "too small" to pack; wall time and device span) and a
+256-pair auto request with one 130-node pair (`packed_sparse` for the
+rest, one `fused_pair` launch at bucket 256); the kernels line records
+whether `tools/sparse_pair_parent_check.py` and
+`tools/fused_pair_parent_check.py`, where they ran before in the same
+checkout, found every case equal to the parent kernel's; bounds come
 from this run's inputs against the
 H100 SXM peaks of 67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16
 expert FFN and the bf16 attention) and 3.35 TB/s. The build phase fails
-if `wkv6`, `fused_gcn` or `sparse_pair` spills registers. Each phase
-prints its seconds.
+if `wkv6`, `fused_gcn`, `sparse_pair` or `fused_pair` spills registers.
+Each phase prints its seconds.
 Details go to `chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2
 without one.
 """
@@ -93,6 +101,9 @@ REPLACES = {
     "mamba_scan": "src/repro/kernels/mamba_scan.py:61",
 }
 SOURCE = {"topm": "retrieval", "topm_ntn": "retrieval"}
+#: profiler names of each kernel's launches where they are not
+#: `<name>_kernel`: fused_pair's cluster route and its single route
+SYMBOLS = {"fused_pair": ("fused_pair_cluster_kernel", "fused_pair_kernel")}
 #: the similarity-search phase: corpus rows, two-stage queries (one
 #: prefilter call), exact queries, shortlist and result depth, and the
 #: prefilter's column block (the default shard size, 256 rows).
@@ -198,7 +209,7 @@ def main() -> int:
         print(f"ptxas {name}: {' | '.join(regs)}; spill stores "
               f"{spills[name]} bytes in all")
     report["ptxas_spill_store_bytes"] = spills
-    for name in ("wkv6", "fused_gcn", "sparse_pair"):
+    for name in ("wkv6", "fused_gcn", "sparse_pair", "fused_pair"):
         assert spills[name] == 0, f"{name} spills registers"
     report["fused_gcn_registers"] = _gcn_registers(
         (out_dir / "fused_gcn.log").read_text())
@@ -285,6 +296,9 @@ def main() -> int:
              fused_in(buckets[32]), params),
             ("bucket 64", fused_pair_score, fused_pair_score_plain,
              fused_in(buckets[64]), params),
+            ("one pair at bucket 32", fused_pair_score,
+             fused_pair_score_plain,
+             [x[:1].contiguous() for x in fused_in(buckets[32])], params),
             ("oversize 130 nodes (bucket 256)", fused_pair_score,
              fused_pair_score_plain, fused_in(oversize[256]), params),
             ("narrow gcn (16,8,8,4)", fused_pair_score,
@@ -305,16 +319,26 @@ def main() -> int:
             if kern is sparse_pair_score:
                 print(f"  sparse_pair plan [{label}]: "
                       f"{sparse_pair_score.last_plan.summary()}")
+            if kern is fused_pair_score:
+                print(f"  fused_pair plan [{label}]: "
+                      f"{fused_pair_score.last_plan.summary()}")
             assert err <= ATOL[name], (name, label, err)
             worst = max(worst, err)
         label, kern, plain, arrays, prm = runs[0] if name != "fused_pair" \
             else runs[1]
         timed = timings(lambda: kern(*arrays, *wargs(prm)),
-                        lambda: plain(*arrays, *wargs(prm)), f"{name}_kernel")
+                        lambda: plain(*arrays, *wargs(prm)),
+                        SYMBOLS.get(name, f"{name}_kernel"))
         flops, nbytes = WORK[name](arrays, CFG)
         nbytes += param_bytes(params) + out_bytes(name, arrays)
         kernels[name] = record(name, worst, *timed, label, flops, nbytes)
     kernels["sparse_pair"].update(_sparse_plan_report(sparse_in, params))
+    # fused_pair beside its bucket-64 entry: one pair (the latency case)
+    # and the oversize 130-node pair, each with its bound and plan
+    kernels["fused_pair"]["per_case"] = [
+        _fused_launch_time(label, arrays, params)
+        for label, _, _, arrays, _ in cases["fused_pair"][1:4]]
+    kernels["fused_pair"]["bit_identical"] = _parent_check("fused_pair")
 
     phase("3 SimGNN kernels against their plain versions")
 
@@ -403,11 +427,22 @@ def main() -> int:
     phase("4 pair scoring served")
 
     # ---- phase 5: forced packed-dense and bucketed paths ----------------
+    fused_calls: list = []
+    real_fused = ops.fused_pair_score
+
+    def recording_fused(*args):
+        fused_calls.append(args)
+        return real_fused(*args)
+
     for path, name in (("packed_dense", "packed_pair"),
                        ("bucketed_mega", "fused_pair")):
         forced = simgnn_query_server(params, CFG, path=path)
         reset_counts()
-        got = forced(batch)
+        ops.fused_pair_score = recording_fused
+        try:
+            got = forced(batch)
+        finally:
+            ops.fused_pair_score = real_fused
         counts = read_counts()
         served[name] = counts[name]
         plan = forced.last_plan
@@ -419,6 +454,22 @@ def main() -> int:
         print(f"forced {path}: launches {counts}, vs card reference "
               f"{err:.3e} (bound {ATOL[name]:g})")
         assert err <= ATOL[name], (path, err)
+    # each of the forced request's fused_pair launches alone, summed
+    # launch by launch
+    assert len(fused_calls) == served["fused_pair"], len(fused_calls)
+    per_launch = [_fused_launch_time(
+        f"forced launch {i}", list(args[:6]), params)
+        for i, args in enumerate(fused_calls)]
+    loss = sum(t["ms"] - t["bound_ms"] for t in per_launch)
+    print(f"forced bucketed_mega: {len(per_launch)} fused_pair launches, "
+          f"sum of launch ms {sum(t['ms'] for t in per_launch):.4f}, sum of "
+          f"(time - bound) {loss:.4f} ms")
+    kernels["fused_pair"]["forced_launches"] = per_launch
+    kernels["fused_pair"]["forced_loss_ms"] = loss
+    report["small_calls"] = _small_calls(score, stream, ref_score,
+                                         reset_counts, read_counts)
+    report["oversize_request"] = _oversize_request(
+        score, stream, ref_score, reset_counts, read_counts)
 
     phase("5 forced packed-dense and bucketed paths")
 
@@ -537,15 +588,126 @@ def _sparse_plan_report(arrays, params) -> dict:
     tiles = arrays[0].shape[0]
     print(f"sparse_pair: plan at {tiles} tiles {plan.summary()}; the card "
           f"holds {clusters} clusters at once ({tiles} needed for one wave)")
-    out = {"plan": plan.summary(), "resident_clusters": clusters,
-           "bit_identical": None}
-    check = ROOT / "chiprun_out" / "sparse_pair_parent.json"
-    if check.exists():
-        cases = json.loads(check.read_text())["cases"]
-        out["bit_identical"] = all(c["equal"] for c in cases)
-        print(f"sparse_pair: parent check {sum(c['equal'] for c in cases)} "
-              f"of {len(cases)} cases equal to the parent kernel's")
+    return {"plan": plan.summary(), "resident_clusters": clusters,
+            "bit_identical": _parent_check("sparse_pair")}
+
+
+def _parent_check(name: str):
+    """Where `tools/<name>_parent_check.py` ran before in this checkout,
+    whether every one of its cases was equal to the parent kernel's (None
+    when it did not run)."""
+    check = ROOT / "chiprun_out" / f"{name}_parent.json"
+    if not check.exists():
+        return None
+    cases = json.loads(check.read_text())["cases"]
+    print(f"{name}: parent check {sum(c['equal'] for c in cases)} of "
+          f"{len(cases)} cases equal to the parent kernel's")
+    return all(c["equal"] for c in cases)
+
+
+def _fused_launch_time(label, arrays, params) -> dict:
+    """Kernel ms (profiler; events around back-to-back calls when it sees
+    none), bound and plan of one `fused_pair_score` launch on these
+    arrays."""
+    from repro_torch.configs.simgnn_aids import CONFIG as CFG
+    from repro_torch.kernels.fused_pair import fused_pair_score
+
+    def fn():
+        return fused_pair_score(*arrays, params["gcn"], params["att"]["w"],
+                                params["ntn"], params["fcn"])
+
+    ms = kernel_device_ms(fn, SYMBOLS["fused_pair"]) or time_cuda_batch(fn)
+    flops, nbytes = WORK["fused_pair"](arrays, CFG)
+    nbytes += param_bytes(params) + out_bytes("fused_pair", arrays)
+    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    pairs, bucket = arrays[0].shape[:2]
+    plan = fused_pair_score.last_plan.summary()
+    print(f"  fused_pair [{label}] {pairs} pair(s) at bucket {bucket}: "
+          f"{ms:.4f} ms, bound {bound * 1e3:.3f} us ({bound / ms:.2%} of "
+          f"it); plan: {plan}")
+    return {"case": label, "pairs": pairs, "bucket": bucket, "ms": ms,
+            "bound_ms": bound, "plan": plan}
+
+
+def _small_calls(score, stream, ref_score, reset_counts, read_counts,
+                 repeats: int = 5) -> list:
+    """Auto requests of 1, 2 and 3 pairs: the bucketed path ("too small"
+    to pack) with every launch a `fused_pair` one, scores within 2e-5 of
+    the card's reference path; median wall and device span of `repeats`
+    warm requests."""
+    out = []
+    for k in (1, 2, 3):
+        pairs = stream[:k]
+        score(pairs)                                   # warm
+        timer = RequestTimer(score.engine)
+        walls = []
+        reset_counts()
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            with timer:
+                got = score(pairs)
+            walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+        plan = score.last_plan
+        assert plan.path == "bucketed_mega" and "too small" in plan.reason, \
+            plan
+        assert counts["fused_pair"] >= repeats and sum(counts.values()) == \
+            counts["fused_pair"], counts
+        err = float(np.abs(got - ref_score(pairs)).max())
+        assert err <= ATOL["fused_pair"], (k, err)
+        wall = statistics.median(walls)
+        dev = statistics.median(st["device"] for st in timer.stages)
+        print(f"small call of {k} pair(s): {plan.path} ({plan.reason}); "
+              f"launches {counts['fused_pair']} in {repeats} requests; wall "
+              f"{1e3 * wall:.3f} ms, device span {1e3 * dev:.4f} ms (median "
+              f"of {repeats}); vs card reference {err:.3e} (bound "
+              f"{ATOL['fused_pair']:g})")
+        out.append({"pairs": k, "path": plan.path, "reason": plan.reason,
+                    "launches": counts["fused_pair"], "repeats": repeats,
+                    "wall_s": walls, "device_s": [st["device"] for st in
+                                                  timer.stages],
+                    "err_ref": err})
     return out
+
+
+def _oversize_request(score, stream, ref_score, reset_counts,
+                      read_counts) -> dict:
+    """An auto 256-pair request whose last pair holds a 130-node graph:
+    `packed_sparse` for the 255 others, one `fused_pair` launch at bucket
+    256 for the oversize pair."""
+    from repro_torch.data.graphs import edit_graph, random_graph
+    from repro_torch.kernels.fused_pair import fused_pair_score
+
+    rng = np.random.default_rng(7)
+    big = random_graph(rng, 130)
+    pairs = list(stream[:BATCH - 1]) + [(big, edit_graph(rng, big, 3))]
+    score(pairs)                                       # warm
+    reset_counts()
+    t0 = time.perf_counter()
+    got = score(pairs)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    plan = score.last_plan
+    assert plan.path == "packed_sparse" and list(plan.over_idx) == [
+        BATCH - 1], plan
+    assert counts["fused_pair"] == 1 and counts["sparse_pair"] >= 1 and \
+        sum(counts.values()) == counts["fused_pair"] + counts["sparse_pair"], \
+        counts
+    fp_plan = fused_pair_score.last_plan
+    assert dict(fp_plan.layout).get("n") == 256, fp_plan
+    want = ref_score(pairs)
+    err_fit = float(np.abs(got[:-1] - want[:-1]).max())
+    err_over = float(abs(got[-1] - want[-1]))
+    assert err_fit <= ATOL["sparse_pair"] and err_over <= ATOL["fused_pair"], \
+        (err_fit, err_over)
+    print(f"oversize request: {plan.path} for {BATCH - 1} pairs, launches "
+          f"{counts}; fused_pair at bucket 256 ({fp_plan.summary()}); wall "
+          f"{1e3 * wall:.3f} ms; vs card reference {err_fit:.3e} (packed, "
+          f"bound {ATOL['sparse_pair']:g}), {err_over:.3e} (oversize pair, "
+          f"bound {ATOL['fused_pair']:g})")
+    return {"path": plan.path, "launches": counts, "wall_s": wall,
+            "err_fit": err_fit, "err_over": err_over,
+            "fused_pair_plan": fp_plan.summary()}
 
 
 def timings(kern, plain, symbols):

@@ -267,6 +267,100 @@ def test_fused_pair_kernel_matches_plain_every_bucket(cuda, cfg):
                _params(cfg), ATOL_BUCKETED)
 
 
+def _fused_buckets(dev, pairs) -> dict:
+    """Bucket -> `fused_pair_score` arrays of `pairs`, bucketed as the
+    engine buckets them."""
+    return {k: [lhs.adj, lhs.feats, lhs.mask, rhs.adj, rhs.feats, rhs.mask]
+            for k, (lhs, rhs, _) in batching.bucket_pairs(
+                pairs, CONFIG.n_node_labels, allow_oversize=True,
+                device=dev).items()}
+
+
+@pytest.mark.parametrize("b", (1, 2, 3, 2048))
+def test_fused_pair_kernel_matches_plain_by_call_size(cuda, b):
+    buckets = _fused_buckets(cuda, query_pairs(1, 256))
+    for k in ((16, 32, 64) if b < 4 else (32,)):
+        arrays = buckets[k]
+        reps = -(-b // arrays[0].shape[0])
+        arrays = [torch.cat([x] * reps)[:b].contiguous() for x in arrays]
+        _check(fused_pair_score, fused_pair_score_plain, arrays, _params(),
+               ATOL_BUCKETED)
+
+
+@pytest.mark.parametrize("bucket", (8, 16, 32, 64, 128, 256, 512))
+def test_fused_pair_kernel_matches_plain_at_every_bucket(cuda, bucket):
+    size = {8: 5, 16: 12, 32: 25, 64: 50, 128: 100, 256: 130,
+            512: 300}[bucket]
+    rng = np.random.default_rng(bucket)
+    g = random_graph(rng, size)
+    pairs = [(g, edit_graph(rng, g, 3)),
+             (random_graph(rng, max(3, size // 2)), g)]
+    buckets = _fused_buckets(cuda, pairs)
+    assert list(buckets) == [bucket]
+    _check(fused_pair_score, fused_pair_score_plain, buckets[bucket],
+           _params(), ATOL_BUCKETED)
+    route = fused_pair_score.last_plan.route
+    assert route == ("single" if bucket == 512 else "cluster"), route
+
+
+def test_fused_pair_kernel_matches_plain_with_holes_in_the_masks(cuda):
+    arrays = [x.clone() for x in _fused_buckets(cuda, query_pairs(1, 256))[64]]
+    arrays[2][:, 3::7] = 0.0
+    arrays[5][:, 1::5] = 0.0
+    _check(fused_pair_score, fused_pair_score_plain, arrays, _params(),
+           ATOL_BUCKETED)
+
+
+@pytest.mark.parametrize("bucket", (32, 64))
+def test_fused_pair_kernel_matches_plain_with_bf16_params(cuda, bucket):
+    arrays = _fused_buckets(cuda, query_pairs(1, 256))[bucket]
+    _check(fused_pair_score, fused_pair_score_plain, arrays,
+           _params(dtype="bfloat16"), ATOL_BUCKETED)
+
+
+@pytest.mark.parametrize("where", ("w0", "w1", "att", "ntn"))
+def test_fused_pair_kernel_puts_nan_where_the_plain_version_does(cuda,
+                                                                 where):
+    arrays = _fused_buckets(cuda, query_pairs(1, 256))[64]
+    gcn, att, ntn, fcn = _params()
+    gcn = [dict(layer) for layer in gcn]
+    ntn = dict(ntn)
+    if where == "att":
+        att = att.clone()
+        att[4, 4] = float("nan")
+    elif where == "ntn":
+        ntn["w"] = ntn["w"].clone()
+        ntn["w"][3, 5, 6] = float("nan")
+    else:
+        layer = int(where[-1])
+        gcn[layer]["w"] = gcn[layer]["w"].clone()
+        gcn[layer]["w"][int(arrays[1][0, 0].argmax()) if layer == 0 else 5,
+                        3] = float("nan")
+    got = fused_pair_score(*arrays, gcn, att, ntn, fcn)
+    want = fused_pair_score_plain(*arrays, gcn, att, ntn, fcn)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert nan.any() and torch.equal(torch.isnan(got), nan)
+    diff = (got[~nan] - want[~nan]).abs()
+    assert diff.numel() == 0 or float(diff.max()) <= ATOL_BUCKETED
+
+
+def test_fused_pair_launches_with_its_plan(cuda):
+    from repro_torch.kernels.fused_pair import max_clusters, plan_for
+
+    buckets = _fused_buckets(cuda, query_pairs(1, 256))
+    weights = _params()
+    for k, b in ((64, None), (64, 1), (32, 1), (32, None)):
+        arrays = [x[:b].contiguous() for x in buckets[k]]
+        pairs = arrays[0].shape[0]
+        fused_pair_score(*arrays, *weights)
+        plan = plan_for(pairs, k, arrays[1].shape[-1], *weights, cuda)
+        assert fused_pair_score.last_plan == plan
+        assert plan.route == "cluster" and plan.grid == plan.cluster * pairs
+        assert max_clusters(plan) >= 1
+    assert plan_for(1, 64, 29, *weights, cuda).cluster == 8
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     sparse, dense, _ = _packed(cuda)
     weights = _params()
