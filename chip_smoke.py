@@ -209,7 +209,8 @@ def main() -> int:
         print(f"ptxas {name}: {' | '.join(regs)}; spill stores "
               f"{spills[name]} bytes in all")
     report["ptxas_spill_store_bytes"] = spills
-    for name in ("wkv6", "fused_gcn", "sparse_pair", "fused_pair"):
+    for name in ("wkv6", "fused_gcn", "sparse_pair", "fused_pair",
+                 "mamba_scan"):
         assert spills[name] == 0, f"{name} spills registers"
     report["fused_gcn_registers"] = _gcn_registers(
         (out_dir / "fused_gcn.log").read_text())
@@ -220,6 +221,11 @@ def main() -> int:
         (out_dir / "wkv6.log").read_text())
     print("wkv6 registers by instantiation (type, KMAX, VB): " + ", ".join(
         f"{k} {v}" for k, v in report["wkv6_registers"].items()))
+    report["mamba_scan_registers"] = _mamba_registers(
+        (out_dir / "mamba_scan.log").read_text())
+    print("mamba_scan registers by instantiation (type, NMAX, exact N): "
+          + ", ".join(f"{k} {v}"
+                      for k, v in report["mamba_scan_registers"].items()))
     phase("2 build")
 
     gen = torch.Generator().manual_seed(0)
@@ -1650,39 +1656,61 @@ def time_cuda_graph(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _gcn_registers(log: str) -> dict:
-    """Registers of `fused_gcn_kernel<SCRATCH>` by route in a ptxas
-    report."""
+def _registers(log: str, entry: str, key) -> dict:
+    """Registers of each kernel instantiation in a ptxas report whose
+    entry name matches `entry`, keyed by key(match)."""
     import re
 
     regs, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*fused_gcn_kernelILb(\d)E",
-                      line)
+        m = re.search(r"Compiling entry function '.*" + entry, line)
         if m:
-            name = "scratch" if m.group(1) == "1" else "shared"
+            name = key(m)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs[name], name = int(m.group(1)), None
     return dict(sorted(regs.items()))
+
+
+def _elt(m) -> str:
+    return "bf16" if "bfloat16" in m.group(1) else "f32"
+
+
+def _gcn_registers(log: str) -> dict:
+    """Registers of `fused_gcn_kernel<SCRATCH>` by route."""
+    return _registers(log, r"fused_gcn_kernelILb(\d)E",
+                      lambda m: "scratch" if m.group(1) == "1" else "shared")
 
 
 def _wkv_registers(log: str) -> dict:
-    """Registers of each `wkv6_kernel<Elt, KMAX, VB>` instantiation in a
-    ptxas report, keyed "bf16|f32 KMAX VB"."""
-    import re
+    """Registers of each `wkv6_kernel<Elt, KMAX, VB>` instantiation,
+    keyed "bf16|f32 KMAX VB"."""
+    return _registers(log, r"wkv6_kernelI(\w+?)Li(\d+)ELi(\d+)E",
+                      lambda m: f"{_elt(m)} {m.group(2)} {m.group(3)}")
 
-    regs, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*wkv6_kernelI(\w+?)"
-                      r"Li(\d+)ELi(\d+)E", line)
-        if m:
-            name = (f"{'bf16' if 'bfloat16' in m.group(1) else 'f32'} "
-                    f"{m.group(2)} {m.group(3)}")
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            regs[name], name = int(m.group(1)), None
-    return dict(sorted(regs.items()))
+
+def _mamba_registers(log: str) -> dict:
+    """Registers of each `mamba_scan_kernel<Elt, NMAX, FULL_N>`
+    instantiation, keyed "bf16|f32 NMAX exact|pred"."""
+    return _registers(
+        log, r"mamba_scan_kernelI(\w+?)Li(\d+)ELb(\d)E",
+        lambda m: f"{_elt(m)} {m.group(2)} "
+        f"{'exact' if m.group(3) == '1' else 'pred'}")
+
+
+def _print_mamba_plan(label, shape, dtype) -> dict:
+    """Print and return what a `mamba_selective_scan_state` launch at
+    (B, T, Din, N) runs."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_plan
+
+    plan = mamba_scan_plan(*shape, dtype)
+    print(f"  mamba_scan plan [{label}, {str(dtype).split('.')[-1]}]: "
+          f"{plan['ctas']} CTAs of {plan['threads']} threads (one a "
+          f"channel), TB {plan['tb']}, dt/x {plan['route']}, B/C "
+          f"{plan['bc_route']}, {plan['state_rows']} state rows, NMAX "
+          f"{plan['nmax']}{' (N 16 exactly)' if plan['exact_n'] else ''}, "
+          f"{plan['smem_bytes']} shared bytes")
+    return plan
 
 
 def _print_wkv_plan(label, shape, dtype) -> dict:
@@ -1948,6 +1976,7 @@ def lm_kernel_checks(dev) -> dict:
                bf16, True)]
     worst = 0.0
     for label, shape, dtype, with_state in mcases:
+        plan = _print_mamba_plan(label, shape, dtype)
         dt, x, b, c, a, d, h0 = mamba_in(*shape, dtype)
         h0 = h0 if with_state else None
         got = mamba_selective_scan_state(dt, x, b, c, a, d, h0)
@@ -1964,7 +1993,7 @@ def lm_kernel_checks(dev) -> dict:
                 mamba_selective_scan_plain(dt, x, b, c, a, d), SCAN_TOL,
                 bf16=True))
         if label == mcases[0][0]:
-            main = (dt, x, b, c, a, d)
+            main, main_plan = (dt, x, b, c, a, d), plan
         del dt, x, b, c, a, d, h0, got, want
     flops, nbytes = _mamba_work(*jamba, 4)
     out["mamba_scan"] = record(
@@ -1975,7 +2004,8 @@ def lm_kernel_checks(dev) -> dict:
         "Jamba block f32 (B 2, T 2048, Din 16384, N 16)", flops, nbytes,
         err_bound="rtol 0.0001, atol 1e-05 (bf16 y: one bf16 ulp more)",
         events_ms=time_cuda_batch(
-            lambda: mamba_selective_scan_state(*main)))
+            lambda: mamba_selective_scan_state(*main)), plan=main_plan,
+        bit_identical=_parent_check("mamba_scan"))
     del main
     torch.cuda.empty_cache()
     return out
@@ -2326,6 +2356,8 @@ def mamba_block_phase(dev, reset_counts, read_counts):
     errs = {}
     for (args, kw), label in zip(keep["args"], ("prefill", "decode step 1")):
         assert (args[-1] is None) == (label == "prefill")
+        _print_mamba_plan(f"Jamba block {label}",
+                          (*args[0].shape, args[2].shape[-1]), args[0].dtype)
         got = mamba_selective_scan_state(*args, **kw)
         want = mamba_selective_scan_state_plain(*args, **kw)
         ref = _mamba_f64(*args, **kw)

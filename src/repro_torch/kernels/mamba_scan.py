@@ -18,7 +18,9 @@ does, so a caller must not add it again. Both launch the CUDA kernel
 them on CPU tensors. The kernel takes dt and x in float32 or bfloat16 (one
 dtype); the wrapper upcasts B, C, A and D to float32 (exact; they are the
 small operands). The Pallas `block_t` / `block_d` policies have no
-counterpart.
+counterpart. `mamba_scan_plan` reports what a launch at given sizes runs:
+its CTAs of CH channels, the time block TB, how dt/x, B/C and the state
+rows are staged, and its shared memory.
 """
 
 from __future__ import annotations
@@ -67,7 +69,30 @@ def _lib():
     lib = build.library("mamba_scan")
     build.bind(lib.mamba_scan_launch, [ctypes.c_int] + [ctypes.c_void_p] * 9
                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    build.bind(lib.mamba_scan_plan,
+               [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
     return lib
+
+
+def mamba_scan_plan(bsz, t, din, n, dtype) -> dict:
+    """What `mamba_selective_scan_state` launches for dt/x of `dtype` at
+    (B, T, Din, N): CTAs, threads per CTA (one a channel: CH), the time
+    block TB, how dt and x are staged ("route": "async" by cp.async,
+    "plain" by plain loads), how B and C are ("bc_route"), how the state
+    rows are read and written ("state_rows": "float4", or "scalar": N
+    accesses a thread), dynamic shared bytes per CTA, NMAX and whether the
+    instantiation for N = 16 exactly runs ("exact_n"). A launch whose base
+    pointers are not 16-byte aligned takes the plain routes for them."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernel takes float32 or bfloat16, got {dtype}")
+    out = (ctypes.c_int * 10)()
+    build.check_launch(_lib().mamba_scan_plan(_DTYPE_CODE[dtype], bsz, t,
+                                              din, n, out), "mamba_scan_plan")
+    return {"ctas": out[0], "threads": out[1], "ch": out[2], "tb": out[3],
+            "route": "async" if out[4] else "plain", "smem_bytes": out[5],
+            "nmax": out[6], "exact_n": bool(out[7]),
+            "bc_route": "async" if out[8] else "plain",
+            "state_rows": "float4" if out[9] else "scalar"}
 
 
 def _shapes(dt, x, b, c, a, d, h0, out_dtype) -> tuple[int, int, int, int]:

@@ -51,7 +51,7 @@ from repro_torch.kernels.flash_attn import (flash_attention,
                                             flash_attention_plain,
                                             flash_attention_plan)
 from repro_torch.kernels.mamba_scan import (
-    mamba_selective_scan, mamba_selective_scan_plain,
+    mamba_scan_plan, mamba_selective_scan, mamba_selective_scan_plain,
     mamba_selective_scan_state, mamba_selective_scan_state_plain)
 from repro_torch.kernels.moe_experts import (moe_expert_ffn,
                                              moe_expert_ffn_plain,
@@ -1001,7 +1001,41 @@ MAMBA_CASES = {  # (B, T, Din, N)
     "odd": (2, 45, 200, 16),
     "small_n": (1, 33, 70, 5),
     "widest_n": (3, 20, 130, 32),
+    # around the time block (TB 32): full blocks, a ragged last block
+    "tb_less_1": (2, 31, 256, 16),
+    "tb": (2, 32, 256, 16),
+    "tb_plus_1": (2, 33, 256, 16),
+    "two_tb_plus_1": (2, 65, 256, 16),
+    # Din not a multiple of the CTA's 128 channels, rows still 16-byte
+    "din_not_ch": (2, 40, 8200, 16),
+    # rows of 140 (bf16) and 280 (float32) bytes: staged by plain loads
+    "din70_plain_rows": (2, 40, 70, 16),
+    # N 8 and 12: float4 state rows under n < N predicates; N 5: scalar
+    # state rows, B and C by plain loads; N 20: NMAX 32
+    "n8": (2, 50, 192, 8),
+    "n5_async_rows": (2, 40, 256, 5),
+    "n12": (2, 33, 96, 12),
+    "n20": (1, 35, 64, 20),
+    "b1": (1, 40, 192, 16),
+    "served_decode": (2, 1, 16384, 16),
 }
+# Every operand a view that starts one element past a 16-byte boundary:
+# the launch takes plain loads and scalar state rows for such pointers.
+MAMBA_UNALIGNED_CASES = {
+    "unaligned": (2, 70, 256, 16),
+    "unaligned_decode": (2, 1, 16384, 16),
+    "unaligned_n8_plain_rows": (2, 40, 70, 8),
+}
+
+
+def _off16(z):
+    """z's values in a view that starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(z.numel() + 1, dtype=z.dtype, device=z.device)
+    flat[1:] = z.reshape(-1)
+    out = flat[1:].view(z.shape)
+    assert out.data_ptr() % 16 != 0
+    return out
 
 
 def _mamba_inputs(dev, bsz, t, din, n, dtype, seed=0):
@@ -1017,9 +1051,15 @@ def _mamba_inputs(dev, bsz, t, din, n, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
                          ids=("f32", "bf16"))
-@pytest.mark.parametrize("case", sorted(MAMBA_CASES))
+@pytest.mark.parametrize("case",
+                         sorted(MAMBA_CASES) + sorted(MAMBA_UNALIGNED_CASES))
 def test_mamba_scan_kernel_matches_plain(cuda, case, dtype):
-    dt, x, b, c, a, d, h0 = _mamba_inputs(cuda, *MAMBA_CASES[case], dtype)
+    if case in MAMBA_UNALIGNED_CASES:
+        dt, x, b, c, a, d, h0 = (_off16(z) for z in _mamba_inputs(
+            cuda, *MAMBA_UNALIGNED_CASES[case], dtype))
+    else:
+        dt, x, b, c, a, d, h0 = _mamba_inputs(cuda, *MAMBA_CASES[case],
+                                              dtype)
     for init in (None, h0):
         before = mamba_selective_scan_state.launches
         got_y, got_h = mamba_selective_scan_state(dt, x, b, c, a, d, init)
@@ -1033,6 +1073,71 @@ def test_mamba_scan_kernel_matches_plain(cuda, case, dtype):
     want = mamba_selective_scan_plain(dt, x, b, c, a, d)
     assert got.dtype == dtype and got.shape == x.shape
     assert _excess(got, want.float(), SCAN_TOL) <= 0
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+def test_mamba_scan_state_carries_across_calls(cuda, dtype):
+    """Scanning [0, T1) and then [T1, T) from the returned state gives, bit
+    for bit, the y and final state of one call over [0, T): a step's
+    arithmetic does not depend on how the steps are blocked (T1 = 45
+    splits a time block of 32)."""
+    dt, x, b, c, a, d, h0 = _mamba_inputs(cuda, 2, 100, 256, 16, dtype)
+    for init in (None, h0):
+        whole_y, whole_h = mamba_selective_scan_state(dt, x, b, c, a, d,
+                                                      init)
+        head, tail = ([z[:, sl].contiguous() for z in (dt, x, b, c)]
+                      for sl in (slice(0, 45), slice(45, None)))
+        y1, h1 = mamba_selective_scan_state(*head, a, d, init)
+        y2, h2 = mamba_selective_scan_state(*tail, a, d, h1)
+        assert torch.equal(torch.cat([y1, y2], 1), whole_y)
+        assert torch.equal(h2, whole_h)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+def test_mamba_scan_channels_do_not_mix(cuda, dtype):
+    """A channel's y and state depend on no other channel: the first 64
+    channels of a Din 64 call equal, bit for bit, those of a Din 192 call
+    on the same rows, from a zero and from a given state."""
+    dt, x, b, c, a, d, h0 = _mamba_inputs(cuda, 2, 70, 192, 16, dtype)
+    for init in (None, h0):
+        wide_y, wide_h = mamba_selective_scan_state(dt, x, b, c, a, d, init)
+        narrow_y, narrow_h = mamba_selective_scan_state(
+            dt[..., :64].contiguous(), x[..., :64].contiguous(), b, c,
+            a[:64].contiguous(), d[:64].contiguous(),
+            None if init is None else init[:, :64].contiguous())
+        assert torch.equal(narrow_y, wide_y[..., :64])
+        assert torch.equal(narrow_h, wide_h[:, :64])
+
+
+def test_mamba_scan_plan_stages_the_served_shape_asynchronously(cuda):
+    """Jamba's Mamba block (B 2, Din 16384, N 16), prefill and decode,
+    float32 and bf16: dt, x, B and C by cp.async, float4 state rows, the
+    N = 16 instantiation, at least 256 CTAs of 32-step blocks, at least two
+    CTAs' shared memory an SM; rows that are not whole 16-byte chunks take
+    plain loads, N 5 reads and writes its state rows by scalar accesses,
+    and the edge cases above do cross a CTA's channels."""
+    for t in (2048, 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = mamba_scan_plan(2, t, 16384, 16, dtype)
+            assert plan["route"] == "async" and plan["ctas"] >= 256, plan
+            assert plan["bc_route"] == "async", plan
+            assert plan["state_rows"] == "float4" and plan["exact_n"], plan
+            assert plan["tb"] == 32 and plan["threads"] == plan["ch"], plan
+            assert 2 * plan["smem_bytes"] <= 227 * 1024, plan
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = mamba_scan_plan(*MAMBA_CASES["din70_plain_rows"], dtype)
+        assert plan["route"] == "plain", plan
+    plan = mamba_scan_plan(*MAMBA_CASES["n5_async_rows"], torch.float32)
+    assert plan["route"] == "async" and plan["bc_route"] == "plain", plan
+    assert plan["state_rows"] == "scalar" and not plan["exact_n"], plan
+    assert mamba_scan_plan(*MAMBA_CASES["n8"], torch.float32)[
+        "state_rows"] == "float4"
+    for case in ("odd", "din_not_ch", "din70_plain_rows"):
+        bsz, t, din, n = MAMBA_CASES[case]
+        assert din % mamba_scan_plan(bsz, t, din, n, torch.float32)[
+            "ch"] != 0, case
 
 
 FLASH_CASES = {  # (B, T, S, H, KV, D, causal, window, softcap)
