@@ -38,7 +38,10 @@ the float32 FMA body's time at the same shape;
 the wrapper call and the plain version are timed with CUDA events (warm,
 median); `fused_gcn` is also timed launch by launch for the search phase
 (each corpus bucket and each kind of query launch, with its launch
-plan, summed over the phase's launches), and `wkv6` at the decode shape
+plan, summed over the phase's launches), so is `simgnn_head` (each
+distinct batch size of the phase, with its launch plan: the tiled route
+for SimGNN-AIDS, the warp route for the narrow F = 4 held in phase 3b),
+and `wkv6` at the decode shape
 (T 1) from events around a CUDA graph of back-to-back launches, with each
 `wkv6` call's plan printed, and `mamba_scan` at the Jamba block's decode
 step (T 1) the same way; each `sparse_pair` and `fused_pair` call of
@@ -50,13 +53,16 @@ launch by launch; phase 5 also serves auto requests of 1, 2 and 3 pairs
 (the bucketed path, "too small" to pack; wall time and device span) and a
 256-pair auto request with one 130-node pair (`packed_sparse` for the
 rest, one `fused_pair` launch at bucket 256); the kernels line records
-whether `tools/sparse_pair_parent_check.py` and
-`tools/fused_pair_parent_check.py`, where they ran before in the same
-checkout, found every case equal to the parent kernel's; bounds come
+whether `tools/sparse_pair_parent_check.py`,
+`tools/fused_pair_parent_check.py`, `tools/mamba_scan_parent_check.py`
+and `tools/simgnn_head_parent_check.py`, where they ran before in the
+same checkout, found every case equal to the parent kernel's, and
+`simgnn_head`'s entry its plan's route (`plan_route`); bounds come
 from this run's inputs against the
 H100 SXM peaks of 67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16
 expert FFN and the bf16 attention) and 3.35 TB/s. The build phase fails
-if `wkv6`, `fused_gcn`, `sparse_pair` or `fused_pair` spills registers.
+if `wkv6`, `fused_gcn`, `sparse_pair`, `fused_pair`, `mamba_scan` or
+`simgnn_head` spills registers.
 Each phase prints its seconds.
 Details go to `chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2
 without one.
@@ -103,7 +109,8 @@ REPLACES = {
 SOURCE = {"topm": "retrieval", "topm_ntn": "retrieval"}
 #: profiler names of each kernel's launches where they are not
 #: `<name>_kernel`: fused_pair's cluster route and its single route
-SYMBOLS = {"fused_pair": ("fused_pair_cluster_kernel", "fused_pair_kernel")}
+SYMBOLS = {"fused_pair": ("fused_pair_cluster_kernel", "fused_pair_kernel"),
+           "simgnn_head": ("simgnn_head_tiled_kernel", "simgnn_head_kernel")}
 #: the similarity-search phase: corpus rows, two-stage queries (one
 #: prefilter call), exact queries, shortlist and result depth, and the
 #: prefilter's column block (the default shard size, 256 rows).
@@ -210,7 +217,7 @@ def main() -> int:
               f"{spills[name]} bytes in all")
     report["ptxas_spill_store_bytes"] = spills
     for name in ("wkv6", "fused_gcn", "sparse_pair", "fused_pair",
-                 "mamba_scan"):
+                 "mamba_scan", "simgnn_head"):
         assert spills[name] == 0, f"{name} spills registers"
     report["fused_gcn_registers"] = _gcn_registers(
         (out_dir / "fused_gcn.log").read_text())
@@ -226,6 +233,12 @@ def main() -> int:
     print("mamba_scan registers by instantiation (type, NMAX, exact N): "
           + ", ".join(f"{k} {v}"
                       for k, v in report["mamba_scan_registers"].items()))
+    report["simgnn_head_registers"] = _head_registers(
+        (out_dir / "simgnn_head.log").read_text())
+    print("simgnn_head registers by route (tiled: pairs a thread): "
+          + ", ".join(f"{k} {v}"
+                      for k, v in report["simgnn_head_registers"].items())
+          + f"; spill stores {spills['simgnn_head']} bytes")
     phase("2 build")
 
     gen = torch.Generator().manual_seed(0)
@@ -541,8 +554,8 @@ def main() -> int:
               f"{k['max_abs_err']:.3e} ({k['err_bound']})")
     line = {"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        for k in kernels.values()]}
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan_route")
+        if key in k} for k in kernels.values()]}
     report["kernels"] = list(kernels.values())
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -739,6 +752,33 @@ def _embed_work(a, feats, mask, cfg) -> tuple[float, int]:
     return flops, nbytes + len(n) * cfg.gcn_dims[-1] * 4
 
 
+def _head_work(b, params) -> tuple[float, int]:
+    """Flops and bytes of one head launch on B pairs: the NTN, FCN and
+    sigmoid of each pair; h1 and h2 [B, F] and the head's weights read
+    once, [B] scores written once."""
+    from repro_torch.configs.simgnn_aids import CONFIG as CFG
+
+    nbytes = 2 * b * CFG.gcn_dims[-1] * 4 + b * 4 + param_bytes(
+        {"ntn": params["ntn"], "fcn": params["fcn"]})
+    return _head_flops(0, 0, b, CFG), nbytes
+
+
+def _head_launch_time(h1, h2, params) -> dict:
+    """Kernel ms (profiler; events around back-to-back calls when it sees
+    none), bound and plan of one `simgnn_head` launch on these rows."""
+    from repro_torch.kernels.simgnn_head import simgnn_head
+
+    def fn():
+        return simgnn_head(h1, h2, params["ntn"], params["fcn"])
+
+    ms = (kernel_device_ms(fn, SYMBOLS["simgnn_head"])
+          or time_cuda_batch(fn))
+    flops, nbytes = _head_work(h1.shape[0], params)
+    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    return {"B": h1.shape[0], "ms": ms, "bound_ms": bound,
+            "plan": simgnn_head.last_plan.summary()}
+
+
 def _topm_work(q, n, m, f, k=0, fcn=()) -> tuple[float, int]:
     """Flops and bytes of one top-M scan: per (query, row) a dot of F, or
     K dots, the dq add and the FCN stack; the query operands and the
@@ -808,6 +848,7 @@ def search_kernels(params, narrow, corpus, queries, dev) -> dict:
     from repro_torch.kernels import retrieval
     from repro_torch.kernels.fused_gcn import (fused_gcn_att,
                                                fused_gcn_att_plain)
+    from repro_torch.kernels.simgnn_head import occupancy as head_occupancy
     from repro_torch.kernels.simgnn_head import (simgnn_head,
                                                  simgnn_head_plain)
 
@@ -890,24 +931,33 @@ def search_kernels(params, narrow, corpus, queries, dev) -> dict:
     rng = np.random.default_rng(11)
     nw = [torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32))
           .to(dev) for _ in range(2)]
-    worst = 0.0
+    worst, plans = 0.0, {}
     for label, (a, b), w in ((f"B = N = {n}", (h1, emb), head_w),
                              (f"narrow (F = 4), B = {n}", nw,
                               (narrow["ntn"], narrow["fcn"]))):
         err = float((simgnn_head(a, b, *w)
                      - simgnn_head_plain(a, b, *w)).abs().max())
-        print(f"  simgnn_head [{label}]: max abs err {err:.3e}")
+        plans[label] = simgnn_head.last_plan
+        print(f"  simgnn_head [{label}]: max abs err {err:.3e}; plan: "
+              f"{plans[label].summary()}")
         assert err <= ATOL["simgnn_head"], (label, err)
         worst = max(worst, err)
-    per_pair = _head_flops(0, 0, 1, CFG)
+    served = plans[f"B = N = {n}"]
+    assert served.route == "tiled", served
+    assert plans[f"narrow (F = 4), B = {n}"].route == "warp"
+    held = head_occupancy(served)
+    assert held >= served.ctas_per_sm, (served, held)
+    print(f"  simgnn_head plan at B = N: {served.summary()} (the runtime "
+          f"holds {held} a SM)")
+    flops, nbytes = _head_work(n, params)
     out["simgnn_head"] = record(
         "simgnn_head", worst,
         *timings(lambda: simgnn_head(h1, emb, *head_w),
                  lambda: simgnn_head_plain(h1, emb, *head_w),
-                 ("simgnn_head_kernel",)),
-        f"B = N = {n}", per_pair * n,
-        3 * n * f * 4 + n * 4 + param_bytes({"ntn": params["ntn"],
-                                             "fcn": params["fcn"]}))
+                 SYMBOLS["simgnn_head"]),
+        f"B = N = {n}", flops, nbytes, plan=served.summary(),
+        plan_route=served.route, runtime_ctas_per_sm=held,
+        bit_identical=_parent_check("simgnn_head"))
 
     # Both top-M scans: the served shape, M = N, NaN rows.
     uq, dq = (torch.from_numpy(x).to(dev) for x in
@@ -1031,13 +1081,20 @@ def search_phase(params, corpus, queries, reset_counts, read_counts,
     srv = SimilaritySearchServer(params, CFG, cache_size=16384)
     n = len(corpus)
     gcn_calls: list = []
-    real_gcn = ops.fused_gcn_att
+    head_calls: dict = {}
+    real_gcn, real_head = ops.fused_gcn_att, ops.simgnn_head
 
     def recording_gcn(adj, feats, mask, *weights):
         gcn_calls.append((adj, feats, mask))
         return real_gcn(adj, feats, mask, *weights)
 
+    def recording_head(h1, h2, *weights):
+        calls = head_calls.setdefault(h1.shape[0], [])
+        calls.append(None if calls else (h1, h2))
+        return real_head(h1, h2, *weights)
+
     ops.fused_gcn_att = recording_gcn
+    ops.simgnn_head = recording_head
     reset_counts()
     timer = SpanTimer()
     with timer:
@@ -1086,7 +1143,7 @@ def search_phase(params, corpus, queries, reset_counts, read_counts,
     ti, ts = srv.topk(queries[0], k=TOPK, mode="two_stage", prefilter_m=n)
     m_eq_n = bool(np.array_equal(ei, ti) and es.tobytes() == ts.tobytes())
     counts = read_counts()
-    ops.fused_gcn_att = real_gcn
+    ops.fused_gcn_att, ops.simgnn_head = real_gcn, real_head
     print(f"search launches: {counts}")
     kinds: dict = {}
     for arrays in gcn_calls:
@@ -1107,6 +1164,20 @@ def search_phase(params, corpus, queries, reset_counts, read_counts,
               f"{k['launches']} launch(es) of {k['ms']:.4f} ms, bound "
               f"{k['bound_ms'] * 1e3:.3f} us; plan: {k['plan']['summary']}")
     del gcn_calls, kinds
+    assert sum(map(len, head_calls.values())) == counts["simgnn_head"]
+    head_lost, head_kinds = 0.0, []
+    for b, calls in sorted(head_calls.items()):
+        t = _head_launch_time(*calls[0], params)
+        head_lost += len(calls) * (t["ms"] - t["bound_ms"])
+        head_kinds.append(dict(t, launches=len(calls)))
+        print(f"  search simgnn_head B {b}: {len(calls)} launch(es) of "
+              f"{t['ms']:.5f} ms, bound {t['bound_ms'] * 1e3:.3f} us "
+              f"({t['bound_ms'] / t['ms']:.2%} of it); plan: {t['plan']}")
+    print("search simgnn_head launches (B: launches, ms): " + "; ".join(
+        f"{k['B']}: {k['launches']}, {k['ms']:.5f}" for k in head_kinds)
+        + f"; time over the bound summed launch by launch "
+        f"{head_lost:.4f} ms")
+    del head_calls
     assert m_eq_n, "two-stage at M = N differs from the exact scan"
     c = srv.engine.counters
     assert srv.stats.prefilter_degraded == 0 and not c["prefilter_degraded"]
@@ -1145,7 +1216,8 @@ def search_phase(params, corpus, queries, reset_counts, read_counts,
            "embedding_max_abs_err_vs_cpu": emb_err,
            "near_tie_swaps_vs_cpu": swaps, "launches": counts,
            "fused_gcn_launches": gcn_kinds,
-           "fused_gcn_lost_ms": gcn_lost, "counters": dict(c)}
+           "fused_gcn_lost_ms": gcn_lost, "simgnn_head_launches": head_kinds,
+           "simgnn_head_lost_ms": head_lost, "counters": dict(c)}
     exact_ms = statistics.median(rep["exact_query_ms"])
     print(f"search: index {n} graphs in {index_s:.3f} s "
           f"({n / index_s:.1f} graphs/s, device span {index_dev:.4f} s); "
@@ -1680,6 +1752,15 @@ def _gcn_registers(log: str) -> dict:
     """Registers of `fused_gcn_kernel<SCRATCH>` by route."""
     return _registers(log, r"fused_gcn_kernelILb(\d)E",
                       lambda m: "scratch" if m.group(1) == "1" else "shared")
+
+
+def _head_registers(log: str) -> dict:
+    """Registers of the warp route's kernel and of each
+    `simgnn_head_tiled_kernel<PT>` instantiation, keyed "warp" and
+    "tiled PT"."""
+    return _registers(log, r"simgnn_head_(?:tiled_kernelILi(\d+)E|kernel)",
+                      lambda m: f"tiled {m.group(1)}" if m.group(1)
+                      else "warp")
 
 
 def _wkv_registers(log: str) -> dict:

@@ -551,6 +551,88 @@ def test_simgnn_head_kernel_matches_plain(cuda, case):
                                    equal_nan=True)
 
 
+@pytest.mark.parametrize("cfg,b", ((CONFIG, 1), (CONFIG, 256),
+                                   (CONFIG, 4096), (CONFIG, 8193),
+                                   (NARROW, 1001)),
+                         ids=("aids1", "aids256", "aids4096", "aids8193",
+                              "narrow"))
+def test_simgnn_head_launches_with_its_plan(cuda, cfg, b):
+    """The wrapper launches the plan's route, grid and block: the tiled
+    kernel for SimGNN-AIDS (the runtime holds the CTAs an SM the plan
+    counts on), PR 12's one-warp-a-pair kernel for the narrow F = 4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.fused_gcn import device_limits
+    from repro_torch.kernels.simgnn_head import occupancy, plan_for
+
+    _, _, ntn, fcn = _params(cfg)
+    f = cfg.gcn_dims[-1]
+    h1, h2 = (torch.randn((b, f), device=cuda) for _ in range(2))
+    plan = plan_for(b, f, ntn, fcn, cuda)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        simgnn_head(h1, h2, ntn, fcn)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "simgnn_head" in e.key]
+    assert simgnn_head.last_plan == plan
+    if cfg is CONFIG:
+        assert plan.route == "tiled" and plan.threads == 256
+        sms, _ = device_limits(cuda.index or 0)
+        assert plan.grid == min(plan.tiles, sms * plan.ctas_per_sm)
+        assert occupancy(plan) >= plan.ctas_per_sm
+        assert names and all("simgnn_head_tiled_kernel" in n for n in names)
+    else:
+        assert plan.route == "warp" and plan.grid == -(-b // 8)
+        assert names and all("simgnn_head_tiled" not in n for n in names)
+
+
+def test_simgnn_head_pair_bits_do_not_depend_on_batch_or_position(cuda):
+    """A pair's score is a function of its two rows alone: scored alone,
+    at every position of a 257-pair batch and inside B = 8192 (other
+    tiles, other plans) it is the same bits."""
+    _, _, ntn, fcn = _params()
+    rng = np.random.default_rng(12)
+    a, b = (torch.from_numpy(rng.standard_normal((1, 32)).astype(np.float32))
+            .to(cuda) for _ in range(2))
+    alone = simgnn_head(a, b, ntn, fcn)
+    fill = [torch.from_numpy(rng.standard_normal((257, 32))
+                             .astype(np.float32)).to(cuda) for _ in range(2)]
+    for pos in range(257):
+        h1, h2 = fill[0].clone(), fill[1].clone()
+        h1[pos], h2[pos] = a[0], b[0]
+        got = simgnn_head(h1, h2, ntn, fcn)[pos:pos + 1]
+        assert torch.equal(got.view(torch.int32), alone.view(torch.int32))
+    big = [torch.randn((8192, 32), device=cuda) for _ in range(2)]
+    for pos in (0, 31, 32, 4095, 8191):
+        big[0][pos], big[1][pos] = a[0], b[0]
+    got = simgnn_head(big[0], big[1], ntn, fcn)
+    for pos in (0, 31, 32, 4095, 8191):
+        assert torch.equal(got[pos:pos + 1].view(torch.int32),
+                           alone.view(torch.int32))
+
+
+@pytest.mark.parametrize("b", (33, 1001, 8192))
+def test_simgnn_head_takes_views_off_16_byte_alignment(cuda, b):
+    """h1/h2 one element past a 16-byte boundary stage with 4-byte copies:
+    the plain version's scores, and the aligned inputs' bits."""
+    _, _, ntn, fcn = _params()
+    h1, h2 = (torch.randn((b, 32), device=cuda) for _ in range(2))
+
+    def off(x):
+        flat = torch.empty(x.numel() + 1, device=cuda)
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    o1, o2 = off(h1), off(h2)
+    assert o1.data_ptr() % 16 == 4 and o1.is_contiguous()
+    got = simgnn_head(o1, o2, ntn, fcn)
+    torch.testing.assert_close(got, simgnn_head_plain(h1, h2, ntn, fcn),
+                               rtol=0, atol=ATOL_HEAD)
+    assert torch.equal(got.view(torch.int32),
+                       simgnn_head(h1, h2, ntn, fcn).view(torch.int32))
+    assert torch.equal(simgnn_head(h1, o2, ntn, fcn).view(torch.int32),
+                       got.view(torch.int32))
+
+
 def _topm_case(dev, case):
     """(qv, corpus, m, block_cols) of one top-M case, on `dev`."""
     rng = np.random.default_rng(10)
