@@ -6,9 +6,10 @@ Builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 against its plain PyTorch version on the card at the serving paths'
 shapes, serves 2048 AIDS-like pairs through
 `simgnn_query_server(use_kernels=True)` in batches of 256 (the packed-sparse
-path), forces the packed-dense and bucketed paths on one batch each, and
-checks the scores against the port's reference path on the card and its
-plain path on the CPU. Then it serves similarity search: a
+path), forces the packed-dense and bucketed paths on one batch each, serves
+2048 pairs of average degree 8 on the same auto server (the packed-dense
+path, one `packed_pair` launch a request), and checks the scores against
+the port's reference path on the card and its plain path on the CPU. Then it serves similarity search: a
 `SimilaritySearchServer` indexes an 8192-graph corpus, answers exact and
 two-stage (prefilter + rerank) top-10 queries, saves and reloads its index,
 and is held against the same server on the CPU; and it forces the engine's
@@ -44,9 +45,13 @@ for SimGNN-AIDS, the warp route for the narrow F = 4 held in phase 3b),
 and `wkv6` at the decode shape
 (T 1) from events around a CUDA graph of back-to-back launches, with each
 `wkv6` call's plan printed, and `mamba_scan` at the Jamba block's decode
-step (T 1) the same way; each `sparse_pair` and `fused_pair` call of
-phase 3 prints its launch plan (one tile per 2-CTA cluster; one pair per
-cluster of 2, 4 or 8 CTAs), `fused_pair` is timed at bucket 64, at one
+step (T 1) the same way; each `sparse_pair`, `packed_pair` and
+`fused_pair` call of phase 3 prints its launch plan (one tile per 2-CTA
+cluster, or for `packed_pair` the single route where the head's weights
+fit no cluster layout; one pair per cluster of 2, 4 or 8 CTAs),
+`packed_pair` is timed at the AIDS and the average-degree-8 request and
+launch by launch over the dense stream, `fused_pair` is timed at bucket
+64, at one
 pair and at the oversize bucket 256, each with its bound, and each of the
 forced bucketed request's `fused_pair` launches is timed alone and summed
 launch by launch; phase 5 also serves auto requests of 1, 2 and 3 pairs
@@ -54,15 +59,16 @@ launch by launch; phase 5 also serves auto requests of 1, 2 and 3 pairs
 256-pair auto request with one 130-node pair (`packed_sparse` for the
 rest, one `fused_pair` launch at bucket 256); the kernels line records
 whether `tools/sparse_pair_parent_check.py`,
-`tools/fused_pair_parent_check.py`, `tools/mamba_scan_parent_check.py`
-and `tools/simgnn_head_parent_check.py`, where they ran before in the
+`tools/packed_pair_parent_check.py`, `tools/fused_pair_parent_check.py`,
+`tools/mamba_scan_parent_check.py` and
+`tools/simgnn_head_parent_check.py`, where they ran before in the
 same checkout, found every case equal to the parent kernel's, and
 `simgnn_head`'s entry its plan's route (`plan_route`); bounds come
 from this run's inputs against the
 H100 SXM peaks of 67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16
 expert FFN and the bf16 attention) and 3.35 TB/s. The build phase fails
-if `wkv6`, `fused_gcn`, `sparse_pair`, `fused_pair`, `mamba_scan` or
-`simgnn_head` spills registers.
+if `wkv6`, `fused_gcn`, `sparse_pair`, `fused_pair`, `mamba_scan`,
+`simgnn_head` or `packed_pair`'s cluster route spills registers.
 Each phase prints its seconds.
 Details go to `chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2
 without one.
@@ -108,8 +114,10 @@ REPLACES = {
 }
 SOURCE = {"topm": "retrieval", "topm_ntn": "retrieval"}
 #: profiler names of each kernel's launches where they are not
-#: `<name>_kernel`: fused_pair's cluster route and its single route
+#: `<name>_kernel`: fused_pair's and packed_pair's cluster route and their
+#: single route, simgnn_head's tiled route and its warp route
 SYMBOLS = {"fused_pair": ("fused_pair_cluster_kernel", "fused_pair_kernel"),
+           "packed_pair": ("packed_pair_cluster_kernel", "packed_pair_kernel"),
            "simgnn_head": ("simgnn_head_tiled_kernel", "simgnn_head_kernel")}
 #: the similarity-search phase: corpus rows, two-stage queries (one
 #: prefilter call), exact queries, shortlist and result depth, and the
@@ -173,8 +181,8 @@ def main() -> int:
     from repro_torch.core import batching
     from repro_torch.core.simgnn import SimGNNConfig, init_simgnn_params
     from repro_torch.data.graphs import (edit_graph, query_pairs,
-                                         random_graph, zipf_corpus,
-                                         zipf_query_stream)
+                                         random_graph, search_pairs,
+                                         zipf_corpus, zipf_query_stream)
     from repro_torch.kernels import build, ops, retrieval
     from repro_torch.kernels.fused_gcn import fused_gcn_att
     from repro_torch.kernels.flash_attn import flash_attention
@@ -219,6 +227,19 @@ def main() -> int:
     for name in ("wkv6", "fused_gcn", "sparse_pair", "fused_pair",
                  "mamba_scan", "simgnn_head"):
         assert spills[name] == 0, f"{name} spills registers"
+    # packed_pair: the cluster route; the single route is the replaced
+    # kernel, unchanged (it stored 36 bytes to the stack before)
+    packed_log = (out_dir / "packed_pair.log").read_text()
+    report["packed_pair_registers"] = _registers(
+        packed_log, r"(packed_pair_cluster_kernel|packed_pair_kernel)",
+        lambda m: "cluster" if "cluster" in m.group(1) else "single")
+    packed_spills = _entry_spills(packed_log)
+    print("packed_pair registers by route: " + ", ".join(
+        f"{k} {v}" for k, v in report["packed_pair_registers"].items())
+        + "; spill stores by kernel: " + ", ".join(
+            f"{k} {v} bytes" for k, v in packed_spills.items()))
+    assert packed_spills["packed_pair_cluster_kernel"] == 0, \
+        "packed_pair spills registers"
     report["fused_gcn_registers"] = _gcn_registers(
         (out_dir / "fused_gcn.log").read_text())
     print("fused_gcn registers by route: " + ", ".join(
@@ -246,6 +267,9 @@ def main() -> int:
     narrow_cfg = SimGNNConfig(gcn_dims=(16, 8, 8, 4))
     narrow = init_simgnn_params(torch.Generator().manual_seed(1), narrow_cfg,
                                 device=dev)
+    # NTN K 40: a head whose weights fit no cluster layout at NB 64
+    wide_head = init_simgnn_params(torch.Generator().manual_seed(3),
+                                   SimGNNConfig(ntn_k=40), device=dev)
 
     def wargs(p):
         return p["gcn"], p["att"]["w"], p["ntn"], p["fcn"]
@@ -277,6 +301,21 @@ def main() -> int:
 
     sparse_in, dense_in, packed = packed_arrays(
         ops.packed_edge_budget(nb, deg))
+    # packed_dense's own traffic: the first request of the average-degree-8
+    # stream phase 5 serves; and the AIDS tiles with every adjacency a
+    # random 0/1 matrix over all cells (rows cross graph boundaries)
+    dense_stream = search_pairs(5, N_PAIRS, avg_degree=8.0)
+    dk, _ = batching.pack_pairs(dense_stream[:BATCH], nb, slots_per_tile=slots,
+                                device=dev)
+    deg8_in = [x.contiguous() for x in (
+        dk.adj1, dk.labels1, dk.mask1, dk.seg1, dk.adj2, dk.labels2, dk.mask2,
+        dk.seg2, dk.pair_mask)]
+    rewired_in = list(dense_in)
+    for side in (0, 4):
+        cells = torch.rand(dense_in[side].shape, generator=torch.Generator(
+            ).manual_seed(side)) < 0.4
+        rewired_in[side] = (cells.triu(1) | cells.triu(1).transpose(1, 2)
+                            ).to(dev, torch.float32).contiguous()
     spill_in, _, spill_packed = packed_arrays(2 * nb)      # D=2: COO spill
     n_spill = int(spill_packed.edges.overflow1.edge_mask.sum()
                   + spill_packed.edges.overflow2.edge_mask.sum())
@@ -309,7 +348,15 @@ def main() -> int:
             ("main", packed_pair_score, packed_pair_score_plain, dense_in,
              params),
             ("narrow gcn (16,8,8,4)", packed_pair_score,
-             packed_pair_score_plain, dense_in, narrow)],
+             packed_pair_score_plain, dense_in, narrow),
+            ("average-degree-8 request", packed_pair_score,
+             packed_pair_score_plain, deg8_in, params),
+            ("random 0/1 adjacency over all cells", packed_pair_score,
+             packed_pair_score_plain, rewired_in, params),
+            ("T 1", packed_pair_score, packed_pair_score_plain,
+             [x[:1].contiguous() for x in dense_in], params),
+            ("NTN K 40 (single route)", packed_pair_score,
+             packed_pair_score_plain, dense_in, wide_head)],
         "fused_pair": [
             ("bucket 32", fused_pair_score, fused_pair_score_plain,
              fused_in(buckets[32]), params),
@@ -341,6 +388,9 @@ def main() -> int:
             if kern is fused_pair_score:
                 print(f"  fused_pair plan [{label}]: "
                       f"{fused_pair_score.last_plan.summary()}")
+            if kern is packed_pair_score:
+                print(f"  packed_pair plan [{label}]: "
+                      f"{packed_pair_score.last_plan.summary()}")
             assert err <= ATOL[name], (name, label, err)
             worst = max(worst, err)
         label, kern, plain, arrays, prm = runs[0] if name != "fused_pair" \
@@ -352,6 +402,8 @@ def main() -> int:
         nbytes += param_bytes(params) + out_bytes(name, arrays)
         kernels[name] = record(name, worst, *timed, label, flops, nbytes)
     kernels["sparse_pair"].update(_sparse_plan_report(sparse_in, params))
+    kernels["packed_pair"].update(_packed_plan_report(dense_in, deg8_in,
+                                                      params))
     # fused_pair beside its bucket-64 entry: one pair (the latency case)
     # and the oversize 130-node pair, each with its bound and plan
     kernels["fused_pair"]["per_case"] = [
@@ -453,6 +505,7 @@ def main() -> int:
         fused_calls.append(args)
         return real_fused(*args)
 
+    forced_counts = {}
     for path, name in (("packed_dense", "packed_pair"),
                        ("bucketed_mega", "fused_pair")):
         forced = simgnn_query_server(params, CFG, path=path)
@@ -463,7 +516,7 @@ def main() -> int:
         finally:
             ops.fused_pair_score = real_fused
         counts = read_counts()
-        served[name] = counts[name]
+        forced_counts[name] = counts[name]
         plan = forced.last_plan
         assert plan.path == path and plan.degraded_from == () \
             and plan.attempts == 1, plan
@@ -473,6 +526,8 @@ def main() -> int:
         print(f"forced {path}: launches {counts}, vs card reference "
               f"{err:.3e} (bound {ATOL[name]:g})")
         assert err <= ATOL[name], (path, err)
+    served["fused_pair"] = forced_counts["fused_pair"]
+    kernels["packed_pair"]["forced_launches"] = forced_counts["packed_pair"]
     # each of the forced request's fused_pair launches alone, summed
     # launch by launch
     assert len(fused_calls) == served["fused_pair"], len(fused_calls)
@@ -485,12 +540,18 @@ def main() -> int:
           f"(time - bound) {loss:.4f} ms")
     kernels["fused_pair"]["forced_launches"] = per_launch
     kernels["fused_pair"]["forced_loss_ms"] = loss
+    # packed_dense's served path: the average-degree-8 stream on auto
+    report["dense_stream"], served["packed_pair"] = _dense_stream(
+        score, cpu_score, ref_score, dense_stream, reset_counts, read_counts,
+        params)
+    kernels["packed_pair"]["dense_stream"] = {
+        k: report["dense_stream"][k] for k in ("per_launch", "loss_ms")}
     report["small_calls"] = _small_calls(score, stream, ref_score,
                                          reset_counts, read_counts)
     report["oversize_request"] = _oversize_request(
         score, stream, ref_score, reset_counts, read_counts)
 
-    phase("5 forced packed-dense and bucketed paths")
+    phase("5 forced packed-dense and bucketed paths, the dense stream")
 
     # ---- phase 6: similarity search served on the card ----------------
     report["search"], counts = search_phase(
@@ -646,6 +707,127 @@ def _fused_launch_time(label, arrays, params) -> dict:
           f"it); plan: {plan}")
     return {"case": label, "pairs": pairs, "bucket": bucket, "ms": ms,
             "bound_ms": bound, "plan": plan}
+
+
+def _packed_launch_time(label, arrays, params) -> dict:
+    """Kernel ms (profiler; events around back-to-back calls when it sees
+    none), bound and plan of one `packed_pair_score` launch on these
+    arrays."""
+    from repro_torch.configs.simgnn_aids import CONFIG as CFG
+    from repro_torch.kernels.packed_pair import packed_pair_score
+
+    def fn():
+        return packed_pair_score(*arrays, params["gcn"], params["att"]["w"],
+                                 params["ntn"], params["fcn"])
+
+    ms = kernel_device_ms(fn, SYMBOLS["packed_pair"]) or time_cuda_batch(fn)
+    flops, nbytes = WORK["packed_pair"](arrays, CFG)
+    nbytes += param_bytes(params) + out_bytes("packed_pair", arrays)
+    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    tiles = arrays[0].shape[0]
+    plan = packed_pair_score.last_plan.summary()
+    print(f"  packed_pair [{label}] {tiles} tiles: {ms:.4f} ms, bound "
+          f"{bound * 1e3:.3f} us ({bound / ms:.2%} of it); plan: {plan}")
+    return {"case": label, "tiles": tiles, "ms": ms, "bound_ms": bound,
+            "plan": plan}
+
+
+def _packed_plan_report(aids, deg8, params) -> dict:
+    """The packed-dense launch plan at phase 3's AIDS request, the clusters
+    the card holds at once for it, the kernel's time and bound on the
+    average-degree-8 request, and, where `tools/packed_pair_parent_check.py`
+    ran before in this checkout, whether every one of its cases was equal
+    to the parent kernel's."""
+    from repro_torch.kernels.packed_pair import (max_clusters,
+                                                 packed_pair_score)
+
+    deg8_time = _packed_launch_time("average-degree-8 request", deg8, params)
+    aids_time = _packed_launch_time("AIDS request", aids, params)
+    plan = packed_pair_score.last_plan
+    clusters = max_clusters(plan)
+    tiles = aids[0].shape[0]
+    print(f"packed_pair: plan at {tiles} tiles {plan.summary()}; the card "
+          f"holds {clusters} clusters at once ({tiles} needed for one wave)")
+    return {"plan": plan.summary(), "resident_clusters": clusters,
+            "aids_request": aids_time, "deg8_request": deg8_time,
+            "bit_identical": _parent_check("packed_pair")}
+
+
+def _dense_stream(score, cpu_score, ref_score, stream, reset_counts,
+                  read_counts, params) -> tuple[dict, int]:
+    """The average-degree-8 stream in requests of BATCH pairs on the auto
+    path: each request planned onto packed_dense without degradation, one
+    `packed_pair` launch and no other, scores within 1e-6 of the card's
+    reference path and the CPU plain path; pairs/s, wall ms, device span
+    and host stages as phase 4, and each request's launch timed alone on
+    its captured arrays, summed launch by launch. Returns (report,
+    launches)."""
+    from repro_torch.kernels import ops
+
+    calls, real = [], ops.packed_pair_score
+
+    def recording(*args):
+        calls.append(args[:9])
+        return real(*args)
+
+    timer = RequestTimer(score.engine)
+    walls, outs = [], []
+    reset_counts()
+    ops.packed_pair_score = recording
+    try:
+        for i in range(0, len(stream), BATCH):
+            batch = stream[i:i + BATCH]
+            before = read_counts()
+            t0 = time.perf_counter()
+            with timer:
+                out = score(batch)
+            walls.append(time.perf_counter() - t0)
+            timer.stages[-1]["wall"] = walls[-1]
+            after = read_counts()
+            plan = score.last_plan
+            assert plan.path == "packed_dense", (plan.path, plan.reason)
+            assert plan.degraded_from == () and plan.attempts == 1, plan
+            delta = {k: after[k] - before[k] for k in after}
+            assert delta["packed_pair"] == 1 and sum(delta.values()) == 1, \
+                delta
+            assert out.shape == (len(batch),) and np.isfinite(out).all()
+            outs.append((batch, out))
+    finally:
+        ops.packed_pair_score = real
+    counts = read_counts()
+    requests = len(outs)
+    assert counts["packed_pair"] == requests == len(calls), counts
+    errs = [(float(np.abs(out - ref_score(b)).max()),
+             float(np.abs(out - cpu_score(b)).max())) for b, out in outs]
+    worst_ref, worst_cpu = (max(e[i] for e in errs) for i in (0, 1))
+    print(f"dense stream: {requests} requests of {BATCH} pairs, launches "
+          f"{counts}; plan of the last: {plan.path} ({plan.reason}); worst "
+          f"request vs card reference {worst_ref:.3e}, vs CPU plain path "
+          f"{worst_cpu:.3e} (bound 1e-06)")
+    assert worst_ref <= 1e-6 and worst_cpu <= 1e-6, (worst_ref, worst_cpu)
+    steady = timer.stages[1:]
+    mean = {k: statistics.fmean(st[k] for st in steady) for k in steady[0]}
+    print(f"dense stream: {BATCH / mean['wall']:.1f} pairs/s over requests "
+          f"2..{requests}; per request {1e3 * mean['wall']:.3f} ms wall, "
+          f"{1e3 * mean['device']:.3f} ms device span of the scoring call "
+          f"(idle share {1 - mean['device'] / mean['wall']:.4f}); first "
+          f"request {1e3 * walls[0]:.3f} ms")
+    other = mean["wall"] - sum(mean[k] for k in RequestTimer.STAGES)
+    print("dense stream host stages per request (ms): " + ", ".join(
+        f"{k} {1e3 * mean[k]:.3f}" for k in RequestTimer.STAGES) +
+        f", other {1e3 * other:.3f}")
+    per_launch = [_packed_launch_time(f"dense request {i}", list(args),
+                                      params)
+                  for i, args in enumerate(calls)]
+    loss = sum(t["ms"] - t["bound_ms"] for t in per_launch)
+    print(f"dense stream: {len(per_launch)} packed_pair launches, sum of "
+          f"launch ms {sum(t['ms'] for t in per_launch):.4f}, sum of (time - "
+          f"bound) {loss:.4f} ms")
+    return {"requests": requests, "batch": BATCH,
+            "per_request_s": timer.stages, "mean_s": mean,
+            "err_ref": worst_ref, "err_cpu": worst_cpu,
+            "pack_stats": score.last_pack_stats, "per_launch": per_launch,
+            "loss_ms": loss}, counts["packed_pair"]
 
 
 def _small_calls(score, stream, ref_score, reset_counts, read_counts,
@@ -1744,6 +1926,22 @@ def _registers(log: str, entry: str, key) -> dict:
     return dict(sorted(regs.items()))
 
 
+def _entry_spills(log: str) -> dict:
+    """Spill-store bytes of each entry function of a ptxas report, keyed
+    by the kernel's name."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)\d", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name], name = int(m.group(1)), None
+    return out
+
+
 def _elt(m) -> str:
     return "bf16" if "bfloat16" in m.group(1) else "f32"
 
@@ -2536,8 +2734,8 @@ def hybrid_phase(dev, reset_counts, read_counts):
 class RequestTimer:
     """Where one served request's time goes, measured inside the request:
     the host clock around the engine's stages (plan = validation and
-    workload stats; pack = FFD packing, A' edge planes and the copy to the
-    card; score = enqueueing the scoring call; unpack = copying the scores
+    workload stats; pack = FFD packing, A' edge planes on the sparse path,
+    and the copy to the card; score = enqueueing the scoring call; unpack = copying the scores
     back, which waits for the card, and restoring request order), and the
     device span of the scoring call from CUDA events around the engine's
     executor seam (`_FAULT_HOOK`). Everything is restored on exit."""
@@ -2571,22 +2769,23 @@ class RequestTimer:
 
         self.stages.append(dict.fromkeys(self.STAGES, 0.0))
         self._events = []
-        self._saved = (engine_mod._FAULT_HOOK, batching.unpack_pair_scores)
+        self._saved = (engine_mod._FAULT_HOOK, batching.unpack_pair_scores,
+                       batching.pack_pairs)
         engine_mod._FAULT_HOOK = self._hook
         batching.unpack_pair_scores = self._timed(
             "unpack", batching.unpack_pair_scores)
+        batching.pack_pairs = self._timed("pack", batching.pack_pairs)
         self.engine.plan = self._timed("plan", type(self.engine).plan.__get__(
             self.engine))
-        self.engine._pack_sparse = self._timed(
-            "pack", type(self.engine)._pack_sparse.__get__(self.engine))
         return self
 
     def __exit__(self, *exc):
         from repro_torch.core import batching
         from repro_torch.core import engine as engine_mod
 
-        engine_mod._FAULT_HOOK, batching.unpack_pair_scores = self._saved
-        del self.engine.plan, self.engine._pack_sparse
+        (engine_mod._FAULT_HOOK, batching.unpack_pair_scores,
+         batching.pack_pairs) = self._saved
+        del self.engine.plan
         torch.cuda.synchronize()
         self.stages[-1]["device"] = sum(s.elapsed_time(e)
                                         for s, e in self._events) / 1e3

@@ -56,6 +56,7 @@
 // the same bits as one of them.
 #include <cooperative_groups.h>
 
+#include "async_copy.cuh"
 #include "simgnn_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -493,29 +494,6 @@ __device__ __forceinline__ void pool_segments(const float* h, int ld, int n,
   __syncthreads();
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-// n floats from global to shared memory by cp.async on threads tid, tid +
-// step, ...: 16 bytes a copy when both ends are 16-byte aligned and n a
-// multiple of 4.
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           int n, int tid, int step) {
-  if (n % 4 == 0 && ((uintptr_t)src & 15) == 0 &&
-      (__cvta_generic_to_shared(dst) & 15) == 0) {
-    for (int i = 4 * tid; i < n; i += 4 * step) cp_async16(dst + i, src + i);
-  } else {
-    for (int i = tid; i < n; i += step) cp_async4(dst + i, src + i);
-  }
-}
-
 // The head's small weights, copied to shared memory by cp.async on one
 // warp (waited for before the pooling): NTN V [K, 2F], b [K], then each
 // FCN layer's W and b, each padded to a multiple of 4 floats (the layout
@@ -809,7 +787,7 @@ sparse_pair_kernel(SparseSide s1, SparseSide s2,
   }
   float* hg = smem + L.hg_off;
   // the head's weights have landed (the pooling's barriers publish them)
-  asm volatile("cp.async.wait_all;\n" ::);
+  cp_async_wait_all();
   pool_segments(h, F | 1, nb, F, mask, seg, segs, segs[p], P.att_w,
                 smem + L.mean_off, smem + L.c_off, smem + L.att_off, hg);
   SP_STAGE(24);

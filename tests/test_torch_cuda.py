@@ -33,7 +33,8 @@ from repro_torch.core.engine import ScoringEngine
 from repro_torch.core.gcn import normalized_adjacency
 from repro_torch.core.simgnn import SimGNNConfig, init_simgnn_params
 from repro_torch.data.graphs import (edit_graph, query_pairs, random_graph,
-                                     zipf_corpus, zipf_query_stream)
+                                     search_pairs, zipf_corpus,
+                                     zipf_query_stream)
 from repro_torch.kernels import retrieval
 from repro_torch.kernels.fused_gcn import fused_gcn_att, fused_gcn_att_plain
 from repro_torch.kernels.fused_pair import (fused_pair_score,
@@ -249,6 +250,81 @@ def test_packed_pair_kernel_matches_plain(cuda, case):
     got = _check(packed_pair_score, packed_pair_score_plain, dense,
                  _params(cfg, dtype), ATOL_PACKED)
     assert (got[live:] == 0).all()
+
+
+def _dense_traffic(dev, case):
+    """Dense-kernel arrays of 40 pairs of average degree 8 ("deg8", the
+    traffic the engine routes to packed_dense), of `_packed`'s AIDS-like
+    batch with every adjacency a random 0/1 matrix over all cells
+    ("rewired": not block-diagonal), or of its first tile ("t1")."""
+    if case == "deg8":
+        packed, _ = batching.pack_pairs(search_pairs(5, 40, avg_degree=8.0),
+                                        64, slots_per_tile=16, device=dev)
+        return [packed.adj1, packed.labels1, packed.mask1, packed.seg1,
+                packed.adj2, packed.labels2, packed.mask2, packed.seg2,
+                packed.pair_mask]
+    _, dense, _ = _packed(dev)
+    if case == "t1":
+        return [x[:1].contiguous() for x in dense]
+    gen = torch.Generator().manual_seed(5)
+    for s in (0, 4):
+        cells = torch.rand(dense[s].shape, generator=gen) < 0.4
+        dense[s] = (cells.triu(1) | cells.triu(1).transpose(1, 2)).to(
+            dev, torch.float32)
+    return dense
+
+
+@pytest.mark.parametrize("case", ("deg8", "rewired", "t1"))
+def test_packed_pair_kernel_matches_plain_on_dense_traffic(cuda, case):
+    _check(packed_pair_score, packed_pair_score_plain,
+           _dense_traffic(cuda, case), _params(), ATOL_PACKED)
+    assert packed_pair_score.last_plan.route == "cluster"
+
+
+@pytest.mark.parametrize("where", ("w1_label0", "ntn"))
+def test_packed_pair_kernel_keeps_the_plain_versions_nan(cuda, where):
+    """NaN weights: the live slots' NaN and values as the plain version's.
+    Pad slots are exact zeros from the kernel (as from the one-CTA kernel
+    before it), where the plain version's score * pair_mask gives NaN * 0;
+    `unpack_pair_scores` reads only live slots."""
+    _, dense, _ = _packed(cuda)
+    gcn, att, ntn, fcn = _params()
+    if where == "ntn":
+        ntn = dict(ntn, w=ntn["w"].clone())
+        ntn["w"][3, 5, 6] = float("nan")
+    else:                     # label 0: the pad rows' W1 row too
+        gcn = [dict(layer) for layer in gcn]
+        gcn[0]["w"] = gcn[0]["w"].clone()
+        gcn[0]["w"][0, 5] = float("nan")
+    got = packed_pair_score(*dense, gcn, att, ntn, fcn)
+    want = packed_pair_score_plain(*dense, gcn, att, ntn, fcn)
+    torch.cuda.synchronize()
+    live = dense[8] != 0
+    assert torch.isnan(got[live]).any()
+    torch.testing.assert_close(got[live], want[live], rtol=0,
+                               atol=ATOL_PACKED, equal_nan=True)
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.parametrize("head", ("aids", "ntn_k40"))
+def test_packed_pair_launches_with_its_plan(cuda, head):
+    from repro_torch.kernels.fused_gcn import device_limits
+    from repro_torch.kernels.packed_pair import max_clusters, packed_pair_plan
+
+    cfg = CONFIG if head == "aids" else CONFIG._replace(ntn_k=40)
+    _, dense, _ = _packed(cuda)
+    _check(packed_pair_score, packed_pair_score_plain, dense, _params(cfg),
+           ATOL_PACKED)
+    t = dense[0].shape[0]
+    plan = packed_pair_plan(t, 64, 16, cfg.feature_dims,
+                            *device_limits(cuda.index or 0),
+                            head=(cfg.ntn_k,) + tuple(cfg.fcn_dims) + (1,))
+    assert packed_pair_score.last_plan == plan
+    if head == "aids":
+        assert plan.route == "cluster" and plan.grid == 2 * t
+        assert plan.ctas_per_sm == 2 and max_clusters(plan) >= t
+    else:                     # the head's weights fit no cluster layout
+        assert plan.route == "single" and plan.grid == t
 
 
 @pytest.mark.parametrize("cfg", (CONFIG, NARROW), ids=("aids", "narrow"))

@@ -124,8 +124,31 @@ def test_sparse_pair_plain_matches_pallas(case):
         assert (sparse[4] != 0).any()            # the COO list is used
 
 
+@functools.lru_cache(maxsize=None)
+def _dense_arrays(case: str):
+    """The dense kernel's arrays of a PACKED_CASES case, or of 12 pairs of
+    average degree 8 ("deg8": the traffic the engine routes to
+    packed_dense), or of those tiles with every adjacency replaced by a
+    random symmetric 0/1 matrix over all NB x NB cells ("rewired": rows
+    whose nonzero columns cross graph boundaries and pad nodes)."""
+    if case in PACKED_CASES:
+        return _packed_arrays(*PACKED_CASES[case])[1]
+    rng = np.random.default_rng(8)
+    pairs = [(random_graph(rng, avg_degree=8.0),
+              random_graph(rng, avg_degree=8.0)) for _ in range(12)]
+    packed, _ = jb.pack_pairs(pairs, 64, slots_per_tile=16)
+    dense = [np.asarray(x) for x in (
+        packed.adj1, packed.labels1, packed.mask1, packed.seg1, packed.adj2,
+        packed.labels2, packed.mask2, packed.seg2, packed.pair_mask)]
+    if case == "rewired":
+        for s in (0, 4):
+            a = np.triu(rng.random(dense[s].shape) < 0.4, 1)
+            dense[s] = (a | a.transpose(0, 2, 1)).astype(np.float32)
+    return tuple(dense)
+
+
 def _packed_scores(case, config="aids", dtype="float32"):
-    _, dense, _ = _packed_arrays(*PACKED_CASES[case])
+    dense = _dense_arrays(case)
     want = np.asarray(jax_packed(*map(jnp.asarray, dense),
                                  *_weights(_jparams(config, dtype)),
                                  tile_block=1))
@@ -134,7 +157,8 @@ def _packed_scores(case, config="aids", dtype="float32"):
     return got.numpy(), want
 
 
-@pytest.mark.parametrize("case", ("batch7", "batch12_pad_tiles"))
+@pytest.mark.parametrize("case", ("batch7", "batch12_pad_tiles", "deg8",
+                                  "rewired"))
 def test_packed_pair_plain_matches_pallas(case):
     got, want = _packed_scores(case)
     np.testing.assert_allclose(got, want, rtol=0,
