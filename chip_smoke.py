@@ -42,7 +42,10 @@ median); `fused_gcn` is also timed launch by launch for the search phase
 plan, summed over the phase's launches), so is `simgnn_head` (each
 distinct batch size of the phase, with its launch plan: the tiled route
 for SimGNN-AIDS, the warp route for the narrow F = 4 held in phase 3b),
-and `wkv6` at the decode shape
+`topm` (the dot scan) each distinct (Q, N, M, block_cols) launch of the
+search phase with its plan (the select route at the served shape, the
+sort route at M = N), its profiler and CUDA-graph times and its bound,
+summed launch by launch, and `wkv6` at the decode shape
 (T 1) from events around a CUDA graph of back-to-back launches, with each
 `wkv6` call's plan printed, and `mamba_scan` at the Jamba block's decode
 step (T 1) the same way; each `sparse_pair`, `packed_pair` and
@@ -58,17 +61,19 @@ launch by launch; phase 5 also serves auto requests of 1, 2 and 3 pairs
 (the bucketed path, "too small" to pack; wall time and device span) and a
 256-pair auto request with one 130-node pair (`packed_sparse` for the
 rest, one `fused_pair` launch at bucket 256); the kernels line records
-whether `tools/sparse_pair_parent_check.py`,
+(`bit_identical`) whether `tools/sparse_pair_parent_check.py`,
 `tools/packed_pair_parent_check.py`, `tools/fused_pair_parent_check.py`,
-`tools/mamba_scan_parent_check.py` and
-`tools/simgnn_head_parent_check.py`, where they ran before in the
+`tools/mamba_scan_parent_check.py`, `tools/simgnn_head_parent_check.py`
+and `tools/topm_parent_check.py`, where they ran before in the
 same checkout, found every case equal to the parent kernel's, and
-`simgnn_head`'s entry its plan's route (`plan_route`); bounds come
+`simgnn_head`'s and `topm`'s entries their plan's route (`plan_route`);
+bounds come
 from this run's inputs against the
 H100 SXM peaks of 67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16
 expert FFN and the bf16 attention) and 3.35 TB/s. The build phase fails
 if `wkv6`, `fused_gcn`, `sparse_pair`, `fused_pair`, `mamba_scan`,
-`simgnn_head` or `packed_pair`'s cluster route spills registers.
+`simgnn_head`, `packed_pair`'s cluster route or `topm`'s select route
+spills registers.
 Each phase prints its seconds.
 Details go to `chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2
 without one.
@@ -115,10 +120,13 @@ REPLACES = {
 SOURCE = {"topm": "retrieval", "topm_ntn": "retrieval"}
 #: profiler names of each kernel's launches where they are not
 #: `<name>_kernel`: fused_pair's and packed_pair's cluster route and their
-#: single route, simgnn_head's tiled route and its warp route
+#: single route, simgnn_head's tiled route and its warp route, topm's
+#: select route and its sort route's two passes
 SYMBOLS = {"fused_pair": ("fused_pair_cluster_kernel", "fused_pair_kernel"),
            "packed_pair": ("packed_pair_cluster_kernel", "packed_pair_kernel"),
-           "simgnn_head": ("simgnn_head_tiled_kernel", "simgnn_head_kernel")}
+           "simgnn_head": ("simgnn_head_tiled_kernel", "simgnn_head_kernel"),
+           "topm": ("topm_select_kernel", "topm_dot_block_kernel",
+                    "topm_merge_kernel")}
 #: the similarity-search phase: corpus rows, two-stage queries (one
 #: prefilter call), exact queries, shortlist and result depth, and the
 #: prefilter's column block (the default shard size, 256 rows).
@@ -254,6 +262,16 @@ def main() -> int:
     print("mamba_scan registers by instantiation (type, NMAX, exact N): "
           + ", ".join(f"{k} {v}"
                       for k, v in report["mamba_scan_registers"].items()))
+    retrieval_log = (out_dir / "retrieval.log").read_text()
+    report["topm_select_registers"] = _registers(
+        retrieval_log, r"topm_select_kernelILi(\d)ELi(\d+)E", _select_key)
+    select_spills = _select_spills(retrieval_log)
+    print("topm select route registers (keys a lane, width): " + ", ".join(
+        f"{k} {v}" for k, v in report["topm_select_registers"].items())
+        + "; spill stores: " + ", ".join(
+            f"{k} {v} bytes" for k, v in select_spills.items()))
+    assert select_spills and not any(select_spills.values()), \
+        "topm's select route spills registers"
     report["simgnn_head_registers"] = _head_registers(
         (out_dir / "simgnn_head.log").read_text())
     print("simgnn_head registers by route (tiled: pairs a thread): "
@@ -560,6 +578,8 @@ def main() -> int:
          for t in kernels["fused_gcn"]["per_launch"]})
     for name in ("fused_gcn", "simgnn_head", "topm", "topm_ntn"):
         served[name] = counts[name]
+    kernels["topm"]["per_launch"] = report["search"]["topm_launches"]
+    kernels["topm"]["loss_ms"] = report["search"]["topm_lost_ms"]
     phase("6 similarity search served")
 
     # ---- phase 7: the engine's embedding-cached and two-kernel paths ---
@@ -615,8 +635,8 @@ def main() -> int:
               f"{k['max_abs_err']:.3e} ({k['err_bound']})")
     line = {"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan_route")
-        if key in k} for k in kernels.values()]}
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan_route",
+        "bit_identical") if key in k} for k in kernels.values()]}
     report["kernels"] = list(kernels.values())
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -961,6 +981,26 @@ def _head_launch_time(h1, h2, params) -> dict:
             "plan": simgnn_head.last_plan.summary()}
 
 
+def _topm_launch_time(qv, corpus, m, block) -> dict:
+    """Kernel ms (profiler; events around back-to-back calls when it sees
+    none), CUDA-graph ms, bound and plan of one `blocked_topm` launch on
+    these inputs."""
+    from repro_torch.kernels import retrieval
+
+    def fn():
+        return retrieval.blocked_topm(qv, corpus, m, block_cols=block)
+
+    ms = kernel_device_ms(fn, SYMBOLS["topm"]) or time_cuda_batch(fn)
+    graph = time_cuda_graph(fn, 20)
+    (q, f), n = qv.shape, corpus.shape[0]
+    flops, nbytes = _topm_work(q, n, m, f)
+    plan = retrieval.blocked_topm.last_plan
+    return {"Q": q, "N": n, "M": m, "block": block, "ms": ms,
+            "graph_ms": graph,
+            "bound_ms": max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+            "route": plan.route, "plan": plan.summary()}
+
+
 def _topm_work(q, n, m, f, k=0, fcn=()) -> tuple[float, int]:
     """Flops and bytes of one top-M scan: per (query, row) a dot of F, or
     K dots, the dq add and the FCN stack; the query operands and the
@@ -1090,7 +1130,7 @@ def search_kernels(params, narrow, corpus, queries, dev) -> dict:
                  lambda: fused_gcn_att_plain(*main_in, *gcn_w(params)),
                  ("fused_gcn_kernel",)),
         cases[2][0], flops, nbytes, err_bound="rtol 1e-05, atol 1e-06",
-        bit_identical=identical)}
+        batch_bit_identical=identical)}
     # One launch of each corpus bucket (the index's launches) and of one
     # graph alone (an exact query's), timed for the search phase's
     # launch-by-launch sum.
@@ -1152,7 +1192,7 @@ def search_kernels(params, narrow, corpus, queries, dev) -> dict:
         "topm": (lambda c, m, blk: retrieval.blocked_topm(
             hq, c, m, block_cols=blk),
             lambda c, m: retrieval.blocked_topm_plain(hq, c, m),
-            ("topm_dot_block_kernel", "topm_merge_kernel"), {}),
+            SYMBOLS["topm"], {}),
         "topm_ntn": (lambda c, m, blk: retrieval.blocked_topm_ntn(
             uq, dq, c, fcn, m, block_cols=blk),
             lambda c, m: retrieval.blocked_topm_ntn_plain(uq, dq, c, fcn, m),
@@ -1186,6 +1226,19 @@ def search_kernels(params, narrow, corpus, queries, dev) -> dict:
                 lambda: torch.topk(hq @ emb.T, PREFILTER_M, dim=1))
             print(f"  topm yardstick torch.topk(qv @ corpus.T, M): "
                   f"{extra['yardstick_topk_ms']:.4f} ms")
+            kern(emb, PREFILTER_M, BLOCK_COLS)
+            plan = retrieval.blocked_topm.last_plan
+            assert plan.route == "select" and plan.list_entries == 0, plan
+            held = retrieval.max_clusters(plan, f)
+            assert held * plan.cluster >= plan.grid[0], (plan, held)
+            extra.update(plan=plan.summary(), plan_route=plan.route,
+                         resident_clusters=held,
+                         graph_ms=time_cuda_graph(
+                             lambda: kern(emb, PREFILTER_M, BLOCK_COLS), 20),
+                         bit_identical=_parent_check("topm"))
+            print(f"  topm plan at the served shape: {plan.summary()} (the "
+                  f"card holds {held} clusters at once); CUDA graph "
+                  f"{extra['graph_ms']:.5f} ms a launch")
         out[name] = record(
             name, worst,
             *timings(lambda: kern(emb, PREFILTER_M, BLOCK_COLS),
@@ -1275,8 +1328,24 @@ def search_phase(params, corpus, queries, reset_counts, read_counts,
         calls.append(None if calls else (h1, h2))
         return real_head(h1, h2, *weights)
 
+    # The dot scan's launches, by shape, at the engine's seam (the scan
+    # itself counts its launches through its own module global).
+    topm_calls: dict = {}
+    real_prefilter = srv.engine.prefilter_topm
+
+    def recording_prefilter(qv, corpus, m, *, block_cols=None,
+                            ntn_operands=None):
+        if ntn_operands is None:
+            kind = (len(qv), corpus.shape[0], min(m, corpus.shape[0]),
+                    block_cols)
+            calls = topm_calls.setdefault(kind, [])
+            calls.append(None if calls else (qv, corpus))
+        return real_prefilter(qv, corpus, m, block_cols=block_cols,
+                              ntn_operands=ntn_operands)
+
     ops.fused_gcn_att = recording_gcn
     ops.simgnn_head = recording_head
+    srv.engine.prefilter_topm = recording_prefilter
     reset_counts()
     timer = SpanTimer()
     with timer:
@@ -1326,6 +1395,7 @@ def search_phase(params, corpus, queries, reset_counts, read_counts,
     m_eq_n = bool(np.array_equal(ei, ti) and es.tobytes() == ts.tobytes())
     counts = read_counts()
     ops.fused_gcn_att, ops.simgnn_head = real_gcn, real_head
+    srv.engine.prefilter_topm = real_prefilter
     print(f"search launches: {counts}")
     kinds: dict = {}
     for arrays in gcn_calls:
@@ -1360,6 +1430,23 @@ def search_phase(params, corpus, queries, reset_counts, read_counts,
         + f"; time over the bound summed launch by launch "
         f"{head_lost:.4f} ms")
     del head_calls
+    assert sum(map(len, topm_calls.values())) == counts["topm"]
+    topm_lost, topm_kinds = 0.0, []
+    for (q, n_rows, m, block), calls in sorted(topm_calls.items(),
+                                               key=lambda kv: str(kv[0])):
+        qv, corpus_dev = calls[0]
+        t = _topm_launch_time(torch.as_tensor(qv, device=corpus_dev.device),
+                              corpus_dev, m, block)
+        topm_lost += len(calls) * (t["ms"] - t["bound_ms"])
+        topm_kinds.append(dict(t, launches=len(calls)))
+        print(f"  search topm (Q, N, M, block) = ({q}, {n_rows}, {m}, "
+              f"{block}): {len(calls)} launch(es) of {t['ms']:.5f} ms "
+              f"(CUDA graph {t['graph_ms']:.5f}), bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_ms'] / t['ms']:.2%} "
+              f"of it); plan: {t['plan']}")
+    print("search topm launches: time over the bound summed launch by "
+          f"launch {topm_lost:.4f} ms")
+    del topm_calls
     assert m_eq_n, "two-stage at M = N differs from the exact scan"
     c = srv.engine.counters
     assert srv.stats.prefilter_degraded == 0 and not c["prefilter_degraded"]
@@ -1399,7 +1486,8 @@ def search_phase(params, corpus, queries, reset_counts, read_counts,
            "near_tie_swaps_vs_cpu": swaps, "launches": counts,
            "fused_gcn_launches": gcn_kinds,
            "fused_gcn_lost_ms": gcn_lost, "simgnn_head_launches": head_kinds,
-           "simgnn_head_lost_ms": head_lost, "counters": dict(c)}
+           "simgnn_head_lost_ms": head_lost, "topm_launches": topm_kinds,
+           "topm_lost_ms": topm_lost, "counters": dict(c)}
     exact_ms = statistics.median(rep["exact_query_ms"])
     print(f"search: index {n} graphs in {index_s:.3f} s "
           f"({n / index_s:.1f} graphs/s, device span {index_dev:.4f} s); "
@@ -1940,6 +2028,29 @@ def _entry_spills(log: str) -> dict:
         if m and name:
             out[name], name = int(m.group(1)), None
     return out
+
+
+def _select_key(m) -> str:
+    """The key "R r F f|any" of a `topm_select_kernel<R, FX>` name
+    match."""
+    return f"R {m.group(1)} F {'any' if m.group(2) == '0' else m.group(2)}"
+
+
+def _select_spills(log: str) -> dict:
+    """Spill-store bytes of each `topm_select_kernel<R, FX>` instantiation
+    in the retrieval library's ptxas report, keyed as `_select_key`."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function "
+                      r"'.*topm_select_kernelILi(\d)ELi(\d+)E", line)
+        if m:
+            name = _select_key(m)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name], name = int(m.group(1)), None
+    return dict(sorted(out.items()))
 
 
 def _elt(m) -> str:

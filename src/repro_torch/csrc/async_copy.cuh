@@ -1,5 +1,5 @@
 // Asynchronous global-to-shared copies (cp.async, sm_80 and later) shared
-// by the port's kernels: one 4- or 16-byte copy a call, commit, wait, and
+// by the port's kernels: one 4- or 16-byte copy a call, commit, waits, and
 // an n-float copy spread over a range of threads.
 //
 // A copy lands in shared memory once the issuing thread has waited for it
@@ -26,6 +26,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // n floats from global to shared memory by cp.async on threads tid, tid +

@@ -6,39 +6,129 @@
 // _topm_ntn_kernel), which merge column blocks of the corpus one after the
 // other into a running top-M held in the revisited output block.
 //
-// On this card the column blocks run in parallel instead, in two passes
-// that share one selection and merge path:
-//   1. block pass, one CTA per (corpus column block, 8 queries): the score
-//      tile of the block (a dot per (query, row), or K dots of uq[k] with
-//      the row plus dq[k], ReLU, the FCN stack and the pre-sigmoid logit)
-//      goes to shared memory as (score, index) keys; a bitonic network sorts
-//      each query's keys and the first min(M, block_cols) are written out;
-//   2. merge pass, one thread per kept key: its rank in the union of the
-//      per-block lists is its own position plus a binary search in every
-//      other list; keys of rank < M land at that rank.
 // Keys are ordered by (-score, ascending corpus index), the order the TPU
-// kernel's `top_k` merge produces; indices are unique, so ranks are too.
+// kernel's `top_k` merge produces; indices are unique, so the order is
+// total and any exact selection gives the same keys in the same order.
 // Non-finite scores become NEG_FILL = -3e38 (NaN rows rank last among real
-// rows); pad columns are -inf and never surface, because every block keeps
-// all its real rows up to M and M <= N. Only the per-block lists
-// ([Q, blocks, min(M, block_cols)] keys) reach global memory, never the
-// [Q, N] score matrix.
+// rows); pads and empty slots never surface, because M <= N. A score is
+// the float32 chain acc = fmaf(q[f], row[f], acc) over f = 0..F-1 from 0,
+// on every route.
 //
-// What bounds it on this card: the dot scan is launch- and latency-bound
-// (F = 32 MACs per (query, row)); the NTN scan is bound by the float32 FMA
-// rate (about 680 MACs per (query, row) at F = 32, K = 16, FCN 16-8-4-1).
-// Each thread keeps its corpus row in registers and reuses it for the 8
-// queries of its CTA; the query operands and the FCN activations live in
-// shared memory.
+// Two routes (kernels/retrieval.py `topm_plan` picks one a launch):
+//
+//   * the select route (the dot scan, M <= TOPM_MAX_SELECT): one launch.
+//     A cluster of cs CTAs (cs <= 8) serves a group of TOPM_QB queries,
+//     each CTA a range of corpus chunks, double-buffered in shared memory:
+//     at F = 32 one TMA box a chunk (128-byte swizzle), else cp.async into
+//     rows padded to 4 mod 32 floats. Each thread scores four rows of a
+//     chunk against its query, held in registers. Selection follows the
+//     WarpSelect scheme of Johnson, Douze and Jegou ("Billion-scale
+//     similarity search with GPUs", 2017): a warp owns one query's sorted
+//     top-32R in registers (R keys a lane) and a queue in shared memory; a
+//     key enters the queue only if it comes before a bound on the query's
+//     M-th key, and 32 queued keys are sorted by rank and merged in by a
+//     bitonic merge over shuffles. The bound is the list's own M-th key or,
+//     once a chunk, the worst of the keys the cluster's warps of the query
+//     publish in shared memory (each its key ceil(M / 2cs) - 1, so the
+//     worst has M keys at or before it). The CTA's two warps of a query
+//     merge, each CTA pushes its lists into rank 0's shared memory through
+//     distributed shared memory, and rank 0 merges them and writes [Q, M].
+//     Nothing reaches global memory but the result.
+//   * the sort route (the NTN scan, and the dot scan at larger M): two
+//     passes. One CTA per (corpus column block, 8 queries) stores the
+//     block's keys in shared memory, sorts each query's keys with a
+//     bitonic network and writes the first min(M, block_cols) to
+//     per-block lists [Q, blocks, min(M, block_cols)]; a merge pass ranks
+//     each kept key by binary searches in the other lists.
+//
+// What bounds it on this card: the dot scan does F = 32 MACs per (query,
+// row), under a microsecond of FMA issue at the served shape; what costs
+// is selection and, across the card, reading the corpus from L2 once per
+// query group. The select route spends about one compare a row once a
+// bound is tight, no block barrier on a queue merge, and stages the next
+// chunk while the current one is scored. The NTN scan is bound by the
+// float32 FMA rate (about 680 MACs per (query, row) at F = 32, K = 16, FCN
+// 16-8-4-1).
+#include "async_copy.cuh"
 #include "simgnn_common.cuh"
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <limits.h>
 #include <math.h>
+#include <string.h>
+
+namespace cg = cooperative_groups;
 
 #define TOPM_BQ 8             // queries per CTA in the block pass
 #define TOPM_FMAX 64          // widest embedding the scans take
 #define TOPM_MAX_COLS 1024    // RETRIEVAL_MAX_BLOCK_COLS
 #define TOPM_NEG_FILL (-3.0e38f)
+
+#define TOPM_SEL_THREADS 256  // threads a CTA on the select route
+#define TOPM_QB 4             // queries a CTA (two warps each)
+#define TOPM_MAX_CS 8         // CTAs a cluster (the portable limit)
+#define TOPM_MAX_SELECT 256   // widest M the select route keeps (8 a lane)
+#define TOPM_QUEUE 64         // queue slots a warp
+#define TOPM_MAX_CHUNK 256    // rows staged at once (a thread's rows: 4)
+
+// Stage clocks, compiled in only by tools/topm_stages.py (which defines
+// TOPM_STAGES): thread 0 of each CTA sums clock64() cycles by stage into
+// TOPM_STAGE_SLOTS slots a CTA of the buffer the tool hands
+// topm_stage_buffers (slots 9 and 10: thread 0's cycles in queue drains
+// and their number; 14: the SM; 15: the global timer at the start); the
+// merge pass
+// records each CTA's first and last clock64() in two slots. The stage
+// build adds a barrier after each chunk's selection, so that its cycles
+// are not booked to the next chunk's wait.
+#define TOPM_STAGE_SLOTS 16
+#ifdef TOPM_STAGES
+__device__ long long* topm_scan_stage_buf;
+__device__ long long* topm_merge_stage_buf;
+__device__ volatile int topm_stage_sink;
+extern "C" int topm_stage_buffers(long long* scan, long long* merge) {
+  cudaError_t err = cudaMemcpyToSymbol(topm_scan_stage_buf, &scan,
+                                       sizeof(scan));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyToSymbol(topm_merge_stage_buf, &merge, sizeof(merge));
+}
+#define TOPM_CLOCK_START()                                               \
+  long long topm_t = clock64(), topm_d[TOPM_STAGE_SLOTS] = {};           \
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(topm_d[15]))
+#define TOPM_LAP(k)                                                      \
+  do {                                                                   \
+    if (threadIdx.x == 0) {                                              \
+      const long long now = clock64();                                   \
+      topm_d[k] += now - topm_t;                                         \
+      topm_t = now;                                                      \
+    }                                                                    \
+  } while (0)
+#define TOPM_CLOCK_END(cta)                                              \
+  do {                                                                   \
+    if (threadIdx.x == 0) {                                              \
+      unsigned sm;                                                       \
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));                    \
+      long long* b = topm_scan_stage_buf + (long long)(cta)*TOPM_STAGE_SLOTS; \
+      for (int k = 0; k < 14; ++k) b[k] = topm_d[k];                     \
+      b[14] = sm;                                                        \
+      b[15] = topm_d[15];                                                \
+    }                                                                    \
+  } while (0)
+#define TOPM_STAGE_SYNC() __syncthreads()
+#else
+#define TOPM_CLOCK_START() \
+  do {                     \
+  } while (0)
+#define TOPM_LAP(k) \
+  do {              \
+  } while (0)
+#define TOPM_CLOCK_END(cta) \
+  do {                      \
+  } while (0)
+#define TOPM_STAGE_SYNC() \
+  do {                    \
+  } while (0)
+#endif
 
 __device__ __forceinline__ bool topm_before(float sa, int ia, float sb,
                                             int ib) {
@@ -54,6 +144,8 @@ static int topm_pow2(int cols) {
   while (p < cols) p <<= 1;
   return p;
 }
+
+// ------------------------------------------------------- the sort route
 
 // Loads corpus row `col` (F floats) into registers; the unrolled, guarded
 // loop keeps `row` out of local memory.
@@ -74,6 +166,25 @@ __device__ __forceinline__ float topm_dot(const float* q,
     if (f < F) acc = fmaf(q[f], row[f], acc);
   return acc;
 }
+
+// Stage build only: thread 0 waits for its row's loads (a store that
+// depends on every element) and books the wait to stage `k`.
+#ifdef TOPM_STAGES
+#define TOPM_ROW_READY(row, F, k)                                        \
+  do {                                                                   \
+    if (threadIdx.x == 0) {                                              \
+      int x = 0;                                                         \
+      for (int f = 0; f < TOPM_FMAX; ++f)                                \
+        if (f < (F)) x ^= __float_as_int((row)[f]);                      \
+      topm_stage_sink = x;                                               \
+    }                                                                    \
+    TOPM_LAP(k);                                                         \
+  } while (0)
+#else
+#define TOPM_ROW_READY(row, F, k) \
+  do {                            \
+  } while (0)
+#endif
 
 // Sorts each of the TOPM_BQ segments of p2 keys into before-order with one
 // bitonic network run over all segments at once.
@@ -131,6 +242,7 @@ topm_dot_block_kernel(const float* __restrict__ qv,
                       int cols, int p2, int m1, int nblk,
                       float* __restrict__ ps, int* __restrict__ pi) {
   extern __shared__ float smem[];
+  TOPM_CLOCK_START();
   float* ks = smem;                                   // [BQ, p2]
   int* ki = (int*)(ks + TOPM_BQ * p2);                // [BQ, p2]
   float* qs = (float*)(ki + TOPM_BQ * p2);            // [BQ, F]
@@ -140,18 +252,27 @@ topm_dot_block_kernel(const float* __restrict__ qv,
     qs[x] = q0 + q < Q ? qv[(size_t)q0 * F + x] : 0.0f;
   }
   __syncthreads();
+  TOPM_LAP(0);
   for (int c = threadIdx.x; c < p2; c += blockDim.x) {
     const long long col = (long long)blockIdx.x * cols + c;
     const bool real = c < cols && col < N;
     float row[TOPM_FMAX];
     topm_load_row(corpus, real ? col : 0, F, row);
-    for (int q = 0; q < TOPM_BQ; ++q)
-      topm_store(ks, ki, q, p2, c, cols, col, real,
-                 real ? topm_dot(qs + q * F, row, F) : 0.0f);
+    TOPM_ROW_READY(row, F, 1);
+    for (int q = 0; q < TOPM_BQ; ++q) {
+      const float s = real ? topm_dot(qs + q * F, row, F) : 0.0f;
+      TOPM_LAP(2);
+      topm_store(ks, ki, q, p2, c, cols, col, real, s);
+      TOPM_LAP(3);
+    }
   }
   __syncthreads();
+  TOPM_LAP(4);
   topm_sort_segments(ks, ki, p2);
+  TOPM_LAP(5);
   topm_write_lists(ks, ki, p2, q0, Q, nblk, m1, ps, pi);
+  TOPM_LAP(6);
+  TOPM_CLOCK_END(blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 __global__ void __launch_bounds__(SIMGNN_THREADS)
@@ -214,15 +335,41 @@ topm_ntn_block_kernel(const float* __restrict__ uq,
   topm_write_lists(ks, ki, p2, q0, Q, nblk, m1, ps, pi);
 }
 
+// Stage build only: each thread of a merge CTA raises the CTA's last-clock
+// slot as it leaves.
+#ifdef TOPM_STAGES
+#define TOPM_MERGE_START()                                               \
+  do {                                                                   \
+    if (threadIdx.x == 0)                                                \
+      topm_merge_stage_buf[2 * (blockIdx.y * gridDim.x + blockIdx.x)] =  \
+          clock64();                                                     \
+  } while (0)
+#define TOPM_MERGE_END()                                                 \
+  atomicMax((unsigned long long*)topm_merge_stage_buf +                  \
+                2 * (blockIdx.y * gridDim.x + blockIdx.x) + 1,           \
+            (unsigned long long)clock64())
+#else
+#define TOPM_MERGE_START() \
+  do {                     \
+  } while (0)
+#define TOPM_MERGE_END() \
+  do {                   \
+  } while (0)
+#endif
+
 // Merge pass: grid (Q, ceil(nblk * m1 / threads)); one thread per kept key.
 __global__ void __launch_bounds__(SIMGNN_THREADS)
 topm_merge_kernel(const float* __restrict__ ps, const int* __restrict__ pi,
                   int nblk, int m1, int M, float* __restrict__ out_s,
                   int* __restrict__ out_i) {
+  TOPM_MERGE_START();
   const long long q = blockIdx.x;
   const int e = blockIdx.y * blockDim.x + threadIdx.x;
   const int total = nblk * m1;
-  if (e >= total) return;
+  if (e >= total) {
+    TOPM_MERGE_END();
+    return;
+  }
   const float* s = ps + q * total;
   const int* id = pi + q * total;
   const int b = e / m1;
@@ -245,7 +392,738 @@ topm_merge_kernel(const float* __restrict__ ps, const int* __restrict__ pi,
     out_s[q * M + rank] = se;
     out_i[q * M + rank] = ie;
   }
+  TOPM_MERGE_END();
 }
+
+// ----------------------------------------------- warp-level top-M selection
+//
+// Shared by any scan that produces one (score, index) key a lane at a time:
+// WarpTopM<R> holds a query's best 32R keys, sorted, key j * 32 + lane in
+// lane `lane`'s key[j]; `t` is key m - 1, which a new key must come before
+// to matter. All lanes of the warp call every member together.
+
+struct TopmKey {
+  float s;
+  int i;
+};
+
+__device__ __forceinline__ TopmKey topm_sentinel() {
+  return TopmKey{-INFINITY, INT_MAX};
+}
+
+__device__ __forceinline__ bool key_before(const TopmKey& a,
+                                           const TopmKey& b) {
+  return topm_before(a.s, a.i, b.s, b.i);
+}
+
+__device__ __forceinline__ TopmKey key_shfl(const TopmKey& k, int src) {
+  return TopmKey{__shfl_sync(0xffffffffu, k.s, src),
+                 __shfl_sync(0xffffffffu, k.i, src)};
+}
+
+// One compare-exchange of a network across lanes at distance d: the lane
+// keeps the better of its key and its partner's when keep_best, else the
+// worse.
+__device__ __forceinline__ TopmKey key_exchange(const TopmKey& k, int d,
+                                                bool keep_best) {
+  const TopmKey o{__shfl_xor_sync(0xffffffffu, k.s, d),
+                  __shfl_xor_sync(0xffffffffu, k.i, d)};
+  const bool take = keep_best ? key_before(o, k) : key_before(k, o);
+  return take ? o : k;
+}
+
+template <int R>
+struct WarpTopM {
+  TopmKey key[R];
+  TopmKey t;
+  int m1;                   // m - 1
+
+  __device__ __forceinline__ void init(int m) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) key[j] = topm_sentinel();
+    m1 = m - 1;
+    t = topm_sentinel();
+  }
+
+  // Sorts a bitonic list (a bitonic merge: log2(32R) half-cleaners, the
+  // first log2(R) inside each lane) and reads the new threshold.
+  __device__ __forceinline__ void clean(int lane) {
+#pragma unroll
+    for (int d = R / 2; d > 0; d >>= 1)
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        if ((j & d) == 0) {
+          const TopmKey a = key[j], b = key[j + d];
+          const bool sw = key_before(b, a);
+          key[j] = sw ? b : a;
+          key[j + d] = sw ? a : b;
+        }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+        key[j] = key_exchange(key[j], d, (lane & d) == 0);
+    t = at(m1);
+  }
+
+  // Merges in a sorted batch of 32 keys, one a lane: the better of each
+  // key and its mirror in the batch (padded to 32R with sentinels) is a
+  // bitonic list that holds the best 32R of both; only the last register
+  // meets a batch key.
+  __device__ __forceinline__ void insert32(const TopmKey& b, int lane) {
+    const TopmKey r = key_shfl(b, 31 - lane);
+    if (key_before(r, key[R - 1])) key[R - 1] = r;
+    clean(lane);
+  }
+
+  // Merges in a sorted list of 32R keys held in shared memory or a peer
+  // CTA's distributed shared memory, the same way.
+  __device__ __forceinline__ void merge(const float* s, const int* i,
+                                        int lane) {
+    TopmKey r[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int p = (R - 1 - j) * 32 + 31 - lane;   // 32R - 1 - (32j + lane)
+      r[j] = TopmKey{s[p], i[p]};
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (key_before(r[j], key[j])) key[j] = r[j];
+    clean(lane);
+  }
+
+  // Key `pos` of the list (register pos / 32 of lane pos % 32), to all
+  // lanes.
+  __device__ __forceinline__ TopmKey at(int pos) const {
+    TopmKey v = key[0];
+#pragma unroll
+    for (int j = 1; j < R; ++j)
+      if (j == pos >> 5) v = key[j];
+    return key_shfl(v, pos & 31);
+  }
+
+  __device__ __forceinline__ void load(const float* s, const int* i,
+                                       int lane) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) key[j] = TopmKey{s[j * 32 + lane],
+                                                 i[j * 32 + lane]};
+  }
+
+  __device__ __forceinline__ void store(float* s, int* i, int lane) const {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      s[j * 32 + lane] = key[j].s;
+      i[j * 32 + lane] = key[j].i;
+    }
+  }
+
+  // The first m keys to [m] outputs.
+  __device__ __forceinline__ void write(float* __restrict__ s,
+                                        int* __restrict__ i, int m,
+                                        int lane) const {
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (j * 32 + lane < m) {
+        s[j * 32 + lane] = key[j].s;
+        i[j * 32 + lane] = key[j].i;
+      }
+  }
+};
+
+// A warp's queue: TOPM_QUEUE (score, index) pairs in shared memory.
+__device__ __forceinline__ TopmKey queue_key(const float2* q, int at) {
+  const float2 v = q[at];
+  return TopmKey{v.x, __float_as_int(v.y)};
+}
+
+__device__ __forceinline__ void queue_put(float2* q, int at,
+                                          const TopmKey& k) {
+  q[at] = make_float2(k.s, __int_as_float(k.i));
+}
+
+// Merges the first min(cnt, 32) queued keys into the list and moves the
+// rest to the front of the queue. The batch is sorted by rank (each lane
+// counts the queued keys before its own; indices are unique, so ranks
+// are too) and merged in by insert32. Returns the new fill.
+template <int R>
+__device__ __forceinline__ int topm_drain(WarpTopM<R>& sel, float2* q,
+                                          int cnt, int lane) {
+  const int take = cnt < 32 ? cnt : 32;
+  TopmKey b = lane < take ? queue_key(q, lane) : topm_sentinel();
+  int rank = 0;
+#pragma unroll 8
+  for (int j = 0; j < take; ++j) rank += key_before(queue_key(q, j), b);
+  const bool more = lane + 32 < cnt;
+  TopmKey x;
+  if (more) x = queue_key(q, lane + 32);
+  __syncwarp();
+  if (lane < take) queue_put(q, 32 + rank, b);
+  __syncwarp();
+  b = lane < take ? queue_key(q, 32 + lane) : topm_sentinel();
+  __syncwarp();
+  if (more) queue_put(q, lane, x);
+  __syncwarp();
+  sel.insert32(b, lane);
+  return cnt > 32 ? cnt - 32 : 0;
+}
+
+// Offers one key a lane to a warp's queue: a key enters only if it comes
+// before `ft`, a threshold the query's final M-th key cannot be worse than
+// (the list's own M-th key, or one another warp published). Returns the
+// new fill; the caller drains at 32.
+__device__ __forceinline__ int topm_offer(float2* q, int cnt, bool real,
+                                          const TopmKey& k,
+                                          const TopmKey& ft, int lane) {
+  const bool pass = real && key_before(k, ft);
+  const unsigned ball = __ballot_sync(0xffffffffu, pass);
+  if (pass) queue_put(q, cnt + __popc(ball & ((1u << lane) - 1u)), k);
+  return cnt + __popc(ball);
+}
+
+// A key as one 64-bit word (score bits high, index low), so that a
+// threshold is published and read in one access.
+__device__ __forceinline__ unsigned long long key_pack(const TopmKey& k) {
+  return ((unsigned long long)__float_as_uint(k.s) << 32) | (unsigned)k.i;
+}
+
+__device__ __forceinline__ TopmKey key_unpack(unsigned long long v) {
+  return TopmKey{__uint_as_float((unsigned)(v >> 32)), (int)(unsigned)v};
+}
+
+// Before every key a scan stores (their scores are finite).
+__device__ __forceinline__ TopmKey topm_first() {
+  return TopmKey{INFINITY, INT_MIN};
+}
+
+// The worst of the warp's keys (lowest score, then highest index), by two
+// warp reductions: scores as unsigned integers in score order (-0 read as
+// +0, which it equals), then the indices of the lanes that hold the
+// lowest.
+__device__ __forceinline__ TopmKey warp_worst(const TopmKey& k) {
+  const unsigned b = __float_as_uint(k.s == 0.0f ? 0.0f : k.s);
+  const unsigned u = b & 0x80000000u ? ~b : b | 0x80000000u;
+  const unsigned lo = __reduce_min_sync(0xffffffffu, u);
+  const unsigned hi = __reduce_max_sync(
+      0xffffffffu, u == lo ? (unsigned)k.i ^ 0x80000000u : 0u);
+  return TopmKey{__uint_as_float(lo & 0x80000000u ? lo & 0x7fffffffu : ~lo),
+                 (int)(hi ^ 0x80000000u)};
+}
+
+// mbarrier and bulk-copy (TMA) helpers of the select route's staging.
+__device__ __forceinline__ unsigned topm_smem(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(topm_smem(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   topm_smem(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(topm_smem(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 2-D tensor map (rows y.. of the corpus, all 32 columns)
+// into shared memory by TMA, counted on `bar`.
+__device__ __forceinline__ void tma_load_rows(float* dst,
+                                              const CUtensorMap* map, int y,
+                                              unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(topm_smem(dst)),
+      "l"(map), "r"(0), "r"(y), "r"(topm_smem(bar))
+      : "memory");
+}
+
+// ------------------------------------------------------- the select route
+
+// Shared layout and partition of a select-route launch, fixed by
+// kernels/retrieval.py `topm_plan` (offsets in 4-byte words).
+struct TopmLayout {
+  int chunk;          // corpus rows staged at once
+  int ld;             // staged row stride (floats), 4 mod 32
+  int lds;            // score tile row stride, 8 mod 32
+  int cs;             // CTAs a cluster
+  int per;            // chunks a CTA walks
+  int r;              // keys a lane (list of 32r)
+  int stage_off[2];   // [chunk, ld] corpus rows, two buffers
+  int sc_off;         // [TOPM_QB, lds] scores of the staged chunk
+  int queue_off;      // [warps][TOPM_QUEUE] queued (score, index) pairs
+  int thr_off;        // [warps] published bounds, 64-bit each
+  int bar_off;        // [2] mbarriers of the staged chunks, 64-bit each
+  int list_off;       // [2][TOPM_QB][32r] half 1's list to half 0
+  int gather_off;     // [2][cs][TOPM_QB][32r] the cluster's lists (rank 0)
+  int smem_words;
+};
+
+extern "C" int topm_layout_size(void) { return (int)sizeof(TopmLayout); }
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Stages chunk rows [r0, r0 + n) of the corpus into `dst` (row stride ld)
+// by cp.async: 16-byte copies when `vec` (F % 4 == 0 and the corpus 16-byte
+// aligned), else 4-byte ones; consecutive threads take consecutive pieces.
+__device__ __forceinline__ void topm_stage_chunk(float* dst,
+                                                 const float* __restrict__ src,
+                                                 int n, int F, int ld,
+                                                 bool vec) {
+  if (vec) {
+    const int fq = F >> 2, pieces = n * fq;
+    for (int p = threadIdx.x; p < pieces; p += TOPM_SEL_THREADS) {
+      const int r = p / fq, k = p - r * fq;
+      cp_async16(dst + r * ld + 4 * k, src + 4 * (size_t)p);
+    }
+  } else {
+    const int total = n * F;
+    for (int e = threadIdx.x; e < total; e += TOPM_SEL_THREADS) {
+      const int r = e / F, f = e - r * F;
+      cp_async4(dst + r * ld + f, src + e);
+    }
+  }
+}
+
+// Stages chunk c (when below c_end) into `dst`. With `tma` (F = 32, the
+// corpus 16-byte aligned, the buffer 1024-byte aligned) thread 0 loads the
+// chunk as one box of the tensor map, unpadded rows with the 128-byte
+// swizzle (16-byte piece k of row r at piece k ^ (r % 8); rows past N come
+// as zeros), counted on the mbarrier `bar`; else every thread issues
+// cp.async copies into padded rows and commits a group, also an empty one,
+// so that a thread's groups count chunks.
+__device__ __forceinline__ void topm_issue(const float* __restrict__ corpus,
+                                           const CUtensorMap* map, int c,
+                                           int c_end, int chunk, int N, int F,
+                                           int ld, bool vec, bool tma,
+                                           float* dst,
+                                           unsigned long long* bar) {
+  if (tma) {
+    if (threadIdx.x == 0 && c < c_end) {
+      mbar_expect(bar, chunk * 32 * 4);
+      tma_load_rows(dst, map, c * chunk, bar);
+    }
+    return;
+  }
+  if (c < c_end) {
+    const int r0 = c * chunk;
+    topm_stage_chunk(dst, corpus + (size_t)r0 * F, min(chunk, N - r0), F, ld,
+                     vec);
+  }
+  cp_async_commit();
+}
+
+// Thread t's four rows (t / 4 + 64 j) of a staged chunk against its query
+// (in registers), the chains interleaved; rows past the chunk are clamped
+// for the reads and not stored. Each chain is the sort route's topm_dot,
+// term for term. FX is F when it is known at compile time (32), else 0.
+// With `swz` the rows are the TMA route's (stride 32, 128-byte swizzle;
+// the four rows share r % 8, so one XOR serves them).
+template <int FX>
+__device__ __forceinline__ void topm_dots(
+    const float (&q)[FX ? FX : TOPM_FMAX], const float* stage, int ld,
+    bool swz, int chunk, int n, int F, float* sc) {
+  constexpr int FM = FX ? FX : TOPM_FMAX;
+  const int t = threadIdx.x;
+  const int x = swz ? (t >> 2) & 7 : 0;
+  const float* rows[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    rows[j] = stage + min((t >> 2) + 64 * j, chunk - 1) * ld;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < FM / 4; ++k)
+    if (FX || 4 * k < F) {
+      float4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = *reinterpret_cast<const float4*>(rows[j] + 4 * (k ^ x));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = fmaf(q[4 * k], v[j].x, acc[j]);
+      if (FX || 4 * k + 1 < F)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[j] = fmaf(q[4 * k + 1], v[j].y, acc[j]);
+      if (FX || 4 * k + 2 < F)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[j] = fmaf(q[4 * k + 2], v[j].z, acc[j]);
+      if (FX || 4 * k + 3 < F)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[j] = fmaf(q[4 * k + 3], v[j].w, acc[j]);
+    }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = (t >> 2) + 64 * j;
+    if (r < n) sc[r] = topm_fill(acc[j]);
+  }
+}
+
+// Stage build only: thread 0's cycles inside an expression, summed into
+// slot k, and the number of times, into slot k + 1.
+#ifdef TOPM_STAGES
+#define TOPM_SPAN(k, expr)                                               \
+  do {                                                                   \
+    const long long topm_s = clock64();                                  \
+    expr;                                                                \
+    if (threadIdx.x == 0) {                                              \
+      topm_d[k] += clock64() - topm_s;                                   \
+      topm_d[(k) + 1] += 1;                                              \
+    }                                                                    \
+  } while (0)
+#else
+#define TOPM_SPAN(k, expr) \
+  do {                     \
+    expr;                  \
+  } while (0)
+#endif
+
+// Grid: ceil(Q / TOPM_QB) clusters of L.cs CTAs. CTA `rank` of a cluster
+// walks chunks [rank * per, (rank + 1) * per) of the corpus. Thread t
+// scores rows t / 4 + 64 j of a chunk against query t % 4 (eight rows a
+// warp, so the padded rows' float4 reads hit distinct banks); warp w
+// selects for query w % 4 over the chunk's 32-row groups of parity w / 4.
+// From the second chunk on, a warp also filters with the bound that the
+// query's warps in the cluster publish (read through distributed shared
+// memory once a chunk). At the end the CTA's two
+// warps of a query merge, every CTA pushes its lists into rank 0's shared
+// memory before a cluster barrier, and rank 0 merges them and writes the
+// first M keys.
+template <int R, int FX>
+__global__ void __launch_bounds__(TOPM_SEL_THREADS, R <= 2 && FX ? 2 : 1)
+topm_select_kernel(const float* __restrict__ qv,
+                   const float* __restrict__ corpus, int Q, int N, int F,
+                   int M, float* __restrict__ out_s, int* __restrict__ out_i,
+                   TopmLayout L, const __grid_constant__ CUtensorMap map,
+                   int vec, int use_tma) {
+  constexpr int KP = 32 * R;
+  extern __shared__ __align__(16) float smem[];
+  TOPM_CLOCK_START();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int q0 = (int)(blockIdx.x / L.cs) * TOPM_QB;
+
+  const int chunk = L.chunk, ld = L.ld, lds = L.lds, cs = L.cs;
+  const int nchunks = (N + chunk - 1) / chunk;
+  const int c_begin = rank * L.per;
+  const int c_end = min(c_begin + L.per, nchunks);
+  float* const stage0 = smem + L.stage_off[0];
+  float* const stage1 = smem + L.stage_off[1];
+  float* sc = smem + L.sc_off;
+  float2* queue = (float2*)(smem + L.queue_off) + w * TOPM_QUEUE;
+  unsigned long long* thr = (unsigned long long*)(smem + L.thr_off);
+  unsigned long long* bar = (unsigned long long*)(smem + L.bar_off);
+
+  // The TMA route where the launcher built a tensor map (F = 32) and both
+  // buffers sit on the swizzle's 1024-byte boundary.
+  const bool tma = FX == 32 && use_tma &&
+                   ((topm_smem(stage0) | topm_smem(stage1)) & 1023) == 0;
+  const int row_ld = tma ? 32 : ld;
+  if (tma) {
+    if (t == 0) {
+      mbar_init(bar);
+      mbar_init(bar + 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  // Every CTA's published bounds exist before any peer reads them: each
+  // warp writes its first one and the CTA arrives before any load is in
+  // flight (a release waits for the thread's loads, the staging copies
+  // too); a warp waits before its first read of a peer's.
+  if (lane == 0)
+    *(volatile unsigned long long*)(thr + w) = key_pack(topm_sentinel());
+  cluster_arrive();
+  topm_issue(corpus, &map, c_begin, c_end, chunk, N, F, ld, vec, tma, stage0,
+             bar);
+  topm_issue(corpus, &map, c_begin + 1, c_end, chunk, N, F, ld, vec, tma,
+             stage1, bar + 1);
+  TOPM_LAP(12);
+
+  // the dot phase's query, in registers
+  const int dq = t & (TOPM_QB - 1);
+  float qreg[FX ? FX : TOPM_FMAX];
+#pragma unroll
+  for (int f = 0; f < (FX ? FX : TOPM_FMAX); ++f)
+    qreg[f] = (FX || f < F) && q0 + dq < Q
+                  ? __ldg(qv + (size_t)(q0 + dq) * F + f) : 0.0f;
+
+  const int sq = w & (TOPM_QB - 1), half = w / TOPM_QB;
+  const bool sq_live = q0 + sq < Q;
+  WarpTopM<R> sel;
+  sel.init(M);
+  // The filter threshold: the list's own key M - 1, or a bound the
+  // cluster's 2 cs warps of the query give together: each publishes its
+  // key `pub` = ceil(M / (2 cs)) - 1, so the worst of their published keys
+  // has at least M keys at or before it.
+  const int pub = (M + 2 * cs - 1) / (2 * cs) - 1;
+  TopmKey ft = topm_sentinel();
+  int cnt = 0;
+  bool joined = false;
+  TOPM_LAP(0);
+  for (int c = c_begin; c < c_end; ++c) {
+    const int use = c - c_begin;
+    float* const stage = use & 1 ? stage1 : stage0;
+    if (tma) mbar_wait(bar + (use & 1), (use >> 1) & 1);
+    else cp_async_wait_group<1>();
+    __syncthreads();
+    TOPM_LAP(1);
+    const int r0 = c * chunk, n = min(chunk, N - r0);
+    topm_dots<FX>(qreg, stage, row_ld, tma, chunk, n, F, sc + dq * lds);
+    __syncthreads();
+    TOPM_LAP(2);
+    topm_issue(corpus, &map, c + 2, c_end, chunk, N, F, ld, vec, tma, stage,
+               bar + (use & 1));
+    TOPM_LAP(11);
+    if (c > c_begin) {
+      if (!joined) {
+        cluster_wait();
+        joined = true;
+      }
+      if (sq_live) {
+        // lane l reads warp sq + 4 (l & 1) of rank l / 2; the worst of
+        // the 2 cs keys bounds the query (a stale key bounds it too)
+        TopmKey o = topm_first();
+        if (lane < 2 * cs)
+          o = key_unpack(*(volatile unsigned long long*)cluster.map_shared_rank(
+              thr + sq + TOPM_QB * (lane & 1), lane >> 1));
+        o = warp_worst(o);
+        if (key_before(o, ft)) ft = o;
+      }
+    }
+    TOPM_LAP(8);
+    if (sq_live) {
+      for (int g = 32 * half; g < n; g += 64) {
+        const int r = g + lane;
+        const bool real = r < n;
+        const TopmKey k{real ? sc[sq * lds + r] : 0.0f, r0 + r};
+        cnt = topm_offer(queue, cnt, real, k, ft, lane);
+        if (cnt >= 32) {
+          __syncwarp();
+          TOPM_SPAN(9, cnt = topm_drain(sel, queue, cnt, lane));
+          if (key_before(sel.t, ft)) ft = sel.t;
+          const TopmKey mine = sel.at(pub);
+          if (lane == 0)
+            *(volatile unsigned long long*)(thr + w) = key_pack(mine);
+        }
+      }
+    }
+    TOPM_STAGE_SYNC();
+    TOPM_LAP(3);
+  }
+  if (!joined) cluster_wait();
+  if (sq_live && cnt > 0) {
+    __syncwarp();
+    TOPM_SPAN(9, cnt = topm_drain(sel, queue, cnt, lane));
+  }
+  TOPM_LAP(4);
+
+  // The CTA's two warps of a query merge; half 0 pushes the CTA's list
+  // into rank 0's gather buffer (rank 0 keeps its own in registers).
+  float* ls = smem + L.list_off + sq * KP;
+  int* li = (int*)(smem + L.list_off + TOPM_QB * KP) + sq * KP;
+  float* gs = smem + L.gather_off + (rank * TOPM_QB + sq) * KP;
+  int* gi = (int*)(smem + L.gather_off + cs * TOPM_QB * KP) +
+            (rank * TOPM_QB + sq) * KP;
+  if (half == 1) sel.store(ls, li, lane);
+  __syncthreads();
+  if (half == 0 && sq_live) {
+    sel.merge(ls, li, lane);
+    if (rank > 0)
+      sel.store(cluster.map_shared_rank(gs, 0), cluster.map_shared_rank(gi, 0),
+                lane);
+  }
+  TOPM_LAP(5);
+  cluster_arrive();
+  cluster_wait();
+  TOPM_LAP(6);
+  if (rank > 0) {
+    TOPM_CLOCK_END(blockIdx.x);
+    return;
+  }
+
+  // Rank 0: its half-0 warps merge the lists of ranks 2, 4 and 6 into its
+  // own, its half-1 warps those of ranks 3, 5 and 7 into rank 1's; then
+  // the halves merge and the first M keys go out.
+  const int stride = TOPM_QB * KP;
+  if (sq_live && half < cs) {
+    if (half == 1) sel.load(gs + stride, gi + stride, lane);
+    for (int p = half + 2; p < cs; p += 2)
+      sel.merge(gs + p * stride, gi + p * stride, lane);
+    if (half == 1) sel.store(ls, li, lane);
+  }
+  __syncthreads();
+  if (sq_live && half == 0) {
+    if (cs > 1) sel.merge(ls, li, lane);
+    sel.write(out_s + (size_t)(q0 + sq) * M, out_i + (size_t)(q0 + sq) * M,
+              M, lane);
+  }
+  TOPM_LAP(7);
+  TOPM_CLOCK_END(blockIdx.x);
+}
+
+static bool topm_layout_ok(const TopmLayout* L, int N, int F, int M) {
+  const int kp = 32 * L->r;
+  if ((L->r != 1 && L->r != 2 && L->r != 4 && L->r != 8) || M > kp ||
+      (L->r > 1 && M <= kp / 2))
+    return false;
+  if (L->chunk < 1 || L->chunk > TOPM_MAX_CHUNK || L->ld < ((F + 3) & ~3) ||
+      L->ld % 4 != 0 || L->lds < L->chunk || L->cs < 1 ||
+      L->cs > TOPM_MAX_CS || (L->cs & (L->cs - 1)) != 0 || L->per < 1 ||
+      (long long)L->cs * L->per * L->chunk < N)
+    return false;
+  const int start[8] = {L->stage_off[0], L->stage_off[1], L->sc_off,
+                        L->queue_off,    L->thr_off,      L->bar_off,
+                        L->list_off,     L->gather_off};
+  const int words[8] = {L->chunk * L->ld,
+                        L->chunk * L->ld,
+                        TOPM_QB * L->lds,
+                        (TOPM_SEL_THREADS / 32) * 2 * TOPM_QUEUE,  // pairs
+                        (TOPM_SEL_THREADS / 32) * 2,
+                        4,
+                        2 * TOPM_QB * kp,
+                        2 * L->cs * TOPM_QB * kp};
+  for (int a = 0; a < 8; ++a)
+    if (start[a] < 0 || start[a] % 4 != 0 ||
+        start[a] + words[a] > L->smem_words)
+      return false;
+  return true;
+}
+
+typedef void (*TopmSelectKernel)(const float*, const float*, int, int, int,
+                                 int, float*, int*, TopmLayout, CUtensorMap,
+                                 int, int);
+
+typedef CUresult (*TopmEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time (null where the installed
+// CUDA lacks it).
+static TopmEncodeTiled topm_encoder() {
+  static TopmEncodeTiled fn = nullptr;
+  static bool asked = false;
+  if (!asked) {
+    asked = true;
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = (TopmEncodeTiled)p;
+  }
+  return fn;
+}
+
+// The TMA route's tensor map of a [N, 32] float32 corpus: boxes of `chunk`
+// rows, the 128-byte swizzle, rows past N read as zeros. False where it
+// cannot be built.
+static bool topm_tensor_map(CUtensorMap* map, const float* corpus, int N,
+                            int chunk) {
+  const TopmEncodeTiled enc = topm_encoder();
+  if (!enc || chunk > 256) return false;
+  const cuuint64_t dims[2] = {32, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {32 * sizeof(float)};
+  const cuuint32_t box[2] = {32, (cuuint32_t)chunk};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)corpus, dims,
+             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The instantiation for R keys a lane and width F (compile-time F = 32).
+static TopmSelectKernel topm_select_kernel_for(int r, int F) {
+  const bool f32 = F == 32;
+  switch (r) {
+    case 1: return f32 ? topm_select_kernel<1, 32> : topm_select_kernel<1, 0>;
+    case 2: return f32 ? topm_select_kernel<2, 32> : topm_select_kernel<2, 0>;
+    case 4: return f32 ? topm_select_kernel<4, 32> : topm_select_kernel<4, 0>;
+    default: return f32 ? topm_select_kernel<8, 32> : topm_select_kernel<8, 0>;
+  }
+}
+
+static cudaLaunchConfig_t topm_cluster_config(int cs, int ctas, size_t smem,
+                                              cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)ctas, 1, 1);
+  cfg.blockDim = dim3(TOPM_SEL_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The select route: out [Q, M] scores and indices in one launch.
+extern "C" int topm_select_launch(const float* qv, const float* corpus, int Q,
+                                  int N, int F, int M, float* out_s,
+                                  int* out_i, const TopmLayout* L,
+                                  void* stream) {
+  if (Q <= 0 || N <= 0 || F <= 0 || F > TOPM_FMAX || M <= 0 || M > N ||
+      M > TOPM_MAX_SELECT || !topm_layout_ok(L, N, F, M) ||
+      ((long long)Q + TOPM_QB - 1) / TOPM_QB * L->cs > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const TopmSelectKernel kern = topm_select_kernel_for(L->r, F);
+  const size_t smem = (size_t)L->smem_words * 4;
+  cudaError_t err = simgnn_set_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = topm_cluster_config(
+      L->cs, (int)(((long long)Q + TOPM_QB - 1) / TOPM_QB * L->cs), smem,
+      attr);
+  cfg.stream = (cudaStream_t)stream;
+  const int vec = F % 4 == 0 && ((uintptr_t)corpus & 15) == 0;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  const int tma = F == 32 && vec && topm_tensor_map(&map, corpus, N, L->chunk);
+  err = cudaLaunchKernelEx(&cfg, kern, qv, corpus, Q, N, F, M, out_s, out_i,
+                           *L, map, vec, tma);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Clusters of `cs` select-route CTAs (R keys a lane, width F, `smem_bytes`
+// of dynamic shared memory) the current device holds at once.
+extern "C" int topm_max_clusters(int r, int F, int cs, int smem_bytes,
+                                 int* clusters) {
+  const TopmSelectKernel kern = topm_select_kernel_for(r, F);
+  cudaError_t err = simgnn_set_smem(kern, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = topm_cluster_config(cs, cs, smem_bytes, attr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+}
+
+// ------------------------------------------- the sort route's C interface
 
 static int topm_nblk(int N, int cols) { return (N + cols - 1) / cols; }
 
@@ -275,6 +1153,7 @@ static bool topm_shapes_ok(int Q, int N, int F, int cols, int M) {
          (total + SIMGNN_THREADS - 1) / SIMGNN_THREADS <= 65535;
 }
 
+// The dot scan's sort route (block pass, then merge pass).
 extern "C" int topm_dot_launch(const float* qv, const float* corpus, int Q,
                                int N, int F, int cols, int M, float* ps,
                                int* pi, float* out_s, int* out_i,

@@ -11,11 +11,17 @@ rows ordered by (-score, ascending corpus index):
   * `blocked_topm_ntn` — the exact pre-sigmoid NTN+FCN logit per corpus row
     from the collapsed query operands of `collapse_query_ntn`.
 
-Both launch the CUDA kernels of `csrc/retrieval.cu` on CUDA tensors
-(column blocks scored and sorted in parallel, then merged per query; the
-selection and merge run in the kernel) and their plain versions on CPU
-tensors. The plain versions materialise the [Q, N] score matrix and rank
-it with an explicit stable (-score, index) sort; the kernels never do.
+Both launch the CUDA kernels of `csrc/retrieval.cu` on CUDA tensors and
+their plain versions on CPU tensors. `topm_plan` (pure Python, a function
+of the shapes and the card's limits) picks the dot scan's route a launch:
+the select route (M <= `MAX_SELECT`: one launch, a cluster of CTAs along
+the corpus a group of queries, warp-level top-M selection, the cluster's
+lists merged through distributed shared memory) or the sort route (larger
+M, and every NTN scan: column blocks scored and sorted in parallel, then
+merged per query in a second pass). The selection and merge run in the
+kernels; no library selection call is on the CUDA path. The plain
+versions materialise the [Q, N] score matrix and rank it with an explicit
+stable (-score, index) sort; the kernels never do.
 Non-finite scores become `NEG_FILL`, so NaN rows (dropped embeddings) rank
 last but never surface as NaN; M is clamped to N; Q = 0 or N = 0 gives
 empty results; a `block_cols` beyond `RETRIEVAL_MAX_BLOCK_COLS` raises.
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -36,10 +43,11 @@ import torch
 from repro_torch.device import on_cuda
 from repro_torch.kernels import build
 from repro_torch.kernels.common import layer_pairs
+from repro_torch.kernels.fused_gcn import RESERVED_SMEM, device_limits
 
 __all__ = ["RETRIEVAL_MAX_BLOCK_COLS", "NEG_FILL", "retrieval_block_cols",
-           "blocked_topm", "blocked_topm_ntn", "blocked_topm_plain",
-           "blocked_topm_ntn_plain", "collapse_query_ntn", "topm_reference",
+           "topm_plan", "blocked_topm", "blocked_topm_ntn",
+           "blocked_topm_plain", "blocked_topm_ntn_plain", "collapse_query_ntn", "topm_reference",
            "ntn_logit_reference", "fit_prefilter_calibration",
            "prefilter_query_vectors"]
 
@@ -53,6 +61,22 @@ NEG_FILL = float(np.float32(-3.0e38))
 
 #: widest embedding the CUDA scans take (TOPM_FMAX in csrc/retrieval.cu).
 MAX_FEAT = 64
+
+#: the select route (csrc/retrieval.cu): threads a CTA, queries a CTA (two
+#: warps each), the portable cluster limit, the widest M it keeps (8 keys a
+#: lane), queue slots a warp, rows staged at once, and the CTAs an SM its
+#: __launch_bounds__ leaves room for by registers (2 at up to 2 keys a
+#: lane and F = 32, which the kernel is built for at compile time; else 1)
+SELECT_THREADS = 256
+SELECT_QUERIES = 4
+MAX_CLUSTER = 8
+MAX_SELECT = 256
+QUEUE = 64
+MAX_CHUNK = 256
+CTAS_BY_REGISTERS = 2
+#: the sort route: queries a CTA of the block pass, threads a CTA
+SORT_QUERIES = 8
+SORT_THREADS = 256
 
 
 def retrieval_block_cols(n_corpus: int, *,
@@ -124,24 +148,28 @@ def blocked_topm_ntn_plain(uq, dq, corpus, fcn_params, m: int):
 
 
 @functools.cache
-def _launchers():
-    """(dot launch, NTN launch) C entry points, signatures set once."""
+def _lib():
+    """The library with its entry points' signatures set once."""
     lib = build.library("retrieval")
+    build.check_side_struct(lib, "topm_layout_size", TopmLayout)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    dot = build.bind(lib.topm_dot_launch,
-                     [ptr, ptr] + [i32] * 5 + [ptr] * 5)
-    ntn = build.bind(lib.topm_ntn_launch,
-                     [ptr] * 3 + [i32] * 6 + [ptr] * 4
-                     + [ctypes.POINTER(build.SimgnnParams), ptr])
-    return dot, ntn
+    build.bind(lib.topm_select_launch, [ptr, ptr] + [i32] * 4 + [ptr] * 2
+               + [ctypes.POINTER(TopmLayout), ptr])
+    build.bind(lib.topm_dot_launch, [ptr, ptr] + [i32] * 5 + [ptr] * 5)
+    build.bind(lib.topm_ntn_launch, [ptr] * 3 + [i32] * 6 + [ptr] * 4
+               + [ctypes.POINTER(build.SimgnnParams), ptr])
+    build.bind(lib.topm_max_clusters, [i32] * 4 + [ctypes.POINTER(i32)])
+    return lib
 
 
-def _scan_buffers(q: int, n: int, m: int, block_cols: int, device):
-    """Per-block key lists [Q, blocks, min(M, block_cols)] and the outputs."""
-    entries = q * -(-n // block_cols) * min(m, block_cols)
+def _scan_lists(entries: int, device):
+    """The sort route's per-block key lists [Q, blocks, min(M, block_cols)]."""
     return (torch.empty(entries, dtype=torch.float32, device=device),
-            torch.empty(entries, dtype=torch.int32, device=device),
-            torch.empty((q, m), dtype=torch.float32, device=device),
+            torch.empty(entries, dtype=torch.int32, device=device))
+
+
+def _outputs(q: int, m: int, device):
+    return (torch.empty((q, m), dtype=torch.float32, device=device),
             torch.empty((q, m), dtype=torch.int32, device=device))
 
 
@@ -151,11 +179,247 @@ def _check_feat(f: int):
                          f"{MAX_FEAT} wide, got {f}")
 
 
+def _pow2(x: int) -> int:
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def _ru4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def _row_stride(f: int) -> int:
+    """Staged row stride (floats): at least F, a multiple of 4 and 4 mod 32,
+    so the eight rows a warp reads with float4 loads hit distinct banks."""
+    return (_ru4(f) + 27) // 32 * 32 + 4
+
+
+@dataclass(frozen=True)
+class TopmPlan:
+    """One launch of the dot scan in `csrc/retrieval.cu`. `layout` holds
+    the select route's C struct `TopmLayout` fields (empty on the sort
+    route)."""
+    route: str              # "select" or "sort"
+    grid: tuple             # select: (CTAs,); sort: the block pass's (x, y)
+    threads: int
+    cluster: int            # CTAs a cluster (select), 1 (sort)
+    queries: int            # queries a CTA
+    chunk: int              # rows staged at once (select), block_cols (sort)
+    keys_a_lane: int        # R: a warp keeps 32R keys (select; 0 on sort)
+    chunks_per_cta: int     # chunks a CTA walks (select; 1 on sort)
+    ctas_per_sm: int        # what the plan counts on (shared bytes, registers)
+    smem_bytes: int         # dynamic shared bytes (of the block pass on sort)
+    list_entries: int       # per-block list entries in global memory (sort)
+    layout: tuple           # ((field, value), ...)
+
+    def summary(self) -> str:
+        if self.route == "sort":
+            return (f"sort route, block pass grid {self.grid[0]} x "
+                    f"{self.grid[1]} x {self.threads} threads "
+                    f"({self.queries} queries, {self.chunk} columns a CTA, "
+                    f"{self.smem_bytes} shared bytes), then the merge pass "
+                    f"over {self.list_entries} listed keys")
+        return (f"select route, grid {self.grid[0]} x {self.threads} threads "
+                f"in clusters of {self.cluster}, {self.queries} queries a "
+                f"CTA, {self.chunks_per_cta} chunk(s) of {self.chunk} rows a "
+                f"CTA, {32 * self.keys_a_lane} keys a warp "
+                f"({self.keys_a_lane} a lane), {self.ctas_per_sm} CTA(s)/SM, "
+                f"{self.smem_bytes} shared bytes")
+
+
+def _select_layout(f: int, chunk: int, r: int, cs: int) -> dict:
+    """Offsets (4-byte words) of the select route's shared buffers: two
+    staged chunks [chunk, ld], the score tile [4, lds], a queue of
+    (score, index) slots a warp, a published bound a warp (64-bit), the
+    two chunk buffers' mbarriers, each query's list from half 1 to half 0,
+    and the cluster's lists gathered in rank 0 (scores then indices, 32R a
+    list)."""
+    ld = _row_stride(f)
+    lds = (chunk + 31) // 32 * 32 + 8
+    kp = 32 * r
+    warps = SELECT_THREADS // 32
+    # the second buffer on a 1024-byte boundary (the TMA route's swizzle)
+    stage = (0, (chunk * ld + 255) // 256 * 256)
+    sc = stage[1] + chunk * ld
+    queue = sc + _ru4(SELECT_QUERIES * lds)
+    thr = queue + warps * 2 * QUEUE
+    bar = thr + _ru4(2 * warps)
+    lst = bar + 4
+    gather = lst + 2 * SELECT_QUERIES * kp
+    return dict(chunk=chunk, ld=ld, lds=lds, stage_off=stage, sc_off=sc,
+                queue_off=queue, thr_off=thr, bar_off=bar, list_off=lst,
+                gather_off=gather,
+                smem_words=gather + 2 * cs * SELECT_QUERIES * kp)
+
+
+def _select_ctas(r: int, f: int, smem: int, smem_optin: int) -> int:
+    """CTAs an SM holds for a select-route layout: by registers (2 at up to
+    2 keys a lane and F = 32, else 1), threads and shared bytes."""
+    by_regs = CTAS_BY_REGISTERS if r <= 2 and f == 32 else 1
+    return min(by_regs, 2048 // SELECT_THREADS,
+               (smem_optin + RESERVED_SMEM) // (smem + RESERVED_SMEM))
+
+
+def _select_plan(q: int, n: int, f: int, m: int, cols: int, sms: int,
+                 smem_optin: int) -> TopmPlan | None:
+    """The select route's plan, or None where no chunk of 32 rows or more
+    fits `smem_optin` (sized for clusters of 8)."""
+    r = 1
+    while 32 * r < m:
+        r *= 2
+    chunk = min(cols, MAX_CHUNK)
+    while 4 * _select_layout(f, chunk, r, MAX_CLUSTER)["smem_words"] \
+            > smem_optin:
+        if chunk <= 32:
+            return None
+        chunk = (chunk + 1) // 2
+    groups, nchunks = -(-q // SELECT_QUERIES), -(-n // chunk)
+    ctas = _select_ctas(
+        r, f, 4 * _select_layout(f, chunk, r, MAX_CLUSTER)["smem_words"],
+        smem_optin)
+    cs = 1
+    while cs * 2 <= min(MAX_CLUSTER, nchunks):
+        cs *= 2
+    while cs > 1 and (groups * (cs // 2) >= sms * ctas
+                      or (cs - 1) * -(-nchunks // cs) >= nchunks):
+        cs //= 2
+    if groups * cs > 2 ** 31 - 1:
+        raise ValueError(f"{q} queries exceed the select route's grid")
+    lay = _select_layout(f, chunk, r, cs)
+    smem = 4 * lay["smem_words"]
+    per = -(-nchunks // cs)
+    return TopmPlan(route="select", grid=(groups * cs,),
+                    threads=SELECT_THREADS, cluster=cs,
+                    queries=SELECT_QUERIES, chunk=chunk, keys_a_lane=r,
+                    chunks_per_cta=per,
+                    ctas_per_sm=_select_ctas(r, f, smem, smem_optin),
+                    smem_bytes=smem, list_entries=0,
+                    layout=tuple(dict(lay, cs=cs, per=per, r=r).items()))
+
+
+@functools.lru_cache(maxsize=256)
+def topm_plan(q: int, n: int, f: int, m: int, cols: int, sms: int,
+              smem_optin: int, route: str | None = None) -> TopmPlan:
+    """Route, grid, cluster and shared layout of one dot-scan launch of Q
+    queries of width F against N corpus rows, keeping M (clamped: M <= N),
+    with column blocks of `cols` rows.
+
+    M <= `MAX_SELECT` takes the select route: a cluster of cs CTAs along
+    the corpus for each group of 4 queries, each CTA staging chunks of
+    min(cols, 256) rows, halved while the layout (sized for clusters of 8)
+    is above `smem_optin` bytes. cs is the largest of 1, 2, 4, 8 that is at
+    most the corpus's chunks, halved while the halved grid still fills a
+    wave (`sms` x the CTAs an SM holds) or a CTA would get no chunk (each
+    walks ceil(chunks / cs) of them). Larger M, or a layout that fits no
+    chunk of 32 rows, takes the sort route. `route` forces one (for timing
+    the other); a shape that fits neither raises naming its width."""
+    if q < 1 or n < 1 or not 1 <= m <= n:
+        raise ValueError(f"topm_plan takes Q, N >= 1 and 1 <= M <= N, got "
+                         f"Q {q}, N {n}, M {m}")
+    if not 1 <= f <= MAX_FEAT:
+        raise ValueError(f"the top-M kernels take embeddings up to "
+                         f"{MAX_FEAT} wide, got {f}")
+    if not 1 <= cols <= RETRIEVAL_MAX_BLOCK_COLS:
+        raise ValueError(f"block_cols must be 1..{RETRIEVAL_MAX_BLOCK_COLS}, "
+                         f"got {cols}")
+    if route not in (None, "select", "sort"):
+        raise ValueError(f"route must be 'select' or 'sort', got {route!r}")
+    if route == "select" and m > MAX_SELECT:
+        raise ValueError(f"the select route keeps M <= {MAX_SELECT}, got {m}")
+    if m <= MAX_SELECT and route != "sort":
+        plan = _select_plan(q, n, f, m, cols, sms, smem_optin)
+        if plan is not None:
+            return plan
+        if route == "select":
+            raise ValueError(f"the select route's layout at embedding width "
+                             f"{f} does not fit {smem_optin} shared bytes")
+    smem = (2 * SORT_QUERIES * _pow2(cols) + SORT_QUERIES * f) * 4
+    nblk = -(-n // cols)
+    if smem > smem_optin:
+        raise ValueError(f"the sort route's block of {cols} columns at "
+                         f"embedding width {f} needs {smem} shared bytes, "
+                         f"the card {smem_optin}")
+    if -(-q // SORT_QUERIES) > 65535 or \
+            -(-nblk * min(m, cols) // SORT_THREADS) > 65535:
+        raise ValueError(f"Q {q}, N {n}, M {m} at block_cols {cols} exceed "
+                         "the sort route's grid")
+    return TopmPlan(route="sort", grid=(nblk, -(-q // SORT_QUERIES)),
+                    threads=SORT_THREADS, cluster=1, queries=SORT_QUERIES,
+                    chunk=cols, keys_a_lane=0, chunks_per_cta=1,
+                    ctas_per_sm=min(2048 // SORT_THREADS,
+                                    (smem_optin + RESERVED_SMEM)
+                                    // (smem + RESERVED_SMEM)),
+                    smem_bytes=smem, list_entries=q * nblk * min(m, cols),
+                    layout=())
+
+
+class TopmLayout(ctypes.Structure):
+    """Mirror of `TopmLayout` in `csrc/retrieval.cu`."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("chunk", "ld", "lds", "cs",
+                                             "per", "r")]
+                + [("stage_off", ctypes.c_int * 2)]
+                + [(n, ctypes.c_int) for n in ("sc_off", "queue_off",
+                                               "thr_off", "bar_off",
+                                               "list_off", "gather_off",
+                                               "smem_words")])
+
+
+@functools.lru_cache(maxsize=256)
+def _layout_struct(plan: TopmPlan) -> TopmLayout:
+    s = TopmLayout()
+    for name, v in plan.layout:
+        if isinstance(v, tuple):
+            arr = getattr(s, name)
+            for i, x in enumerate(v):
+                arr[i] = x
+        else:
+            setattr(s, name, v)
+    return s
+
+
+def plan_for(q: int, n: int, f: int, m: int, block_cols: int,
+             device) -> TopmPlan:
+    """The plan `blocked_topm` launches with on `device` (m clamped)."""
+    return topm_plan(q, n, f, m, block_cols,
+                     *device_limits(device.index or 0))
+
+
+def max_clusters(plan: TopmPlan, f: int) -> int:
+    """Clusters of a select plan at width F the current device holds at
+    once, as the CUDA runtime computes it (registers included)."""
+    out = ctypes.c_int()
+    build.check_launch(_lib().topm_max_clusters(
+        plan.keys_a_lane, f, plan.cluster, plan.smem_bytes,
+        ctypes.byref(out)), "topm occupancy")
+    return out.value
+
+
+def launch(plan: TopmPlan, pq: int, pc: int, q: int, n: int, f: int, m: int,
+           out_s: torch.Tensor, out_i: torch.Tensor) -> None:
+    """One dot-scan launch of `plan` on checked qv/corpus pointers into
+    [Q, M] outputs; the sort route allocates its per-block lists."""
+    dev = out_s.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan.route == "select":
+        err = _lib().topm_select_launch(
+            pq, pc, q, n, f, m, out_s.data_ptr(), out_i.data_ptr(),
+            ctypes.byref(_layout_struct(plan)), stream)
+    else:
+        ps, pi = _scan_lists(plan.list_entries, dev)
+        err = _lib().topm_dot_launch(
+            pq, pc, q, n, f, plan.chunk, m, ps.data_ptr(), pi.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), stream)
+    build.check_launch(err, "topm")
+
+
 def blocked_topm(qv, corpus, m: int, *, block_cols: int | None = None):
     """Streaming top-M dot-product scan: qv [Q, F] against corpus [N, F]
     -> (scores [Q, M], indices [Q, M] int32), scores descending. CUDA
-    tensors launch `csrc/retrieval.cu` (counted in
-    `blocked_topm.launches`); CPU tensors run the plain version."""
+    tensors launch `csrc/retrieval.cu` on `topm_plan`'s route (counted in
+    `blocked_topm.launches`, the plan kept in `blocked_topm.last_plan`);
+    CPU tensors run the plain version."""
     if qv.ndim != 2 or corpus.ndim != 2 or qv.shape[1] != corpus.shape[1]:
         raise ValueError(f"shape mismatch: qv {tuple(qv.shape)} vs corpus "
                          f"{tuple(corpus.shape)}")
@@ -166,16 +430,13 @@ def blocked_topm(qv, corpus, m: int, *, block_cols: int | None = None):
     m, block_cols = args
     if not on_cuda(qv, corpus):
         return blocked_topm_plain(qv, corpus, m)
-    _check_feat(f)
     pq = build.checked(qv, "qv", torch.float32, (q, f))
     pc = build.checked(corpus, "corpus", torch.float32, (n, f))
-    ps, pi, out_s, out_i = _scan_buffers(q, n, m, block_cols, qv.device)
-    err = _launchers()[0](
-        pq, pc, q, n, f, block_cols, m, ps.data_ptr(), pi.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(qv.device).cuda_stream)
-    build.check_launch(err, "topm")
+    plan = plan_for(q, n, f, m, block_cols, qv.device)
+    out_s, out_i = _outputs(q, m, qv.device)
+    launch(plan, pq, pc, q, n, f, m, out_s, out_i)
     blocked_topm.launches += 1
+    blocked_topm.last_plan = plan
     return out_s, out_i
 
 
@@ -207,8 +468,10 @@ def blocked_topm_ntn(uq, dq, corpus, fcn_params, m: int, *,
     pd = build.checked(dq, "dq", torch.float32, (q, k))
     pc = build.checked(corpus, "corpus", torch.float32, (n, f))
     params, _keep = build.simgnn_params({"fcn": fcn_params}, uq.device)
-    ps, pi, out_s, out_i = _scan_buffers(q, n, m, block_cols, uq.device)
-    err = _launchers()[1](
+    ps, pi = _scan_lists(q * -(-n // block_cols) * min(m, block_cols),
+                         uq.device)
+    out_s, out_i = _outputs(q, m, uq.device)
+    err = _lib().topm_ntn_launch(
         pu, pd, pc, q, n, f, k, block_cols, m, ps.data_ptr(), pi.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(), ctypes.byref(params),
         torch.cuda.current_stream(uq.device).cuda_stream)
@@ -218,6 +481,7 @@ def blocked_topm_ntn(uq, dq, corpus, fcn_params, m: int, *,
 
 
 blocked_topm.launches = 0
+blocked_topm.last_plan = None
 blocked_topm_ntn.launches = 0
 
 

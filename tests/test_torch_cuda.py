@@ -717,21 +717,53 @@ def _topm_case(dev, case):
                       "m_over_block": (5, 137, 100, 32),
                       "nan_rows": (3, 40, 40, 16), "all_nan": (3, 8, 8, 8),
                       "ties": (4, 300, 50, 64),
-                      "main": (64, 8192, 64, 256)}[case]
-    qv = rng.standard_normal((q, 32)).astype(np.float32)
-    corpus = rng.standard_normal((n, 32)).astype(np.float32)
+                      "main": (64, 8192, 64, 256),
+                      "served_m_eq_n": (1, 8192, 8192, 256),
+                      "q1": (1, 8192, 64, 256), "q65": (65, 8192, 64, 256),
+                      "f4": (64, 8192, 64, 256), "f64": (64, 8192, 64, 256),
+                      "inf_rows": (6, 500, 100, 64),
+                      "neg_zero_rows": (5, 300, 200, 64),
+                      "unaligned": (64, 8192, 64, 256)}[case]
+    f = {"f4": 4, "f64": 64}.get(case, 32)
+    qv = rng.standard_normal((q, f)).astype(np.float32)
+    corpus = rng.standard_normal((n, f)).astype(np.float32)
+    if case in EXACT_TOPM_CASES:
+        # small integers: every sum is exact in any order, so the plain
+        # version's scores are the kernel's and ties are exact ties
+        qv, corpus = (rng.integers(-2, 3, x.shape).astype(np.float32)
+                      for x in (qv, corpus))
     if case == "nan_rows":
         corpus[[4, 17, 31]] = np.nan
     if case == "all_nan":
         corpus[:] = np.nan
     if case == "ties":
         corpus[100:200] = corpus[:100]         # exact duplicate rows
-    return (torch.from_numpy(qv).to(dev), torch.from_numpy(corpus).to(dev),
-            m, block)
+    if case == "inf_rows":
+        corpus[[3, 70, 71, 400]] = np.inf
+        corpus[[5, 250], 7] = -np.inf
+    if case == "neg_zero_rows":
+        # Each product of these rows underflows to a zero of its sign, so a
+        # score is -0 or +0 by the sign of its last product: ties by index.
+        qv = rng.choice(np.float32([-0.375, -0.25, -0.125, 0.125, 0.25,
+                                     0.375]), qv.shape)
+        tiny = np.float32(1.4e-45)
+        corpus[::3] = np.where(rng.random((len(corpus[::3]), f)) < 0.5,
+                               -tiny, tiny)
+    qt, ct = torch.from_numpy(qv).to(dev), torch.from_numpy(corpus).to(dev)
+    if case == "unaligned":                  # one float past 16 bytes
+        flat = torch.empty(ct.numel() + 1, device=dev)
+        flat[1:] = ct.reshape(-1)
+        ct = flat[1:].view(ct.shape)
+        assert ct.data_ptr() % 16 == 4
+    return qt, ct, m, block
 
 
 TOPM_CASES = ("small", "m1", "m_eq_n", "m_over_block", "nan_rows",
-              "all_nan", "ties", "main")
+              "all_nan", "ties", "main", "served_m_eq_n", "q1", "q65", "f4",
+              "f64", "inf_rows", "neg_zero_rows", "unaligned")
+#: cases on small-integer (dyadic) data and, for the NTN scan, weights of
+#: -1, 0 and 1: exact in float32, so even M = N is held index for index
+EXACT_TOPM_CASES = TOPM_CASES[8:]
 
 
 def _check_topm(got, want):
@@ -756,7 +788,14 @@ def test_topm_dot_kernel_matches_plain(cuda, case):
 @pytest.mark.parametrize("case", TOPM_CASES)
 def test_topm_ntn_kernel_matches_plain(cuda, case):
     qv, corpus, m, block = _topm_case(cuda, case)
-    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    f = qv.shape[1]
+    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG if f == 32
+                           else SimGNNConfig(gcn_dims=(64, f)))
+    if case in EXACT_TOPM_CASES:
+        p = {part: ({k: torch.sign(t) for k, t in p[part].items()}
+                    if part == "ntn" else
+                    [{k: torch.sign(t) for k, t in layer.items()}
+                     for layer in p[part]]) for part in ("ntn", "fcn")}
     uq, dq = (torch.from_numpy(x).to(cuda) for x in
               retrieval.collapse_query_ntn(p["ntn"], qv.cpu().numpy()))
     fcn = [{k: t.to(cuda) for k, t in layer.items()} for layer in p["fcn"]]
@@ -766,6 +805,37 @@ def test_topm_ntn_kernel_matches_plain(cuda, case):
     assert retrieval.blocked_topm_ntn.launches == before + 1
     _check_topm(got, retrieval.blocked_topm_ntn_plain(uq, dq, corpus, fcn,
                                                       min(m, len(corpus))))
+
+
+def test_topm_records_its_plan_and_runs_one_select_launch(cuda):
+    """The served shape runs the select route (one launch of clusters of 8,
+    no per-block lists), M = N the sort route; a select launch is the one
+    kernel `topm_select_kernel`, bit-identical to the sort route."""
+    qv, corpus, m, block = _topm_case(cuda, "main")
+    got = retrieval.blocked_topm(qv, corpus, m, block_cols=block)
+    plan = retrieval.blocked_topm.last_plan
+    assert plan.route == "select" and plan.cluster == 8
+    assert plan.grid == (128,) and plan.list_entries == 0
+    assert retrieval.max_clusters(plan, 32) >= 16
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        retrieval.blocked_topm(qv, corpus, m, block_cols=block)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0)) > 0]
+    assert [k for k in names if "topm" in k] and all(
+        "topm_select_kernel" in k for k in names if "topm" in k), names
+    sort = retrieval.topm_plan(64, 8192, 32, m, block,
+                               *retrieval.device_limits(0), route="sort")
+    want = [torch.empty_like(x) for x in got]
+    retrieval.launch(sort, qv.data_ptr(), corpus.data_ptr(), 64, 8192, 32,
+                     m, *want)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    retrieval.blocked_topm(qv[:1], corpus, 8192, block_cols=block)
+    assert retrieval.blocked_topm.last_plan.route == "sort"
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
