@@ -45,7 +45,10 @@ for SimGNN-AIDS, the warp route for the narrow F = 4 held in phase 3b),
 `topm` (the dot scan) each distinct (Q, N, M, block_cols) launch of the
 search phase with its plan (the select route at the served shape, the
 sort route at M = N), its profiler and CUDA-graph times and its bound,
-summed launch by launch, and `wkv6` at the decode shape
+summed launch by launch, `topm_ntn` (the NTN scan) at the served shape
+with its plan (the select route), its CUDA-graph time and a yardstick of
+the plain composition (einsum, the FCN's matmuls, `torch.topk`: not one
+call, so no `library_ms`), and `wkv6` at the decode shape
 (T 1) from events around a CUDA graph of back-to-back launches, with each
 `wkv6` call's plan printed, and `mamba_scan` at the Jamba block's decode
 step (T 1) the same way; each `sparse_pair`, `packed_pair` and
@@ -64,16 +67,17 @@ rest, one `fused_pair` launch at bucket 256); the kernels line records
 (`bit_identical`) whether `tools/sparse_pair_parent_check.py`,
 `tools/packed_pair_parent_check.py`, `tools/fused_pair_parent_check.py`,
 `tools/mamba_scan_parent_check.py`, `tools/simgnn_head_parent_check.py`
-and `tools/topm_parent_check.py`, where they ran before in the
-same checkout, found every case equal to the parent kernel's, and
-`simgnn_head`'s and `topm`'s entries their plan's route (`plan_route`);
+and `tools/topm_parent_check.py` (both scans), where they ran before in
+the same checkout, found every case equal to the parent kernel's, and
+`simgnn_head`'s, `topm`'s and `topm_ntn`'s entries their plan's route
+(`plan_route`);
 bounds come
 from this run's inputs against the
 H100 SXM peaks of 67 TFLOP/s float32 (989 TFLOP/s bf16 for the bf16
 expert FFN and the bf16 attention) and 3.35 TB/s. The build phase fails
 if `wkv6`, `fused_gcn`, `sparse_pair`, `fused_pair`, `mamba_scan`,
-`simgnn_head`, `packed_pair`'s cluster route or `topm`'s select route
-spills registers.
+`simgnn_head`, `packed_pair`'s cluster route or the select route of
+either top-M scan spills registers.
 Each phase prints its seconds.
 Details go to `chiprun_out/chip_smoke.json`. Needs a CUDA device; exits 2
 without one.
@@ -120,13 +124,15 @@ REPLACES = {
 SOURCE = {"topm": "retrieval", "topm_ntn": "retrieval"}
 #: profiler names of each kernel's launches where they are not
 #: `<name>_kernel`: fused_pair's and packed_pair's cluster route and their
-#: single route, simgnn_head's tiled route and its warp route, topm's
-#: select route and its sort route's two passes
+#: single route, simgnn_head's tiled route and its warp route, each top-M
+#: scan's select route and its sort route's two passes
 SYMBOLS = {"fused_pair": ("fused_pair_cluster_kernel", "fused_pair_kernel"),
            "packed_pair": ("packed_pair_cluster_kernel", "packed_pair_kernel"),
            "simgnn_head": ("simgnn_head_tiled_kernel", "simgnn_head_kernel"),
            "topm": ("topm_select_kernel", "topm_dot_block_kernel",
-                    "topm_merge_kernel")}
+                    "topm_merge_kernel"),
+           "topm_ntn": ("topm_ntn_select_kernel", "topm_ntn_block_kernel",
+                        "topm_merge_kernel")}
 #: the similarity-search phase: corpus rows, two-stage queries (one
 #: prefilter call), exact queries, shortlist and result depth, and the
 #: prefilter's column block (the default shard size, 256 rows).
@@ -264,14 +270,15 @@ def main() -> int:
                       for k, v in report["mamba_scan_registers"].items()))
     retrieval_log = (out_dir / "retrieval.log").read_text()
     report["topm_select_registers"] = _registers(
-        retrieval_log, r"topm_select_kernelILi(\d)ELi(\d+)E", _select_key)
+        retrieval_log, SELECT_KERNELS, _select_key)
     select_spills = _select_spills(retrieval_log)
-    print("topm select route registers (keys a lane, width): " + ", ".join(
-        f"{k} {v}" for k, v in report["topm_select_registers"].items())
-        + "; spill stores: " + ", ".join(
-            f"{k} {v} bytes" for k, v in select_spills.items()))
-    assert select_spills and not any(select_spills.values()), \
-        "topm's select route spills registers"
+    print("top-M select route registers (scan, keys a lane, width or "
+          "head): " + ", ".join(
+              f"{k} {v}" for k, v in report["topm_select_registers"].items())
+          + "; spill stores: " + ", ".join(
+              f"{k} {v} bytes" for k, v in select_spills.items()))
+    assert len(select_spills) == 16 and not any(select_spills.values()), \
+        "a top-M select route spills registers"
     report["simgnn_head_registers"] = _head_registers(
         (out_dir / "simgnn_head.log").read_text())
     print("simgnn_head registers by route (tiled: pairs a thread): "
@@ -692,17 +699,17 @@ def _sparse_plan_report(arrays, params) -> dict:
             "bit_identical": _parent_check("sparse_pair")}
 
 
-def _parent_check(name: str):
+def _parent_check(name: str, key: str = "equal"):
     """Where `tools/<name>_parent_check.py` ran before in this checkout,
-    whether every one of its cases was equal to the parent kernel's (None
-    when it did not run)."""
+    whether every one of its cases that records `key` was equal to the
+    parent kernel's (None when it did not run)."""
     check = ROOT / "chiprun_out" / f"{name}_parent.json"
     if not check.exists():
         return None
-    cases = json.loads(check.read_text())["cases"]
-    print(f"{name}: parent check {sum(c['equal'] for c in cases)} of "
-          f"{len(cases)} cases equal to the parent kernel's")
-    return all(c["equal"] for c in cases)
+    cases = [c for c in json.loads(check.read_text())["cases"] if key in c]
+    print(f"{name}: parent check {sum(c[key] for c in cases)} of "
+          f"{len(cases)} cases equal to the parent kernel's ({key})")
+    return bool(cases) and all(c[key] for c in cases)
 
 
 def _fused_launch_time(label, arrays, params) -> dict:
@@ -1196,8 +1203,7 @@ def search_kernels(params, narrow, corpus, queries, dev) -> dict:
         "topm_ntn": (lambda c, m, blk: retrieval.blocked_topm_ntn(
             uq, dq, c, fcn, m, block_cols=blk),
             lambda c, m: retrieval.blocked_topm_ntn_plain(uq, dq, c, fcn, m),
-            ("topm_ntn_block_kernel", "topm_merge_kernel"),
-            {"k": dq.shape[1], "fcn": fcn}),
+            SYMBOLS["topm_ntn"], {"k": dq.shape[1], "fcn": fcn}),
     }
     for name, (kern, plain, symbols, work) in scans.items():
         worst = 0.0
@@ -1218,27 +1224,41 @@ def search_kernels(params, narrow, corpus, queries, dev) -> dict:
         flops, nbytes = _topm_work(SEARCH_QUERIES, n, PREFILTER_M, f, **work)
         if work:
             nbytes += param_bytes({"fcn": fcn})
-        extra = {}
+        # The composition a later PR would race: not one call, so it is no
+        # `library_ms`; kept as a yardstick.
         if name == "topm":
-            # The composition a later PR would race: not one call, so it
-            # is no `library_ms`; kept as a yardstick.
-            extra["yardstick_topk_ms"] = time_cuda(
-                lambda: torch.topk(hq @ emb.T, PREFILTER_M, dim=1))
-            print(f"  topm yardstick torch.topk(qv @ corpus.T, M): "
-                  f"{extra['yardstick_topk_ms']:.4f} ms")
-            kern(emb, PREFILTER_M, BLOCK_COLS)
-            plan = retrieval.blocked_topm.last_plan
-            assert plan.route == "select" and plan.list_entries == 0, plan
-            held = retrieval.max_clusters(plan, f)
-            assert held * plan.cluster >= plan.grid[0], (plan, held)
-            extra.update(plan=plan.summary(), plan_route=plan.route,
-                         resident_clusters=held,
-                         graph_ms=time_cuda_graph(
-                             lambda: kern(emb, PREFILTER_M, BLOCK_COLS), 20),
-                         bit_identical=_parent_check("topm"))
-            print(f"  topm plan at the served shape: {plan.summary()} (the "
-                  f"card holds {held} clusters at once); CUDA graph "
-                  f"{extra['graph_ms']:.5f} ms a launch")
+            def yard():
+                return torch.topk(hq @ emb.T, PREFILTER_M, dim=1)
+            what = "torch.topk(qv @ corpus.T, M)"
+        else:
+            def yard():
+                x = torch.relu(torch.einsum(
+                    "qkf,nf->qnk", uq.view(len(uq), -1, f), emb)
+                    + dq[:, None, :])
+                for i, layer in enumerate(fcn):
+                    x = x @ layer["w"] + layer["b"]
+                    if i + 1 < len(fcn):
+                        x = torch.relu(x)
+                return torch.topk(x[..., 0], PREFILTER_M, dim=1)
+            what = "einsum, FCN matmuls, torch.topk"
+        extra = {"yardstick_ms": time_cuda(yard), "yardstick": what}
+        print(f"  {name} yardstick {what}: {extra['yardstick_ms']:.4f} ms")
+        kern(emb, PREFILTER_M, BLOCK_COLS)
+        plan = getattr(retrieval, "blocked_" + name).last_plan
+        assert plan.route == "select" and plan.list_entries == 0, plan
+        assert plan.scoring == ("dot" if name == "topm" else "ntn_served")
+        held = retrieval.max_clusters(plan, f)
+        assert held * plan.cluster >= plan.grid[0], (plan, held)
+        extra.update(plan=plan.summary(), plan_route=plan.route,
+                     resident_clusters=held,
+                     graph_ms=time_cuda_graph(
+                         lambda: kern(emb, PREFILTER_M, BLOCK_COLS), 20),
+                     bit_identical=_parent_check(
+                         "topm", "dot_equal" if name == "topm"
+                         else "ntn_equal"))
+        print(f"  {name} plan at the served shape: {plan.summary()} (the "
+              f"card holds {held} clusters at once); CUDA graph "
+              f"{extra['graph_ms']:.5f} ms a launch")
         out[name] = record(
             name, worst,
             *timings(lambda: kern(emb, PREFILTER_M, BLOCK_COLS),
@@ -2030,21 +2050,28 @@ def _entry_spills(log: str) -> dict:
     return out
 
 
+#: the select route's instantiations in a ptxas report: the dot scan's
+#: `topm_select_kernel<R, FX>` and the NTN scan's
+#: `topm_ntn_select_kernel<R, SERVED>`
+SELECT_KERNELS = (r"topm_(ntn_)?select_kernelILi(\d)EL([ib])(\d+)E")
+
+
 def _select_key(m) -> str:
-    """The key "R r F f|any" of a `topm_select_kernel<R, FX>` name
-    match."""
-    return f"R {m.group(1)} F {'any' if m.group(2) == '0' else m.group(2)}"
+    """The key "dot R r F f|any" or "ntn R r AIDS|any" of a select-route
+    kernel name match."""
+    if m.group(1):
+        return f"ntn R {m.group(2)} {'AIDS' if m.group(4) == '1' else 'any'}"
+    return f"dot R {m.group(2)} F {'any' if m.group(4) == '0' else m.group(4)}"
 
 
 def _select_spills(log: str) -> dict:
-    """Spill-store bytes of each `topm_select_kernel<R, FX>` instantiation
-    in the retrieval library's ptxas report, keyed as `_select_key`."""
+    """Spill-store bytes of each select-route instantiation in the
+    retrieval library's ptxas report, keyed as `_select_key`."""
     import re
 
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function "
-                      r"'.*topm_select_kernelILi(\d)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*" + SELECT_KERNELS, line)
         if m:
             name = _select_key(m)
         m = re.search(r"(\d+) bytes spill stores", line)

@@ -14,32 +14,39 @@
 // the float32 chain acc = fmaf(q[f], row[f], acc) over f = 0..F-1 from 0,
 // on every route.
 //
-// Two routes (kernels/retrieval.py `topm_plan` picks one a launch):
+// Two routes (kernels/retrieval.py `topm_plan` and `topm_ntn_plan` pick one a
+// launch):
 //
-//   * the select route (the dot scan, M <= TOPM_MAX_SELECT): one launch.
-//     A cluster of cs CTAs (cs <= 8) serves a group of TOPM_QB queries,
-//     each CTA a range of corpus chunks, double-buffered in shared memory:
-//     at F = 32 one TMA box a chunk (128-byte swizzle), else cp.async into
-//     rows padded to 4 mod 32 floats. Each thread scores four rows of a
-//     chunk against its query, held in registers. Selection follows the
-//     WarpSelect scheme of Johnson, Douze and Jegou ("Billion-scale
-//     similarity search with GPUs", 2017): a warp owns one query's sorted
-//     top-32R in registers (R keys a lane) and a queue in shared memory; a
-//     key enters the queue only if it comes before a bound on the query's
-//     M-th key, and 32 queued keys are sorted by rank and merged in by a
-//     bitonic merge over shuffles. The bound is the list's own M-th key or,
-//     once a chunk, the worst of the keys the cluster's warps of the query
-//     publish in shared memory (each its key ceil(M / 2cs) - 1, so the
-//     worst has M keys at or before it). The CTA's two warps of a query
-//     merge, each CTA pushes its lists into rank 0's shared memory through
-//     distributed shared memory, and rank 0 merges them and writes [Q, M].
-//     Nothing reaches global memory but the result.
-//   * the sort route (the NTN scan, and the dot scan at larger M): two
-//     passes. One CTA per (corpus column block, 8 queries) stores the
-//     block's keys in shared memory, sorts each query's keys with a
-//     bitonic network and writes the first min(M, block_cols) to
-//     per-block lists [Q, blocks, min(M, block_cols)]; a merge pass ranks
-//     each kept key by binary searches in the other lists.
+//   * the select route (M <= TOPM_MAX_SELECT): one launch, nothing in global
+//     memory but the result. A cluster of cs CTAs (cs <= 8) serves a group
+//     of qb <= TOPM_QB queries, each CTA a range of corpus chunks,
+//     double-buffered in shared memory: at F = 32 TMA boxes of up to 256
+//     rows (128-byte swizzle), else cp.async into rows padded to 4 mod 32
+//     floats. A scoring phase writes the chunk's filled scores into a
+//     shared score tile: the dot phase (four rows a thread against its
+//     query, held in registers) or the NTN phase (a lane's one or two
+//     staged rows in registers against a query's uq slices, read from
+//     shared memory as warp-wide broadcasts, the FCN stack in registers).
+//     Selection follows the WarpSelect scheme of Johnson, Douze and Jegou
+//     ("Billion-scale similarity search with GPUs", 2017): a warp owns one
+//     query's sorted top-32R in registers (R keys a lane) and a queue in
+//     shared memory; a key enters the queue only if it comes before a bound
+//     on the query's M-th key, and 32 queued keys are sorted by rank and
+//     merged in by a bitonic merge over shuffles; the W = 8 / qb warps of
+//     a query take its rows in turn. The bound is the list's own M-th key
+//     or, once a chunk, the worst of the keys the cluster's W cs warps of
+//     the query publish in shared memory (each its key ceil(M / W cs) - 1,
+//     so the worst has M keys at or before it). The CTA's W warps of a
+//     query merge pairwise, each CTA pushes its lists into rank 0's shared
+//     memory through distributed shared memory, and rank 0 merges them
+//     and writes [Q, M].
+//   * the sort route (M above TOPM_MAX_SELECT, layouts the select route
+//     cannot hold, NTN heads wider than its phase holds): two passes. One
+//     CTA per (corpus column block, 8 queries) stores the block's keys in
+//     shared memory, sorts each query's keys with a bitonic network and
+//     writes the first min(M, block_cols) to per-block lists [Q, blocks,
+//     min(M, block_cols)]; a merge pass ranks each kept key by binary
+//     searches in the other lists.
 //
 // What bounds it on this card: the dot scan does F = 32 MACs per (query,
 // row), under a microsecond of FMA issue at the served shape; what costs
@@ -48,7 +55,11 @@
 // bound is tight, no block barrier on a queue merge, and stages the next
 // chunk while the current one is scored. The NTN scan is bound by the
 // float32 FMA rate (about 680 MACs per (query, row) at F = 32, K = 16, FCN
-// 16-8-4-1).
+// 16-8-4-1): its phase keeps every operand of the chains in registers or
+// in shared-memory broadcasts (one 16-byte load feeds eight FMAs at two
+// rows a lane), and its plan sizes the grid so that the busiest SM holds
+// close to 1/132 of the work (at the served shape one query a CTA, a
+// cluster of 2 CTAs a query, one CTA an SM).
 #include "async_copy.cuh"
 #include "simgnn_common.cuh"
 
@@ -66,22 +77,26 @@ namespace cg = cooperative_groups;
 #define TOPM_NEG_FILL (-3.0e38f)
 
 #define TOPM_SEL_THREADS 256  // threads a CTA on the select route
-#define TOPM_QB 4             // queries a CTA (two warps each)
+#define TOPM_QB 4             // most queries a CTA (8 / qb warps each)
 #define TOPM_MAX_CS 8         // CTAs a cluster (the portable limit)
 #define TOPM_MAX_SELECT 256   // widest M the select route keeps (8 a lane)
 #define TOPM_QUEUE 64         // queue slots a warp
-#define TOPM_MAX_CHUNK 256    // rows staged at once (a thread's rows: 4)
+#define TOPM_MAX_CHUNK 256    // rows the dot phase stages at once (4 a thread)
+#define TOPM_NTN_MAX_CHUNK 512  // rows the NTN phase stages at once
+#define TOPM_BOX 256          // rows of a TMA box (the tensor map's limit)
+#define TOPM_NTN_HIDDEN 16    // widest FCN layer after K the NTN phase holds
 
 // Stage clocks, compiled in only by tools/topm_stages.py (which defines
 // TOPM_STAGES): thread 0 of each CTA sums clock64() cycles by stage into
 // TOPM_STAGE_SLOTS slots a CTA of the buffer the tool hands
 // topm_stage_buffers (slots 9 and 10: thread 0's cycles in queue drains
-// and their number; 14: the SM; 15: the global timer at the start); the
-// merge pass
-// records each CTA's first and last clock64() in two slots. The stage
-// build adds a barrier after each chunk's selection, so that its cycles
-// are not booked to the next chunk's wait.
-#define TOPM_STAGE_SLOTS 16
+// and their number; 14: the SM; 15: the global timer at the start; 16-19:
+// thread 0's cycles in the NTN phase's slices and first FCN layer, and in
+// the later FCN layers, each with its count); the merge pass records each
+// CTA's first and last clock64() in two slots. The stage build adds a
+// barrier after each chunk's selection, so that its cycles are not booked
+// to the next chunk's wait.
+#define TOPM_STAGE_SLOTS 20
 #ifdef TOPM_STAGES
 __device__ long long* topm_scan_stage_buf;
 __device__ long long* topm_merge_stage_buf;
@@ -109,12 +124,14 @@ extern "C" int topm_stage_buffers(long long* scan, long long* merge) {
       unsigned sm;                                                       \
       asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));                    \
       long long* b = topm_scan_stage_buf + (long long)(cta)*TOPM_STAGE_SLOTS; \
-      for (int k = 0; k < 14; ++k) b[k] = topm_d[k];                     \
+      for (int k = 0; k < TOPM_STAGE_SLOTS; ++k) b[k] = topm_d[k];       \
       b[14] = sm;                                                        \
-      b[15] = topm_d[15];                                                \
     }                                                                    \
   } while (0)
 #define TOPM_STAGE_SYNC() __syncthreads()
+// the stage sums, handed to a scoring phase
+#define TOPM_STAGE_PARAM , long long* topm_d
+#define TOPM_STAGE_ARG , topm_d
 #else
 #define TOPM_CLOCK_START() \
   do {                     \
@@ -128,6 +145,8 @@ extern "C" int topm_stage_buffers(long long* scan, long long* merge) {
 #define TOPM_STAGE_SYNC() \
   do {                    \
   } while (0)
+#define TOPM_STAGE_PARAM
+#define TOPM_STAGE_ARG
 #endif
 
 __device__ __forceinline__ bool topm_before(float sa, int ia, float sb,
@@ -656,7 +675,8 @@ __device__ __forceinline__ void tma_load_rows(float* dst,
 // ------------------------------------------------------- the select route
 
 // Shared layout and partition of a select-route launch, fixed by
-// kernels/retrieval.py `topm_plan` (offsets in 4-byte words).
+// kernels/retrieval.py `topm_plan` / `topm_ntn_plan` (offsets in 4-byte
+// words).
 struct TopmLayout {
   int chunk;          // corpus rows staged at once
   int ld;             // staged row stride (floats), 4 mod 32
@@ -664,6 +684,7 @@ struct TopmLayout {
   int cs;             // CTAs a cluster
   int per;            // chunks a CTA walks
   int r;              // keys a lane (list of 32r)
+  int qb;             // queries a CTA (1, 2 or TOPM_QB; the dot scan: 4)
   int stage_off[2];   // [chunk, ld] corpus rows, two buffers
   int sc_off;         // [TOPM_QB, lds] scores of the staged chunk
   int queue_off;      // [warps][TOPM_QUEUE] queued (score, index) pairs
@@ -671,8 +692,13 @@ struct TopmLayout {
   int bar_off;        // [2] mbarriers of the staged chunks, 64-bit each
   int list_off;       // [2][TOPM_QB][32r] half 1's list to half 0
   int gather_off;     // [2][cs][TOPM_QB][32r] the cluster's lists (rank 0)
+  int ntn_off;        // the NTN operands (topm_ntn_words; none for dot)
   int smem_words;
 };
+
+__host__ __device__ __forceinline__ int topm_ru4(int x) {
+  return (x + 3) & ~3;
+}
 
 extern "C" int topm_layout_size(void) { return (int)sizeof(TopmLayout); }
 
@@ -708,7 +734,8 @@ __device__ __forceinline__ void topm_stage_chunk(float* dst,
 
 // Stages chunk c (when below c_end) into `dst`. With `tma` (F = 32, the
 // corpus 16-byte aligned, the buffer 1024-byte aligned) thread 0 loads the
-// chunk as one box of the tensor map, unpadded rows with the 128-byte
+// chunk as boxes of the tensor map (min(chunk, TOPM_BOX) rows each,
+// 1024-byte aligned in the buffer), unpadded rows with the 128-byte
 // swizzle (16-byte piece k of row r at piece k ^ (r % 8); rows past N come
 // as zeros), counted on the mbarrier `bar`; else every thread issues
 // cp.async copies into padded rows and commits a group, also an empty one,
@@ -722,7 +749,8 @@ __device__ __forceinline__ void topm_issue(const float* __restrict__ corpus,
   if (tma) {
     if (threadIdx.x == 0 && c < c_end) {
       mbar_expect(bar, chunk * 32 * 4);
-      tma_load_rows(dst, map, c * chunk, bar);
+      for (int b = 0; b < chunk; b += TOPM_BOX)
+        tma_load_rows(dst + b * 32, map, c * chunk + b, bar);
     }
     return;
   }
@@ -800,33 +828,386 @@ __device__ __forceinline__ void topm_dots(
   } while (0)
 #endif
 
-// Grid: ceil(Q / TOPM_QB) clusters of L.cs CTAs. CTA `rank` of a cluster
-// walks chunks [rank * per, (rank + 1) * per) of the corpus. Thread t
-// scores rows t / 4 + 64 j of a chunk against query t % 4 (eight rows a
-// warp, so the padded rows' float4 reads hit distinct banks); warp w
-// selects for query w % 4 over the chunk's 32-row groups of parity w / 4.
-// From the second chunk on, a warp also filters with the bound that the
-// query's warps in the cluster publish (read through distributed shared
-// memory once a chunk). At the end the CTA's two
-// warps of a query merge, every CTA pushes its lists into rank 0's shared
-// memory before a cluster barrier, and rank 0 merges them and writes the
-// first M keys.
-template <int R, int FX>
-__global__ void __launch_bounds__(TOPM_SEL_THREADS, R <= 2 && FX ? 2 : 1)
-topm_select_kernel(const float* __restrict__ qv,
-                   const float* __restrict__ corpus, int Q, int N, int F,
-                   int M, float* __restrict__ out_s, int* __restrict__ out_i,
-                   TopmLayout L, const __grid_constant__ CUtensorMap map,
-                   int vec, int use_tma) {
+// --------------------------------------------------- the scoring phases
+//
+// The select route's body (topm_select_body) stages chunks, selects and
+// merges; a phase fills the score tile of each staged chunk. Its members:
+// kTma (rows may come by TMA: F = 32 at compile time), kPair (two CTAs an
+// SM at up to 2 keys a lane, by registers), queries() (a CTA's, TOPM_QB
+// at compile time for the dot scan), load() (the query side, once a CTA,
+// after the first copies are issued; the loop's first barrier makes
+// shared stores visible) and score() (all threads; scores of rows [0, n)
+// of the staged chunk for query sq at sc[sq * lds + row]).
+
+// The dot phase: thread t's four rows of a chunk against query t % 4.
+template <int FX>
+struct TopmDot {
+  static constexpr bool kTma = FX == 32;
+  static constexpr bool kPair = FX != 0;
+  const float* qv;
+  float q[FX ? FX : TOPM_FMAX];
+
+  __device__ __forceinline__ int queries(const TopmLayout&) const {
+    return TOPM_QB;
+  }
+
+  __device__ __forceinline__ void load(float*, const TopmLayout&, int q0,
+                                       int Q, int F) {
+    const int dq = threadIdx.x & (TOPM_QB - 1);
+#pragma unroll
+    for (int f = 0; f < (FX ? FX : TOPM_FMAX); ++f)
+      q[f] = (FX || f < F) && q0 + dq < Q
+                 ? __ldg(qv + (size_t)(q0 + dq) * F + f) : 0.0f;
+  }
+
+  __device__ __forceinline__ void score(const float* stage, int ld, bool swz,
+                                        int chunk, int n, int F, float* sc,
+                                        int lds TOPM_STAGE_PARAM) const {
+    topm_dots<FX>(q, stage, ld, swz, chunk, n, F,
+                  sc + (threadIdx.x & (TOPM_QB - 1)) * lds);
+  }
+};
+
+// The NTN scan's query side and FCN stack, as the launcher passes them.
+struct TopmNtnArgs {
+  const float* uq;                      // [Q, K, F]
+  const float* dq;                      // [Q, K]
+  const float* fcn_w[SIMGNN_MAX_FCN];   // [d_l, d_{l+1}]
+  const float* fcn_b[SIMGNN_MAX_FCN];   // [d_{l+1}]
+  int fcn_dims[SIMGNN_MAX_FCN + 1];     // K .. 1
+  int n_fcn;
+  int K;
+};
+
+// Words of the NTN phase's shared region: uq [qb][K][ru4(F)] (rows zero-
+// padded), dq [qb][K], then each FCN layer's W [d_l * d_{l+1}] and b
+// [d_{l+1}], every piece rounded up to 4 words.
+static long long topm_ntn_words(int qb, int K, int F, const int* dims,
+                                int n_fcn) {
+  long long words = (long long)qb * K * topm_ru4(F) + topm_ru4(qb * K);
+  for (int l = 0; l < n_fcn; ++l)
+    words += topm_ru4(dims[l] * dims[l + 1]) + topm_ru4(dims[l + 1]);
+  return words;
+}
+
+// The NTN phase: the exact pre-sigmoid NTN+FCN logit of each (query, row).
+// The query side (uq, dq) and the FCN weights are copied into shared
+// memory once a CTA. Work items are (query, group of 32 RT rows): warp w
+// takes items w, w + 8, ..., and its lanes hold RT rows each (loaded once
+// a group), so every uq, dq and weight read is one address for the whole
+// warp (a broadcast) and one 16-byte uq load feeds 4 RT FMAs.
+// A lane runs KB slices' chains at once and folds each slice's
+// activation into the first FCN layer's accumulators as it comes (layer
+// 1's chain for output o runs over the slices in order), so no
+// activation is stored. Each chain is the sort route's, op for op:
+// a_k = fmaf(uq[k][f], row[f], .) over f from 0, act_k = relu(a_k +
+// dq[k]), h_o = fmaf(act_k, W[k][o], .) over k from 0, then + b, relu but
+// on the last layer. SERVED is the SimGNN-AIDS head (F 32, K 16, FCN
+// 16-8-4-1) at compile time, two rows and eight slices' chains a lane;
+// else F <= 64, any K and FCN layers after K up to TOPM_NTN_HIDDEN wide,
+// one row and four chains a lane. Both take the register budget of one
+// CTA an SM (the plan spreads the CTAs one an SM): at up to 128 registers
+// the scheduler placed two on some SMs, and those SMs set the launch's
+// time. What bounds the phase is latency: a warp keeps four chains in
+// flight and waits on its uq loads, at eight warps an SM.
+template <bool SERVED>
+struct TopmNtn {
+  static constexpr bool kTma = SERVED;
+  static constexpr bool kPair = false;
+  static constexpr int RT = SERVED ? 2 : 1;       // rows a lane
+  static constexpr int FQ = SERVED ? 8 : TOPM_FMAX / 4;   // float4 a row
+  static constexpr int KB = SERVED ? 8 : 4;       // slices' chains at once
+  const TopmNtnArgs* a;
+  const float* us;      // [qb][K][FP]
+  const float* ds;      // [qb][K]
+  const float* fw;      // FCN W and b of each layer
+  int qb, K, FP;
+
+  __device__ __forceinline__ int queries(const TopmLayout& L) const {
+    return L.qb;
+  }
+
+  __device__ __forceinline__ void load(float* smem, const TopmLayout& L,
+                                       int q0, int Q, int F) {
+    qb = L.qb;
+    K = SERVED ? 16 : a->K;
+    FP = SERVED ? 32 : topm_ru4(F);
+    float* u = smem + L.ntn_off;
+    float* d = u + qb * K * FP;
+    float* w = d + topm_ru4(qb * K);
+    us = u;
+    ds = d;
+    fw = w;
+    const int t = threadIdx.x, kf = K * FP;
+    if (SERVED && ((uintptr_t)a->uq & 15) == 0) {
+      // [qb][16][32] as float4s: the query's rows are contiguous
+      for (int x = t; x < qb * kf / 4; x += TOPM_SEL_THREADS) {
+        const int q = x / (kf / 4);
+        reinterpret_cast<float4*>(u)[x] =
+            q0 + q < Q ? __ldg(reinterpret_cast<const float4*>(
+                             a->uq + (size_t)q0 * kf) + x)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    } else {
+      for (int x = t; x < qb * kf; x += TOPM_SEL_THREADS) {
+        const int q = x / kf, k = (x - q * kf) / FP, f = x - q * kf - k * FP;
+        u[x] = q0 + q < Q && f < F
+                   ? __ldg(a->uq + ((size_t)(q0 + q) * K + k) * F + f)
+                   : 0.0f;
+      }
+    }
+    for (int x = t; x < qb * K; x += TOPM_SEL_THREADS)
+      d[x] = q0 + x / K < Q ? __ldg(a->dq + (size_t)q0 * K + x) : 0.0f;
+#pragma unroll 1
+    for (int l = 0; l < a->n_fcn; ++l) {
+      const int din = a->fcn_dims[l], dout = a->fcn_dims[l + 1];
+      for (int x = t; x < din * dout; x += TOPM_SEL_THREADS)
+        w[x] = __ldg(a->fcn_w[l] + x);
+      w += topm_ru4(din * dout);
+      for (int x = t; x < dout; x += TOPM_SEL_THREADS)
+        w[x] = __ldg(a->fcn_b[l] + x);
+      w += topm_ru4(dout);
+    }
+  }
+
+  // The slices' chains and the first FCN layer's sums over the slices
+  // (the AIDS head: h [RT][8]).
+  __device__ __forceinline__ void aids_slices(
+      const float4 (&row)[RT][FQ], int sq, float (&h)[RT][8]) const {
+    constexpr int K = 16, FP = 32, H1 = 8;
+    const float* u = us + sq * K * FP;
+    const float* d = ds + sq * K;
+#pragma unroll
+    for (int j = 0; j < RT; ++j)
+#pragma unroll
+      for (int o = 0; o < H1; ++o) h[j][o] = 0.0f;
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += KB) {
+      float acc[RT][KB];
+#pragma unroll
+      for (int j = 0; j < RT; ++j)
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk) acc[j][kk] = 0.0f;
+#pragma unroll
+      for (int p = 0; p < FP / 4; ++p) {
+        float4 v[KB];
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk)
+          v[kk] = *reinterpret_cast<const float4*>(u + (k0 + kk) * FP + 4 * p);
+#pragma unroll
+        for (int kk = 0; kk < KB; ++kk)
+#pragma unroll
+          for (int j = 0; j < RT; ++j) {
+            acc[j][kk] = fmaf(v[kk].x, row[j][p].x, acc[j][kk]);
+            acc[j][kk] = fmaf(v[kk].y, row[j][p].y, acc[j][kk]);
+            acc[j][kk] = fmaf(v[kk].z, row[j][p].z, acc[j][kk]);
+            acc[j][kk] = fmaf(v[kk].w, row[j][p].w, acc[j][kk]);
+          }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+        const float dk = d[k0 + kk];
+        const float4 wa = *reinterpret_cast<const float4*>(fw + (k0 + kk) * H1);
+        const float4 wb =
+            *reinterpret_cast<const float4*>(fw + (k0 + kk) * H1 + 4);
+        const float wk[H1] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int j = 0; j < RT; ++j) {
+          const float act = simgnn_relu(acc[j][kk] + dk);
+#pragma unroll
+          for (int o = 0; o < H1; ++o) h[j][o] = fmaf(act, wk[o], h[j][o]);
+        }
+      }
+    }
+  }
+
+  // The AIDS head's FCN after the slices: layer 1's bias and relu, layers
+  // 2 (8 -> 4, relu) and 3 (4 -> 1).
+  __device__ __forceinline__ void aids_fcn(const float (&h)[RT][8],
+                                           float (&logit)[RT]) const {
+    constexpr int K = 16, H1 = 8, H2 = 4;
+    const float* b1 = fw + K * H1;
+    const float* w2 = b1 + H1;
+    const float* b2 = w2 + H1 * H2;
+    const float* w3 = b2 + H2;
+    const float* b3 = w3 + H2;
+#pragma unroll
+    for (int j = 0; j < RT; ++j) {
+      float x[H1], g[H2];
+#pragma unroll
+      for (int i = 0; i < H1; ++i) x[i] = simgnn_relu(h[j][i] + b1[i]);
+#pragma unroll
+      for (int o = 0; o < H2; ++o) {
+        float s = 0.0f;
+#pragma unroll
+        for (int i = 0; i < H1; ++i) s = fmaf(x[i], w2[i * H2 + o], s);
+        g[o] = simgnn_relu(s + b2[o]);
+      }
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < H2; ++i) s = fmaf(g[i], w3[i], s);
+      logit[j] = s + b3[0];
+    }
+  }
+
+  // The slices' chains and the first FCN layer's sums, any head (one row
+  // a lane; h [TOPM_NTN_HIDDEN], entries past d_1 stay 0).
+  __device__ __forceinline__ void any_slices(const float4 (&row)[RT][FQ],
+                                             int sq, int F,
+                                             float (&h)[TOPM_NTN_HIDDEN])
+      const {
+    const float* u = us + sq * K * FP;
+    const float* d = ds + sq * K;
+    const int d1 = a->fcn_dims[1];
+#pragma unroll
+    for (int o = 0; o < TOPM_NTN_HIDDEN; ++o) h[o] = 0.0f;
+#pragma unroll 1
+    for (int k0 = 0; k0 < K; k0 += KB) {
+      float acc[KB];
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) acc[kk] = 0.0f;
+#pragma unroll
+      for (int p = 0; p < FQ; ++p)
+        if (4 * p < F) {
+          float4 v[KB];
+#pragma unroll
+          for (int kk = 0; kk < KB; ++kk)
+            v[kk] = *reinterpret_cast<const float4*>(
+                u + min(k0 + kk, K - 1) * FP + 4 * p);
+#pragma unroll
+          for (int kk = 0; kk < KB; ++kk)
+            acc[kk] = fmaf(v[kk].x, row[0][p].x, acc[kk]);
+          if (4 * p + 1 < F)
+#pragma unroll
+            for (int kk = 0; kk < KB; ++kk)
+              acc[kk] = fmaf(v[kk].y, row[0][p].y, acc[kk]);
+          if (4 * p + 2 < F)
+#pragma unroll
+            for (int kk = 0; kk < KB; ++kk)
+              acc[kk] = fmaf(v[kk].z, row[0][p].z, acc[kk]);
+          if (4 * p + 3 < F)
+#pragma unroll
+            for (int kk = 0; kk < KB; ++kk)
+              acc[kk] = fmaf(v[kk].w, row[0][p].w, acc[kk]);
+        }
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk)
+        if (k0 + kk < K) {
+          const float act = simgnn_relu(acc[kk] + d[k0 + kk]);
+          const float* wk = fw + (k0 + kk) * d1;
+#pragma unroll
+          for (int o = 0; o < TOPM_NTN_HIDDEN; ++o)
+            if (o < d1) h[o] = fmaf(act, wk[o], h[o]);
+        }
+    }
+  }
+
+  // Any head's FCN after the slices: layer 1's bias (relu but on the last
+  // layer), then layers 2.. from registers; the logit is h[0].
+  __device__ __forceinline__ float any_fcn(float (&h)[TOPM_NTN_HIDDEN]) const {
+    const int n_fcn = a->n_fcn, d1 = a->fcn_dims[1];
+    const float* w = fw + topm_ru4(K * d1);
+#pragma unroll
+    for (int o = 0; o < TOPM_NTN_HIDDEN; ++o)
+      if (o < d1) {
+        const float s = h[o] + w[o];
+        h[o] = n_fcn > 1 ? simgnn_relu(s) : s;
+      }
+    w += topm_ru4(d1);
+#pragma unroll 1
+    for (int l = 1; l < n_fcn; ++l) {
+      const int din = a->fcn_dims[l], dout = a->fcn_dims[l + 1];
+      const float* b = w + topm_ru4(din * dout);
+      float nx[TOPM_NTN_HIDDEN];
+#pragma unroll
+      for (int o = 0; o < TOPM_NTN_HIDDEN; ++o) {
+        nx[o] = 0.0f;
+        if (o < dout) {
+          float s = 0.0f;
+#pragma unroll
+          for (int i = 0; i < TOPM_NTN_HIDDEN; ++i)
+            if (i < din) s = fmaf(h[i], w[i * dout + o], s);
+          s += b[o];
+          nx[o] = l + 1 < n_fcn ? simgnn_relu(s) : s;
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < TOPM_NTN_HIDDEN; ++o) h[o] = nx[o];
+      w = b + topm_ru4(dout);
+    }
+    return h[0];
+  }
+
+  __device__ __forceinline__ void score(const float* stage, int ld, bool swz,
+                                        int chunk, int n, int F, float* sc,
+                                        int lds TOPM_STAGE_PARAM) const {
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int groups = (chunk + 32 * RT - 1) / (32 * RT);
+    float4 row[RT][FQ];
+    int have = -1;
+    for (int it = w; it < qb * groups; it += TOPM_SEL_THREADS / 32) {
+      const int g = it % groups, sq = it / groups;
+      if (g != have) {
+        have = g;
+        // row 32 (RT g + j) + lane, clamped for the reads; with `swz` the
+        // TMA route's swizzled rows (stride 32)
+#pragma unroll
+        for (int j = 0; j < RT; ++j) {
+          const int r = min(32 * (RT * g + j) + lane, chunk - 1);
+          const int x = swz ? r & 7 : 0;
+#pragma unroll
+          for (int p = 0; p < FQ; ++p)
+            if (SERVED || 4 * p < F)
+              row[j][p] = *reinterpret_cast<const float4*>(
+                  stage + r * ld + 4 * (p ^ x));
+        }
+      }
+      float logit[RT];
+      if constexpr (SERVED) {
+        float h[RT][8];
+        TOPM_SPAN(16, aids_slices(row, sq, h));
+        TOPM_SPAN(18, aids_fcn(h, logit));
+      } else {
+        float h[TOPM_NTN_HIDDEN];
+        TOPM_SPAN(16, any_slices(row, sq, F, h));
+        TOPM_SPAN(18, logit[0] = any_fcn(h));
+      }
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        const int r = 32 * (RT * g + j) + lane;
+        if (r < n) sc[sq * lds + r] = topm_fill(logit[j]);
+      }
+    }
+  }
+};
+
+// The select route's body. Grid: ceil(Q / qb) clusters of L.cs CTAs, each
+// cluster a group of qb queries (1, 2 or 4). CTA `rank` of a cluster walks
+// chunks [rank * per, (rank + 1) * per) of the corpus; the phase scores
+// each staged chunk into the score tile; the W = 8 / qb warps of query
+// w % qb select over the chunk's 32-row groups, warp w those of index
+// w / qb mod W. From the second chunk on, a warp also filters with the
+// bound that the query's warps in the cluster publish (read through
+// distributed shared memory once a chunk). At the end the CTA's W warps
+// of a query merge pairwise, every CTA pushes its lists into rank 0's
+// shared memory before a cluster barrier, and rank 0 merges them and
+// writes the first M keys.
+template <int R, class Phase>
+__device__ __forceinline__ void topm_select_body(
+    Phase& ph, const float* __restrict__ corpus, int Q, int N, int F, int M,
+    float* __restrict__ out_s, int* __restrict__ out_i, const TopmLayout& L,
+    const CUtensorMap* map, int vec, int use_tma) {
   constexpr int KP = 32 * R;
   extern __shared__ __align__(16) float smem[];
   TOPM_CLOCK_START();
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  const int q0 = (int)(blockIdx.x / L.cs) * TOPM_QB;
+  const int qb = ph.queries(L);
+  const int q0 = (int)(blockIdx.x / L.cs) * qb;
 
-  const int chunk = L.chunk, ld = L.ld, lds = L.lds, cs = L.cs;
+  const int chunk = L.chunk, ld = L.ld, lds = L.lds;
+  const int cs = min(L.cs, TOPM_MAX_CS);
   const int nchunks = (N + chunk - 1) / chunk;
   const int c_begin = rank * L.per;
   const int c_end = min(c_begin + L.per, nchunks);
@@ -839,7 +1220,7 @@ topm_select_kernel(const float* __restrict__ qv,
 
   // The TMA route where the launcher built a tensor map (F = 32) and both
   // buffers sit on the swizzle's 1024-byte boundary.
-  const bool tma = FX == 32 && use_tma &&
+  const bool tma = Phase::kTma && use_tma &&
                    ((topm_smem(stage0) | topm_smem(stage1)) & 1023) == 0;
   const int row_ld = tma ? 32 : ld;
   if (tma) {
@@ -857,29 +1238,25 @@ topm_select_kernel(const float* __restrict__ qv,
   if (lane == 0)
     *(volatile unsigned long long*)(thr + w) = key_pack(topm_sentinel());
   cluster_arrive();
-  topm_issue(corpus, &map, c_begin, c_end, chunk, N, F, ld, vec, tma, stage0,
+  topm_issue(corpus, map, c_begin, c_end, chunk, N, F, ld, vec, tma, stage0,
              bar);
-  topm_issue(corpus, &map, c_begin + 1, c_end, chunk, N, F, ld, vec, tma,
+  topm_issue(corpus, map, c_begin + 1, c_end, chunk, N, F, ld, vec, tma,
              stage1, bar + 1);
   TOPM_LAP(12);
 
-  // the dot phase's query, in registers
-  const int dq = t & (TOPM_QB - 1);
-  float qreg[FX ? FX : TOPM_FMAX];
-#pragma unroll
-  for (int f = 0; f < (FX ? FX : TOPM_FMAX); ++f)
-    qreg[f] = (FX || f < F) && q0 + dq < Q
-                  ? __ldg(qv + (size_t)(q0 + dq) * F + f) : 0.0f;
+  ph.load(smem, L, q0, Q, F);
 
-  const int sq = w & (TOPM_QB - 1), half = w / TOPM_QB;
+  // Warp w selects for query sq = w % qb, part w / qb of its W warps.
+  const int W = TOPM_SEL_THREADS / 32 / qb;
+  const int sq = w % qb, part = w / qb;
   const bool sq_live = q0 + sq < Q;
   WarpTopM<R> sel;
   sel.init(M);
   // The filter threshold: the list's own key M - 1, or a bound the
-  // cluster's 2 cs warps of the query give together: each publishes its
-  // key `pub` = ceil(M / (2 cs)) - 1, so the worst of their published keys
+  // cluster's W cs warps of the query give together: each publishes its
+  // key `pub` = ceil(M / (W cs)) - 1, so the worst of their published keys
   // has at least M keys at or before it.
-  const int pub = (M + 2 * cs - 1) / (2 * cs) - 1;
+  const int pub = (M + W * cs - 1) / (W * cs) - 1;
   TopmKey ft = topm_sentinel();
   int cnt = 0;
   bool joined = false;
@@ -892,10 +1269,10 @@ topm_select_kernel(const float* __restrict__ qv,
     __syncthreads();
     TOPM_LAP(1);
     const int r0 = c * chunk, n = min(chunk, N - r0);
-    topm_dots<FX>(qreg, stage, row_ld, tma, chunk, n, F, sc + dq * lds);
+    ph.score(stage, row_ld, tma, chunk, n, F, sc, lds TOPM_STAGE_ARG);
     __syncthreads();
     TOPM_LAP(2);
-    topm_issue(corpus, &map, c + 2, c_end, chunk, N, F, ld, vec, tma, stage,
+    topm_issue(corpus, map, c + 2, c_end, chunk, N, F, ld, vec, tma, stage,
                bar + (use & 1));
     TOPM_LAP(11);
     if (c > c_begin) {
@@ -904,19 +1281,23 @@ topm_select_kernel(const float* __restrict__ qv,
         joined = true;
       }
       if (sq_live) {
-        // lane l reads warp sq + 4 (l & 1) of rank l / 2; the worst of
-        // the 2 cs keys bounds the query (a stale key bounds it too)
+        // entry e (lane, lane + 32) is warp sq + qb (e % W) of rank e / W;
+        // the worst of the W cs keys bounds the query (a stale key bounds
+        // it too)
         TopmKey o = topm_first();
-        if (lane < 2 * cs)
-          o = key_unpack(*(volatile unsigned long long*)cluster.map_shared_rank(
-              thr + sq + TOPM_QB * (lane & 1), lane >> 1));
+        for (int e = lane; e < W * cs; e += 32) {
+          const TopmKey x = key_unpack(
+              *(volatile unsigned long long*)cluster.map_shared_rank(
+                  thr + sq + qb * (e % W), e / W));
+          if (key_before(o, x)) o = x;
+        }
         o = warp_worst(o);
         if (key_before(o, ft)) ft = o;
       }
     }
     TOPM_LAP(8);
     if (sq_live) {
-      for (int g = 32 * half; g < n; g += 64) {
+      for (int g = 32 * part; g < n; g += 32 * W) {
         const int r = g + lane;
         const bool real = r < n;
         const TopmKey k{real ? sc[sq * lds + r] : 0.0f, r0 + r};
@@ -941,21 +1322,26 @@ topm_select_kernel(const float* __restrict__ qv,
   }
   TOPM_LAP(4);
 
-  // The CTA's two warps of a query merge; half 0 pushes the CTA's list
-  // into rank 0's gather buffer (rank 0 keeps its own in registers).
-  float* ls = smem + L.list_off + sq * KP;
-  int* li = (int*)(smem + L.list_off + TOPM_QB * KP) + sq * KP;
+  // The query's W warps merge pairwise (at level d, part p + d's list
+  // into part p, through one of the query's W / 2 list slots); part 0
+  // pushes the CTA's list into rank 0's gather buffer (rank 0 keeps its
+  // own in registers).
+  const int slots = W / 2;
   float* gs = smem + L.gather_off + (rank * TOPM_QB + sq) * KP;
   int* gi = (int*)(smem + L.gather_off + cs * TOPM_QB * KP) +
             (rank * TOPM_QB + sq) * KP;
-  if (half == 1) sel.store(ls, li, lane);
-  __syncthreads();
-  if (half == 0 && sq_live) {
-    sel.merge(ls, li, lane);
-    if (rank > 0)
-      sel.store(cluster.map_shared_rank(gs, 0), cluster.map_shared_rank(gi, 0),
-                lane);
+  for (int d = slots; d >= 1; d >>= 1) {
+    const int slot = sq * slots + (part & (d - 1));
+    float* ls = smem + L.list_off + slot * KP;
+    int* li = (int*)(smem + L.list_off + TOPM_QB * KP) + slot * KP;
+    if (d < slots) __syncthreads();
+    if (sq_live && part >= d && part < 2 * d) sel.store(ls, li, lane);
+    __syncthreads();
+    if (sq_live && part < d) sel.merge(ls, li, lane);
   }
+  if (part == 0 && sq_live && rank > 0)
+    sel.store(cluster.map_shared_rank(gs, 0), cluster.map_shared_rank(gi, 0),
+              lane);
   TOPM_LAP(5);
   cluster_arrive();
   cluster_wait();
@@ -965,48 +1351,89 @@ topm_select_kernel(const float* __restrict__ qv,
     return;
   }
 
-  // Rank 0: its half-0 warps merge the lists of ranks 2, 4 and 6 into its
-  // own, its half-1 warps those of ranks 3, 5 and 7 into rank 1's; then
-  // the halves merge and the first M keys go out.
+  // Rank 0: part p < P = min(W, cs) of a query merges the lists of ranks
+  // p, p + P, ... (part 0 holds rank 0's); then the P parts merge
+  // pairwise as above and part 0 writes the first M keys.
   const int stride = TOPM_QB * KP;
-  if (sq_live && half < cs) {
-    if (half == 1) sel.load(gs + stride, gi + stride, lane);
-    for (int p = half + 2; p < cs; p += 2)
+  const int P = W < cs ? W : cs;
+  if (sq_live && part < P) {
+    if (part > 0) sel.load(gs + part * stride, gi + part * stride, lane);
+    for (int p = part + P; p < cs; p += P)
       sel.merge(gs + p * stride, gi + p * stride, lane);
-    if (half == 1) sel.store(ls, li, lane);
   }
-  __syncthreads();
-  if (sq_live && half == 0) {
-    if (cs > 1) sel.merge(ls, li, lane);
+  for (int d = P / 2; d >= 1; d >>= 1) {
+    const int slot = sq * slots + (part & (d - 1));
+    float* ls = smem + L.list_off + slot * KP;
+    int* li = (int*)(smem + L.list_off + TOPM_QB * KP) + slot * KP;
+    if (d < P / 2) __syncthreads();
+    if (sq_live && part >= d && part < 2 * d) sel.store(ls, li, lane);
+    __syncthreads();
+    if (sq_live && part < d) sel.merge(ls, li, lane);
+  }
+  if (sq_live && part == 0)
     sel.write(out_s + (size_t)(q0 + sq) * M, out_i + (size_t)(q0 + sq) * M,
               M, lane);
-  }
   TOPM_LAP(7);
   TOPM_CLOCK_END(blockIdx.x);
 }
 
-static bool topm_layout_ok(const TopmLayout* L, int N, int F, int M) {
+template <int R, int FX>
+__global__ void __launch_bounds__(TOPM_SEL_THREADS,
+                                  R <= 2 && TopmDot<FX>::kPair ? 2 : 1)
+topm_select_kernel(const float* __restrict__ qv,
+                   const float* __restrict__ corpus, int Q, int N, int F,
+                   int M, float* __restrict__ out_s, int* __restrict__ out_i,
+                   TopmLayout L, const __grid_constant__ CUtensorMap map,
+                   int vec, int use_tma) {
+  TopmDot<FX> ph;
+  ph.qv = qv;
+  topm_select_body<R>(ph, corpus, Q, N, F, M, out_s, out_i, L, &map, vec,
+                      use_tma);
+}
+
+template <int R, bool SERVED>
+__global__ void __launch_bounds__(TOPM_SEL_THREADS,
+                                  R <= 2 && TopmNtn<SERVED>::kPair ? 2 : 1)
+topm_ntn_select_kernel(const __grid_constant__ TopmNtnArgs a,
+                       const float* __restrict__ corpus, int Q, int N, int F,
+                       int M, float* __restrict__ out_s,
+                       int* __restrict__ out_i, TopmLayout L,
+                       const __grid_constant__ CUtensorMap map, int vec,
+                       int use_tma) {
+  TopmNtn<SERVED> ph;
+  ph.a = &a;
+  topm_select_body<R>(ph, corpus, Q, N, F, M, out_s, out_i, L, &map, vec,
+                      use_tma);
+}
+
+// Whether a plan's layout fits the scan: its partition covers the corpus
+// and each buffer (the NTN region of `ntn_words`, 0 for the dot scan)
+// starts 16-byte aligned inside the launch's shared memory.
+static bool topm_layout_ok(const TopmLayout* L, int N, int F, int M,
+                           int max_chunk, long long ntn_words) {
   const int kp = 32 * L->r;
   if ((L->r != 1 && L->r != 2 && L->r != 4 && L->r != 8) || M > kp ||
       (L->r > 1 && M <= kp / 2))
     return false;
-  if (L->chunk < 1 || L->chunk > TOPM_MAX_CHUNK || L->ld < ((F + 3) & ~3) ||
+  if (L->chunk < 1 || L->chunk > max_chunk || L->ld < ((F + 3) & ~3) ||
       L->ld % 4 != 0 || L->lds < L->chunk || L->cs < 1 ||
       L->cs > TOPM_MAX_CS || (L->cs & (L->cs - 1)) != 0 || L->per < 1 ||
-      (long long)L->cs * L->per * L->chunk < N)
+      (long long)L->cs * L->per * L->chunk < N ||
+      (L->qb != 1 && L->qb != 2 && L->qb != TOPM_QB))
     return false;
-  const int start[8] = {L->stage_off[0], L->stage_off[1], L->sc_off,
+  const int start[9] = {L->stage_off[0], L->stage_off[1], L->sc_off,
                         L->queue_off,    L->thr_off,      L->bar_off,
-                        L->list_off,     L->gather_off};
-  const int words[8] = {L->chunk * L->ld,
-                        L->chunk * L->ld,
-                        TOPM_QB * L->lds,
-                        (TOPM_SEL_THREADS / 32) * 2 * TOPM_QUEUE,  // pairs
-                        (TOPM_SEL_THREADS / 32) * 2,
-                        4,
-                        2 * TOPM_QB * kp,
-                        2 * L->cs * TOPM_QB * kp};
-  for (int a = 0; a < 8; ++a)
+                        L->list_off,     L->gather_off,   L->ntn_off};
+  const long long words[9] = {L->chunk * L->ld,
+                              L->chunk * L->ld,
+                              TOPM_QB * L->lds,
+                              (TOPM_SEL_THREADS / 32) * 2 * TOPM_QUEUE,
+                              (TOPM_SEL_THREADS / 32) * 2,
+                              4,
+                              2 * TOPM_QB * kp,
+                              2 * L->cs * TOPM_QB * kp,
+                              ntn_words};
+  for (int a = 0; a < 9; ++a)
     if (start[a] < 0 || start[a] % 4 != 0 ||
         start[a] + words[a] > L->smem_words)
       return false;
@@ -1016,6 +1443,9 @@ static bool topm_layout_ok(const TopmLayout* L, int N, int F, int M) {
 typedef void (*TopmSelectKernel)(const float*, const float*, int, int, int,
                                  int, float*, int*, TopmLayout, CUtensorMap,
                                  int, int);
+typedef void (*TopmNtnSelectKernel)(TopmNtnArgs, const float*, int, int, int,
+                                    int, float*, int*, TopmLayout,
+                                    CUtensorMap, int, int);
 
 typedef CUresult (*TopmEncodeTiled)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -1040,16 +1470,17 @@ static TopmEncodeTiled topm_encoder() {
   return fn;
 }
 
-// The TMA route's tensor map of a [N, 32] float32 corpus: boxes of `chunk`
-// rows, the 128-byte swizzle, rows past N read as zeros. False where it
-// cannot be built.
+// The TMA route's tensor map of a [N, 32] float32 corpus: boxes of
+// min(chunk, TOPM_BOX) rows, the 128-byte swizzle, rows past N read as
+// zeros. False where it cannot be built (or a chunk is not whole boxes).
 static bool topm_tensor_map(CUtensorMap* map, const float* corpus, int N,
                             int chunk) {
   const TopmEncodeTiled enc = topm_encoder();
-  if (!enc || chunk > 256) return false;
+  const int rows = chunk < TOPM_BOX ? chunk : TOPM_BOX;
+  if (!enc || chunk % rows != 0) return false;
   const cuuint64_t dims[2] = {32, (cuuint64_t)N};
   const cuuint64_t strides[1] = {32 * sizeof(float)};
-  const cuuint32_t box[2] = {32, (cuuint32_t)chunk};
+  const cuuint32_t box[2] = {32, (cuuint32_t)rows};
   const cuuint32_t elem[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)corpus, dims,
              strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1068,6 +1499,20 @@ static TopmSelectKernel topm_select_kernel_for(int r, int F) {
   }
 }
 
+// The NTN instantiation for R keys a lane: the AIDS head compiled, or any.
+static TopmNtnSelectKernel topm_ntn_kernel_for(int r, bool served) {
+  switch (r) {
+    case 1: return served ? topm_ntn_select_kernel<1, true>
+                          : topm_ntn_select_kernel<1, false>;
+    case 2: return served ? topm_ntn_select_kernel<2, true>
+                          : topm_ntn_select_kernel<2, false>;
+    case 4: return served ? topm_ntn_select_kernel<4, true>
+                          : topm_ntn_select_kernel<4, false>;
+    default: return served ? topm_ntn_select_kernel<8, true>
+                           : topm_ntn_select_kernel<8, false>;
+  }
+}
+
 static cudaLaunchConfig_t topm_cluster_config(int cs, int ctas, size_t smem,
                                               cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
@@ -1083,44 +1528,120 @@ static cudaLaunchConfig_t topm_cluster_config(int cs, int ctas, size_t smem,
   return cfg;
 }
 
-// The select route: out [Q, M] scores and indices in one launch.
-extern "C" int topm_select_launch(const float* qv, const float* corpus, int Q,
-                                  int N, int F, int M, float* out_s,
-                                  int* out_i, const TopmLayout* L,
-                                  void* stream) {
-  if (Q <= 0 || N <= 0 || F <= 0 || F > TOPM_FMAX || M <= 0 || M > N ||
-      M > TOPM_MAX_SELECT || !topm_layout_ok(L, N, F, M) ||
-      ((long long)Q + TOPM_QB - 1) / TOPM_QB * L->cs > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  const TopmSelectKernel kern = topm_select_kernel_for(L->r, F);
+// One select-route launch of `kern`, either scan's instantiation (`first`:
+// the dot scan's qv, or the NTN scan's TopmNtnArgs): ceil(Q / qb)
+// clusters of cs CTAs; rows staged by TMA where `tma_ok` (F = 32 compiled
+// in), F = 32 and the corpus is 16-byte aligned.
+template <class Kern, class First>
+static int topm_select(Kern kern, const First& first, const float* corpus,
+                       int Q, int N, int F, int M, float* out_s, int* out_i,
+                       const TopmLayout* L, bool tma_ok, void* stream) {
   const size_t smem = (size_t)L->smem_words * 4;
   cudaError_t err = simgnn_set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = topm_cluster_config(
-      L->cs, (int)(((long long)Q + TOPM_QB - 1) / TOPM_QB * L->cs), smem,
-      attr);
+      L->cs, (int)(((long long)Q + L->qb - 1) / L->qb * L->cs), smem, attr);
   cfg.stream = (cudaStream_t)stream;
   const int vec = F % 4 == 0 && ((uintptr_t)corpus & 15) == 0;
   CUtensorMap map;
   memset(&map, 0, sizeof(map));
-  const int tma = F == 32 && vec && topm_tensor_map(&map, corpus, N, L->chunk);
-  err = cudaLaunchKernelEx(&cfg, kern, qv, corpus, Q, N, F, M, out_s, out_i,
-                           *L, map, vec, tma);
+  const int tma = tma_ok && F == 32 && vec &&
+                  topm_tensor_map(&map, corpus, N, L->chunk);
+  err = cudaLaunchKernelEx(&cfg, kern, first, corpus, Q, N, F, M, out_s,
+                           out_i, *L, map, vec, tma);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Clusters of `cs` select-route CTAs (R keys a lane, width F, `smem_bytes`
-// of dynamic shared memory) the current device holds at once.
-extern "C" int topm_max_clusters(int r, int F, int cs, int smem_bytes,
-                                 int* clusters) {
-  const TopmSelectKernel kern = topm_select_kernel_for(r, F);
+static bool topm_select_shapes_ok(int Q, int N, int F, int M,
+                                  const TopmLayout* L, int max_chunk,
+                                  long long ntn_words) {
+  return Q > 0 && N > 0 && F > 0 && F <= TOPM_FMAX && M > 0 && M <= N &&
+         M <= TOPM_MAX_SELECT &&
+         topm_layout_ok(L, N, F, M, max_chunk, ntn_words) &&
+         ((long long)Q + L->qb - 1) / L->qb * L->cs <= INT_MAX;
+}
+
+// The dot scan's select route: out [Q, M] scores and indices in one launch.
+extern "C" int topm_select_launch(const float* qv, const float* corpus, int Q,
+                                  int N, int F, int M, float* out_s,
+                                  int* out_i, const TopmLayout* L,
+                                  void* stream) {
+  if (!topm_select_shapes_ok(Q, N, F, M, L, TOPM_MAX_CHUNK, 0))
+    return (int)cudaErrorInvalidValue;
+  return topm_select(topm_select_kernel_for(L->r, F), qv, corpus, Q, N, F, M,
+                     out_s, out_i, L, true, stream);
+}
+
+// An NTN head: K slices and an FCN stack from K to 1, every width 1 to
+// SIMGNN_MAX_HEAD.
+static bool topm_ntn_head_ok(int K, const SimgnnParams* P) {
+  if (K < 1 || P->n_fcn < 1 || P->n_fcn > SIMGNN_MAX_FCN ||
+      P->fcn_dims[0] != K || P->fcn_dims[P->n_fcn] != 1)
+    return false;
+  for (int l = 0; l <= P->n_fcn; ++l)
+    if (P->fcn_dims[l] < 1 || P->fcn_dims[l] > SIMGNN_MAX_HEAD) return false;
+  return true;
+}
+
+// The SimGNN-AIDS head (F 32, K 16, FCN 16-8-4-1), compiled in.
+static bool topm_ntn_served(int F, int K, const SimgnnParams* P) {
+  return F == 32 && K == 16 && P->n_fcn == 3 && P->fcn_dims[1] == 8 &&
+         P->fcn_dims[2] == 4 && P->fcn_dims[3] == 1;
+}
+
+// The NTN scan's select route: the NTN phase holds the AIDS head, or FCN
+// layers after K up to TOPM_NTN_HIDDEN wide.
+extern "C" int topm_ntn_select_launch(const float* uq, const float* dq,
+                                      const float* corpus, int Q, int N,
+                                      int F, int K, int M, float* out_s,
+                                      int* out_i, const SimgnnParams* P,
+                                      const TopmLayout* L, void* stream) {
+  if (!topm_ntn_head_ok(K, P)) return (int)cudaErrorInvalidValue;
+  const bool served = topm_ntn_served(F, K, P);
+  for (int l = 1; l <= P->n_fcn; ++l)
+    if (!served && P->fcn_dims[l] > TOPM_NTN_HIDDEN)
+      return (int)cudaErrorInvalidValue;
+  if (!topm_select_shapes_ok(
+          Q, N, F, M, L, TOPM_NTN_MAX_CHUNK,
+          topm_ntn_words(L->qb, K, F, P->fcn_dims, P->n_fcn)))
+    return (int)cudaErrorInvalidValue;
+  TopmNtnArgs a;
+  memset(&a, 0, sizeof(a));
+  a.uq = uq;
+  a.dq = dq;
+  for (int l = 0; l < P->n_fcn; ++l) {
+    a.fcn_w[l] = P->fcn_w[l];
+    a.fcn_b[l] = P->fcn_b[l];
+  }
+  for (int l = 0; l <= P->n_fcn; ++l) a.fcn_dims[l] = P->fcn_dims[l];
+  a.n_fcn = P->n_fcn;
+  a.K = K;
+  return topm_select(topm_ntn_kernel_for(L->r, served), a, corpus, Q, N, F,
+                     M, out_s, out_i, L, served, stream);
+}
+
+template <class Kern>
+static int topm_occupancy(Kern kern, int cs, int smem_bytes, int* clusters) {
   cudaError_t err = simgnn_set_smem(kern, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = topm_cluster_config(cs, cs, smem_bytes, attr);
   return (int)cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+}
+
+// Clusters of `cs` select-route CTAs with `smem_bytes` of dynamic shared
+// memory the current device holds at once: the dot scan's instantiation
+// (head 0: R keys a lane, width F) or the NTN scan's (head 1: any head,
+// 2: the AIDS head).
+extern "C" int topm_max_clusters(int r, int F, int head, int cs,
+                                 int smem_bytes, int* clusters) {
+  if (head == 0)
+    return topm_occupancy(topm_select_kernel_for(r, F), cs, smem_bytes,
+                          clusters);
+  return topm_occupancy(topm_ntn_kernel_for(r, head == 2), cs, smem_bytes,
+                        clusters);
 }
 
 // ------------------------------------------- the sort route's C interface

@@ -35,7 +35,7 @@ from repro_torch.core.simgnn import SimGNNConfig, init_simgnn_params
 from repro_torch.data.graphs import (edit_graph, query_pairs, random_graph,
                                      search_pairs, zipf_corpus,
                                      zipf_query_stream)
-from repro_torch.kernels import retrieval
+from repro_torch.kernels import build, retrieval
 from repro_torch.kernels.fused_gcn import fused_gcn_att, fused_gcn_att_plain
 from repro_torch.kernels.fused_pair import (fused_pair_score,
                                             fused_pair_score_plain)
@@ -836,6 +836,51 @@ def test_topm_records_its_plan_and_runs_one_select_launch(cuda):
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     retrieval.blocked_topm(qv[:1], corpus, 8192, block_cols=block)
     assert retrieval.blocked_topm.last_plan.route == "sort"
+
+
+def test_topm_ntn_records_its_plan_and_runs_one_select_launch(cuda):
+    """The served NTN scan (the AIDS head at (64, 8192, 64, block 256)) runs
+    the select route: one launch of `topm_ntn_select_kernel` (one query a
+    CTA, clusters of 2, no per-block lists), bit-identical to the sort
+    route's two passes; M above the cap takes the sort route."""
+    qv, corpus, m, block = _topm_case(cuda, "main")
+    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    uq, dq = (torch.from_numpy(x).to(cuda) for x in
+              retrieval.collapse_query_ntn(p["ntn"], qv.cpu().numpy()))
+    fcn = [{k: t.to(cuda) for k, t in layer.items()} for layer in p["fcn"]]
+    before = retrieval.blocked_topm_ntn.launches
+    got = retrieval.blocked_topm_ntn(uq, dq, corpus, fcn, m,
+                                     block_cols=block)
+    assert retrieval.blocked_topm_ntn.launches == before + 1
+    plan = retrieval.blocked_topm_ntn.last_plan
+    assert plan.route == "select" and plan.scoring == "ntn_served"
+    assert (plan.grid, plan.cluster, plan.queries) == ((128,), 2, 1)
+    assert plan.list_entries == 0
+    assert retrieval.max_clusters(plan, 32) * plan.cluster >= plan.grid[0]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        retrieval.blocked_topm_ntn(uq, dq, corpus, fcn, m, block_cols=block)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0)) > 0]
+    topm = [k for k in names if "topm" in k]
+    assert topm and all("topm_ntn_select_kernel" in k for k in topm), names
+    assert sum(e.count for e in prof.key_averages()
+               if "topm_ntn_select_kernel" in e.key) == 1
+    dims = (16, 8, 4, 1)
+    sort = retrieval.topm_ntn_plan(64, 8192, 32, dims, m, block,
+                                   *retrieval.device_limits(0), route="sort")
+    params, _keep = build.simgnn_params({"fcn": fcn}, uq.device)
+    want = [torch.empty_like(x) for x in got]
+    retrieval.launch_ntn(sort, uq.data_ptr(), dq.data_ptr(),
+                         corpus.data_ptr(), 64, 8192, 32, 16, m, params,
+                         *want)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    retrieval.blocked_topm_ntn(uq, dq, corpus, fcn, 257, block_cols=block)
+    assert retrieval.blocked_topm_ntn.last_plan.route == "sort"
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -4,27 +4,40 @@ GPU.
 
     python3 tools/topm_parent_check.py PARENT.cu [--time]
 
-PARENT.cu is the two-pass kernel this design replaced (its C interface:
-`topm_dot_launch(qv, corpus, Q, N, F, cols, M, ps, pi, out_s, out_i,
-stream)`, `topm_ntn_launch(...)` and `topm_list_entries(Q, N, cols, M)`),
-for example extracted with `git show <rev>:src/repro_torch/csrc/retrieval.cu`.
-It is built with the port's nvcc flags beside the current library. Both
-run on the same inputs: the served shapes (Q, N, M, block_cols) = (64, 8192,
-64, 256) and (1, 8192, 8192, 256), block_cols 8, 64 and 1024, Q of 1, 3, 5,
-65 and 127 (not multiples of the 4 queries a CTA), N not a multiple of the
-chunk, M of 1, 32, 33, above block_cols, 255, 256, 257 (the sort route) and
-M = N, duplicated rows in other chunks and other CTAs of a cluster, coarse
-integer data (ties everywhere), rows whose scores are -0 and +0 (every
-product underflows to a zero of its sign), +inf and -inf entries, NaN rows,
-an all-NaN corpus, F of 4, 5, 33 and 64, and a corpus and a query one
-float past a 16-byte boundary. Each case runs the dot scan (the package's
-`blocked_topm`, on the route its plan picks) and the NTN scan (unchanged)
-through both sources; "equal" is the same indices and the same int32 bit
-patterns of the scores, for both scans. With `--time`, the served shapes
-are timed parent, current, current, parent from CUDA events around one
+PARENT.cu is an earlier source with the same C entry points
+(`topm_dot_launch(qv, corpus, Q, N, F, cols, M, ps, pi, out_s, out_i,
+stream)` and `topm_ntn_launch(...)`, the two-pass sort route of each scan,
+`topm_list_entries(Q, N, cols, M)`, and, for `--time`, the dot scan's
+`topm_select_launch` with the layout struct it was built with), for example
+extracted with `git show <rev>:src/repro_torch/csrc/retrieval.cu`. It is
+built with the port's nvcc flags beside the current library.
+
+Every case runs the dot scan (the package's `blocked_topm`, on the route
+its plan picks) against the parent's sort route, and the NTN scan three
+ways: the package's `blocked_topm_ntn` (the route `topm_ntn_plan` picks),
+the current source's sort route forced, and the parent's sort route.
+The shared cases: the served shapes (Q, N, M, block_cols) = (64, 8192, 64,
+256) and (1, 8192, 8192, 256), block_cols 8, 64 and 1024, Q of 1, 3, 5,
+65 and 127 (not multiples of the queries a CTA), N not a multiple of the
+chunk, M of 1, 32, 33, above block_cols, 255, 256, 257 (the sort route)
+and M = N, duplicated rows in other chunks and other CTAs of a cluster,
+coarse integer data (ties everywhere), rows whose dot scores are -0 and +0,
++inf and -inf entries, NaN rows, an all-NaN corpus, F of 4, 5, 33 and 64,
+and a corpus and a query one float past a 16-byte boundary. The NTN
+scan's own cases: K 40, FCN stacks of other depths (16-16-8-4-1, 16-8-1,
+16-1) and one wider than the select route holds (16-48-1), NaN and +-inf
+in uq, in dq, in the FCN weights and in corpus rows, logits of -0 and +0
+(the last layer's products underflow to a zero of their sign, its bias
+-0), weights of -1, 0 and 1 on small integers (ties across chunks and
+CTAs), duplicated rows, Q of 1, 3, 5 and 127, and uq, dq and the corpus
+one float past 16 bytes. "Equal" is the same indices and the same int32
+bit patterns of the scores. With `--time`, the served shape (64, 8192, 64,
+block 256) is timed parent, current, current, parent for both scans (the
+parent's dot select route and NTN sort route) from CUDA events around one
 replay of a CUDA graph of 20 calls (device time, no host gaps) and from a
-`torch.profiler` trace of 20 calls (each pass's kernel time). Writes
-`chiprun_out/topm_parent.json`; exits 1 if any case differs.
+`torch.profiler` trace of 20 calls (each kernel's time), and so is the M
+= N shape. Writes `chiprun_out/topm_parent.json`; exits 1 if any case
+differs.
 """
 
 from __future__ import annotations
@@ -51,6 +64,18 @@ SERVED = (64, 8192, 64, 256)
 SERVED_M_EQ_N = (1, 8192, 8192, 256)
 
 
+class ParentLayout(ctypes.Structure):
+    """The select route's layout struct before the NTN phase (no queries
+    a CTA, no NTN region): what c96f873's `topm_select_launch` takes."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("chunk", "ld", "lds", "cs",
+                                             "per", "r")]
+                + [("stage_off", ctypes.c_int * 2)]
+                + [(n, ctypes.c_int) for n in ("sc_off", "queue_off",
+                                               "thr_off", "bar_off",
+                                               "list_off", "gather_off",
+                                               "smem_words")])
+
+
 def parent_library(src: Path) -> ctypes.CDLL:
     out = build.BUILD_ROOT / "parent"
     out.mkdir(parents=True, exist_ok=True)
@@ -68,7 +93,10 @@ def parent_library(src: Path) -> ctypes.CDLL:
 
 
 def parent_scans(lib):
-    """(dot, ntn) of the earlier source, with the wrappers' arguments."""
+    """(dot, dot_select, ntn) of the earlier source, with the wrappers'
+    arguments: the dot scan's sort route, its select route on the current
+    plan's layout (None where the source has no such entry point), and
+    the NTN scan's sort route."""
     def buffers(q, n, m, cols, dev):
         e = lib.topm_list_entries(q, n, cols, m)
         return (torch.empty(e, device=dev),
@@ -97,7 +125,47 @@ def parent_scans(lib):
             i.data_ptr(), ctypes.byref(prm),
             torch.cuda.current_stream().cuda_stream), "parent topm_ntn")
         return s, i
-    return dot, ntn
+
+    dot_select = None
+    if hasattr(lib, "topm_layout_size") and \
+            lib.topm_layout_size() == ctypes.sizeof(ParentLayout):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        build.bind(lib.topm_select_launch, [ptr, ptr] + [i32] * 4
+                   + [ptr] * 2 + [ctypes.POINTER(ParentLayout), ptr])
+
+        def dot_select(qv, corpus, m, cols):
+            (q, f), n = qv.shape, corpus.shape[0]
+            plan = retrieval.plan_for(q, n, f, m, cols, qv.device)
+            assert plan.route == "select" and plan.queries == 4, plan
+            lay = ParentLayout()
+            for name, v in plan.layout:
+                if name == "stage_off":
+                    lay.stage_off[0], lay.stage_off[1] = v
+                elif name not in ("qb", "ntn_off"):
+                    setattr(lay, name, v)
+            s = torch.empty((q, m), device=qv.device)
+            i = torch.empty((q, m), dtype=torch.int32, device=qv.device)
+            build.check_launch(lib.topm_select_launch(
+                qv.data_ptr(), corpus.data_ptr(), q, n, f, m, s.data_ptr(),
+                i.data_ptr(), ctypes.byref(lay),
+                torch.cuda.current_stream().cuda_stream), "parent select")
+            return s, i
+    return dot, dot_select, ntn
+
+
+def current_ntn_sort(uq, dq, corpus, fcn, m, cols):
+    """The current source's NTN sort route, forced."""
+    (q, k), (n, f) = dq.shape, corpus.shape
+    m = min(m, n)
+    dims = (k,) + tuple(int(p["w"].shape[1]) for p in fcn)
+    plan = retrieval.topm_ntn_plan(q, n, f, dims, m, cols,
+                                   *retrieval.device_limits(0), route="sort")
+    prm, _keep = build.simgnn_params({"fcn": fcn}, uq.device)
+    s = torch.empty((q, m), device=uq.device)
+    i = torch.empty((q, m), dtype=torch.int32, device=uq.device)
+    retrieval.launch_ntn(plan, uq.data_ptr(), dq.data_ptr(),
+                         corpus.data_ptr(), q, n, f, k, m, prm, s, i)
+    return s, i
 
 
 def graph_ms(fn, iters: int = 20) -> float:
@@ -223,16 +291,124 @@ def cases():
     yield "both off 16 bytes, M = N", off16(qv[:1]), off16(corpus), 8192, 256
 
 
-def ntn_params(f: int):
-    cfg = CONFIG if f == 32 else SimGNNConfig(gcn_dims=(64, f))
-    p = init_simgnn_params(torch.Generator().manual_seed(5), cfg,
+def ntn_params(f: int, seed: int = 5, **cfg):
+    """(ntn, fcn) of a SimGNN head at width F (the AIDS config at F 32 and
+    no overrides), FCN biases drawn too so that every bias add counts."""
+    cfg = CONFIG._replace(**cfg) if f == 32 else SimGNNConfig(
+        gcn_dims=(64, f), **cfg)
+    p = init_simgnn_params(torch.Generator().manual_seed(seed), cfg,
                            device="cuda")
+    gen = torch.Generator().manual_seed(seed + 1)
+    for layer in p["fcn"]:
+        layer["b"] = 0.1 * torch.randn(layer["b"].shape, generator=gen).cuda()
     return p["ntn"], p["fcn"]
+
+
+def collapse(ntn, qv):
+    return tuple(torch.from_numpy(x).cuda() for x in
+                 retrieval.collapse_query_ntn(ntn, qv.cpu().numpy()))
+
+
+def ntn_cases():
+    """(label, uq, dq, corpus, fcn, m, block_cols) of the NTN scan's own
+    cases, held bit for bit across both routes and the parent."""
+    qv, corpus = data(64, 8192, seed=21)
+    heads = {"K 40": dict(ntn_k=40),
+             "FCN 16-16-8-4-1": dict(fcn_dims=(16, 8, 4)),
+             "FCN 16-8-1": dict(fcn_dims=(8,)),
+             "FCN 16-1": dict(fcn_dims=()),
+             "FCN 16-48-1 (wider than the select route holds)":
+                 dict(fcn_dims=(48,))}
+    for label, cfg in heads.items():
+        ntn, fcn = ntn_params(32, **cfg)
+        uq, dq = collapse(ntn, qv)
+        yield f"{label} (64, 8192, 64, block 256)", uq, dq, corpus, fcn, 64, 256
+    ntn, fcn = ntn_params(32, ntn_k=40)
+    for q, n, m, cols in ((5, 1000, 1, 64), (3, 4000, 256, 128),
+                          (127, 8192, 33, 256)):
+        qv2, c2 = data(q, n, seed=q + n)
+        yield (f"K 40 (Q {q}, N {n}, M {m}, block {cols})", *collapse(ntn, qv2),
+               c2, fcn, m, cols)
+    ntn, fcn = ntn_params(32)
+    uq, dq = collapse(ntn, qv)
+    bad = uq.clone()
+    bad[3, 5], bad[7, 100], bad[9, 17], bad[9, 300] = (
+        float("nan"), float("inf"), float("-inf"), float("inf"))
+    yield "NaN and +-inf in uq", bad, dq, corpus, fcn, 64, 256
+    bad = dq.clone()
+    bad[2, 3], bad[4, 0], bad[5, 15] = (float("nan"), float("inf"),
+                                        float("-inf"))
+    yield "NaN and +-inf in dq", uq, bad, corpus, fcn, 64, 256
+    for where, (layer, part, at) in (("W1", (0, "w", (3, 2))),
+                                     ("W2", (1, "w", (5, 1))),
+                                     ("b3", (2, "b", (0,)))):
+        for v in (float("inf"), float("nan")):
+            fbad = [{k: t.clone() for k, t in p.items()} for p in fcn]
+            fbad[layer][part][at] = v
+            yield f"{v} in the FCN's {where}", uq, dq, corpus, fbad, 64, 256
+    c = corpus.clone()
+    c[[4, 17, 31, 4096]] = float("nan")
+    c[[3, 700, 8191]] = float("inf")
+    c[[5, 250], 7] = float("-inf")
+    yield "NaN and +-inf corpus rows", uq, dq, c, fcn, 64, 256
+    # logits of -0 and +0: the last layer's products underflow to a zero
+    # of their sign; its bias is -0, so a logit is -0 exactly when its
+    # last product's zero is
+    zero = [{k: t.clone() for k, t in p.items()} for p in fcn]
+    zero[1]["w"] *= 1e-25
+    zero[1]["b"][:] = 0.0
+    zero[2]["w"] *= 1e-25
+    zero[2]["b"][:] = -0.0
+    for q, n, m, cols in ((64, 8192, 64, 256), (5, 256, 256, 64)):
+        qz, cz = data(q, n, seed=3)
+        yield (f"logits of -0 and +0 (Q {q}, N {n}, M {m})",
+               *collapse(ntn, qz), cz, zero, m, cols)
+    # small integers and weights of -1, 0, 1: exact logits, ties across
+    # chunks and CTAs; duplicated rows in other ranks and the same CTA
+    sign_ntn = {k: torch.sign(t) for k, t in ntn.items()}
+    sign_fcn = [{k: torch.sign(t) for k, t in p.items()} for p in fcn]
+    for q, n, m, cols in ((64, 8192, 64, 256), (5, 1000, 256, 64),
+                          (3, 8192, 1, 256)):
+        qc, cc = data(q, n, seed=q, kind="coarse")
+        yield (f"coarse, weights -1/0/1 (Q {q}, N {n}, M {m})",
+               *collapse(sign_ntn, qc), cc, sign_fcn, m, cols)
+    qt, ct = data(6, 8192, seed=8, kind="ties")
+    yield "duplicated rows (Q 6, 8192, 64)", *collapse(ntn, qt), ct, fcn, 64, 256
+    uq, dq = collapse(ntn, qv)
+    yield ("uq, dq and corpus one float past 16 bytes", off16(uq), off16(dq),
+           off16(corpus), fcn, 64, 256)
 
 
 def same(got, want) -> bool:
     return bool(torch.equal(got[1], want[1]) and torch.equal(
         got[0].view(torch.int32), want[0].view(torch.int32)))
+
+
+def ntn_three(p_ntn, uq, dq, corpus, fcn, m, cols) -> dict:
+    """The NTN scan through the package's route, the current sort route
+    and the parent's: {"ntn_equal", "ntn_route", "ntn_plan"}."""
+    got = retrieval.blocked_topm_ntn(uq, dq, corpus, fcn, m, block_cols=cols)
+    plan = retrieval.blocked_topm_ntn.last_plan
+    sort = current_ntn_sort(uq, dq, corpus, fcn, m, cols)
+    want = p_ntn(uq, dq, corpus, fcn, m, cols)
+    torch.cuda.synchronize()
+    return {"ntn_equal": same(got, want) and same(sort, want),
+            "ntn_route": plan.route, "ntn_plan": plan.summary()}
+
+
+def timed(label, shape, old, new) -> dict:
+    """parent, current, current, parent: CUDA graph and profiler ms."""
+    g = [graph_ms(old), graph_ms(new), graph_ms(new), graph_ms(old)]
+    p = [profiler_ms(old), profiler_ms(new), profiler_ms(new),
+         profiler_ms(old)]
+    print(f"time {label} {shape}: CUDA graph parent {g[0]:.5f} / "
+          f"{g[3]:.5f} ms, current {g[1]:.5f} / {g[2]:.5f} ms; profiler "
+          f"parent {p[0]:.5f} / {p[3]:.5f} ms, current {p[1]:.5f} / "
+          f"{p[2]:.5f} ms")
+    return {"scan": label, "shape": list(shape),
+            "graph_parent_ms": [g[0], g[3]], "graph_current_ms": [g[1], g[2]],
+            "profiler_parent_ms": [p[0], p[3]],
+            "profiler_current_ms": [p[1], p[2]]}
 
 
 def main() -> int:
@@ -243,7 +419,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    p_dot, p_ntn = parent_scans(parent_library(args.parent))
+    p_dot, p_dot_select, p_ntn = parent_scans(parent_library(args.parent))
     results, bad, weights = [], 0, {}
     for label, qv, corpus, m, cols in cases():
         got = retrieval.blocked_topm(qv, corpus, m, block_cols=cols)
@@ -253,49 +429,49 @@ def main() -> int:
         if f not in weights:
             weights[f] = ntn_params(f)
         ntn, fcn = weights[f]
-        uq, dq = (torch.from_numpy(x).cuda() for x in
-                  retrieval.collapse_query_ntn(ntn, qv.cpu().numpy()))
-        got_n = retrieval.blocked_topm_ntn(uq, dq, corpus, fcn, m,
-                                           block_cols=cols)
-        want_n = p_ntn(uq, dq, corpus, fcn, m, cols)
+        uq, dq = collapse(ntn, qv)
         torch.cuda.synchronize()
-        dot_eq, ntn_eq = same(got, want), same(got_n, want_n)
-        eq = dot_eq and ntn_eq
+        dot_eq = same(got, want)
+        ntn_r = ntn_three(p_ntn, uq, dq, corpus, fcn, m, cols)
+        eq = dot_eq and ntn_r["ntn_equal"]
         bad += not eq
         results.append({"case": label, "shape": [*qv.shape, corpus.shape[0],
                                                  got[0].shape[1], cols],
-                        "equal": eq, "dot_equal": dot_eq,
-                        "ntn_equal": ntn_eq, "route": plan.route,
-                        "plan": plan.summary()})
+                        "equal": eq, "dot_equal": dot_eq, "route": plan.route,
+                        "plan": plan.summary(), **ntn_r})
         print(f"{'equal' if eq else 'DIFFERS'}: {label} (dot "
               f"{'same bits' if dot_eq else 'DIFFERS'} on the {plan.route} "
-              f"route, NTN {'same bits' if ntn_eq else 'DIFFERS'})")
+              f"route, NTN {'same bits' if ntn_r['ntn_equal'] else 'DIFFERS'}"
+              f" on the {ntn_r['ntn_route']} route and the sort route)")
+    for label, uq, dq, corpus, fcn, m, cols in ntn_cases():
+        r = ntn_three(p_ntn, uq, dq, corpus, fcn, m, cols)
+        bad += not r["ntn_equal"]
+        results.append({"case": "NTN: " + label,
+                        "shape": [uq.shape[0], dq.shape[1], corpus.shape[0],
+                                  corpus.shape[1], m, cols],
+                        "equal": r["ntn_equal"], **r})
+        print(f"{'equal' if r['ntn_equal'] else 'DIFFERS'}: NTN {label} (on "
+              f"the {r['ntn_route']} route and the sort route)")
     timing = []
     if args.time:
+        ntn, fcn = ntn_params(32)
         for q, n, m, cols in (SERVED, SERVED_M_EQ_N):
             qv, corpus = data(q, n, seed=1)
-
-            def old():
-                return p_dot(qv, corpus, m, cols)
-
-            def new():
-                return retrieval.blocked_topm(qv, corpus, m, block_cols=cols)
-            g = [graph_ms(old), graph_ms(new), graph_ms(new), graph_ms(old)]
-            p = [profiler_ms(old), profiler_ms(new), profiler_ms(new),
-                 profiler_ms(old)]
-            new()
-            plan = retrieval.blocked_topm.last_plan
-            timing.append({"shape": [q, n, m, cols], "plan": plan.summary(),
-                           "route": plan.route,
-                           "graph_parent_ms": [g[0], g[3]],
-                           "graph_current_ms": [g[1], g[2]],
-                           "profiler_parent_ms": [p[0], p[3]],
-                           "profiler_current_ms": [p[1], p[2]]})
-            print(f"time (Q, N, M, block) = ({q}, {n}, {m}, {cols}): CUDA "
-                  f"graph parent {g[0]:.5f} / {g[3]:.5f} ms, current "
-                  f"{g[1]:.5f} / {g[2]:.5f} ms; profiler parent "
-                  f"{p[0]:.5f} / {p[3]:.5f} ms, current {p[1]:.5f} / "
-                  f"{p[2]:.5f} ms ({plan.summary()})")
+            uq, dq = collapse(ntn, qv)
+            dot_old = (p_dot_select if p_dot_select is not None
+                       and m <= retrieval.MAX_SELECT else p_dot)
+            timing.append(dict(timed(
+                "dot", (q, n, m, cols),
+                lambda: dot_old(qv, corpus, m, cols),
+                lambda: retrieval.blocked_topm(qv, corpus, m,
+                                               block_cols=cols)),
+                plan=retrieval.blocked_topm.last_plan.summary()))
+            timing.append(dict(timed(
+                "ntn", (q, n, m, cols),
+                lambda: p_ntn(uq, dq, corpus, fcn, m, cols),
+                lambda: retrieval.blocked_topm_ntn(uq, dq, corpus, fcn, m,
+                                                   block_cols=cols)),
+                plan=retrieval.blocked_topm_ntn.last_plan.summary()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
