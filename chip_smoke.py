@@ -25,8 +25,18 @@ same 4 x 512-token prompts and 16 greedy tokens, one `wkv6` launch per
 layer and step), runs granite's prefill on a 4096-token prompt (one
 `flash_attn` launch per layer), runs Jamba's Mamba block at full width
 (prefill and 16 decode steps), and holds 2-layer float32 rwkv6 and granite
-models and the reduced Jamba hybrid on the card against the CPU. Every
-failed check exits non-zero.
+models and the reduced Jamba hybrid on the card against the CPU. Phase 18
+captures a latency profile of the SimGNN-AIDS paths `bucketed_mega`,
+`packed_dense` and `packed_sparse` on the card (forced engines sharing one
+`TraceRecorder`), fits the measured planner's cost model from it and
+replays the workloads on an auto engine with `planner="measured"`
+(printing its picks, predicted and measured ms, the pick-versus-best
+share and the crossovers the fit implies; gating its scores). Phase 19
+trains SimGNN-AIDS on the card through `ScoringEngine.loss_and_grad` and
+`build_simgnn_train_step` (no CUDA kernel runs there), held against the
+CPU, with the step's time split, its idle share and each backward rule
+timed alone. Phases 4-7 pin `planner="threshold"`. Every failed check
+exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -184,6 +194,28 @@ FLASH_TOL = dict(rtol=2e-4, atol=2e-5)
 MOE_KERNELS = ("moe_up_wgmma_kernel", "moe_down_wgmma_kernel",
                "moe_expert_ffn_kernel")
 FLASH_KERNELS = ("flash_attn_wgmma_kernel", "flash_attn_kernel")
+#: phase 18: the measured planner's candidates, workloads (`search_pairs`
+#: at each size and degree; None is the AIDS degree), recorded calls per
+#: (workload, path) and the "near-best" margin of the printed pick share.
+PLANNER_CANDIDATES = ("bucketed_mega", "packed_dense", "packed_sparse")
+PLANNER_SIZES = (1, 4, 16, 64, 256)
+PLANNER_DEGREES = (None, 6.0, 8.0)
+PLANNER_REPS = 3
+PLANNER_MARGIN = 1.10
+#: phase 19: SimGNN training, `pair_stream(TRAIN_SEED, TRAIN_BATCH)`;
+#: gradient leaves within GRAD_ATOL_F32 of the CPU (tests/test_grad.py),
+#: params after TRAIN_STEPS steps within TRAIN_PARAM_BOUND of the CPU's.
+TRAIN_SEED = 41
+TRAIN_BATCH = 128
+TRAIN_STEPS = 20
+GRAD_ATOL_F32 = 1e-5
+TRAIN_PARAM_BOUND = 1e-4
+#: the backward rules' `torch.autograd.Function`s whose forward inputs a
+#: card training step captures (both edge-list rules share one class, as
+#: both packed-CSR rules do)
+RULE_CLASSES = {"label_gather": "_LabelGather",
+                "csr_aggregate_block_sym": "_CsrAggregate",
+                "segment_att_pool_block": "_SegmentAttPool"}
 
 
 def main() -> int:
@@ -465,11 +497,16 @@ def main() -> int:
     def read_counts():
         return {name: kern.launches for name, kern in launched.items()}
 
+    # Phases 4-7 pin planner="threshold": their servers record traces, and
+    # once every candidate had support a measured planner could steer a
+    # later request off the path a phase checks (phase 18 drives it).
     stream = query_pairs(1, N_PAIRS)
-    score = simgnn_query_server(params, CFG, use_kernels=True)
+    score = simgnn_query_server(params, CFG, use_kernels=True,
+                                planner="threshold")
     cpu_score = simgnn_query_server(params, CFG, use_kernels=True,
-                                    device="cpu")
-    ref_score = simgnn_query_server(params, CFG, path="reference")
+                                    planner="threshold", device="cpu")
+    ref_score = simgnn_query_server(params, CFG, path="reference",
+                                    planner="threshold")
     timer = RequestTimer(score.engine)
     walls, first = [], None
     reset_counts()
@@ -501,7 +538,8 @@ def main() -> int:
     err_ref = float(np.abs(out - ref_score(batch)).max())
     err_cpu = float(np.abs(out - cpu_score(batch)).max())
     print(f"serve: {requests} requests of {BATCH} pairs on "
-          f"{score.last_plan.path}; vs card reference {err_ref:.3e}, vs CPU "
+          f"{score.last_plan.path} (planner=threshold); vs card reference "
+          f"{err_ref:.3e}, vs CPU "
           f"plain path {err_cpu:.3e} (bound 1e-06)")
     assert err_ref <= 1e-6 and err_cpu <= 1e-6, (err_ref, err_cpu)
     steady = timer.stages[1:]
@@ -533,7 +571,8 @@ def main() -> int:
     forced_counts = {}
     for path, name in (("packed_dense", "packed_pair"),
                        ("bucketed_mega", "fused_pair")):
-        forced = simgnn_query_server(params, CFG, path=path)
+        forced = simgnn_query_server(params, CFG, path=path,
+                                     planner="threshold")
         reset_counts()
         ops.fused_pair_score = recording_fused
         try:
@@ -548,8 +587,8 @@ def main() -> int:
         assert counts[name] > 0 and sum(counts.values()) == counts[name], \
             (path, counts)
         err = float(np.abs(got - ref_score(batch)).max())
-        print(f"forced {path}: launches {counts}, vs card reference "
-              f"{err:.3e} (bound {ATOL[name]:g})")
+        print(f"forced {path} (planner=threshold): launches {counts}, vs "
+              f"card reference {err:.3e} (bound {ATOL[name]:g})")
         assert err <= ATOL[name], (path, err)
     served["fused_pair"] = forced_counts["fused_pair"]
     kernels["packed_pair"]["forced_launches"] = forced_counts["packed_pair"]
@@ -591,7 +630,8 @@ def main() -> int:
 
     # ---- phase 7: the engine's embedding-cached and two-kernel paths ---
     for path, bound in (("embedding_cache", 1e-6), ("two_kernel", 2e-5)):
-        forced = simgnn_query_server(params, CFG, path=path)
+        forced = simgnn_query_server(params, CFG, path=path,
+                                     planner="threshold")
         reset_counts()
         got = forced(batch)
         counts = read_counts()
@@ -603,8 +643,8 @@ def main() -> int:
             counts["simgnn_head"], (path, counts)
         assert not forced.engine.counters, forced.engine.counters
         err = float(np.abs(got - ref_score(batch)).max())
-        print(f"forced {path}: launches {counts}, vs card reference "
-              f"{err:.3e} (bound {bound:g})")
+        print(f"forced {path} (planner=threshold): launches {counts}, vs "
+              f"card reference {err:.3e} (bound {bound:g})")
         assert err <= bound, (path, err)
 
     phase("7 forced embedding_cache and two_kernel paths")
@@ -630,6 +670,12 @@ def main() -> int:
     phase("16 (e) Jamba's Mamba block at full width")
     report["hybrid"] = hybrid_phase(dev, reset_counts, read_counts)
     phase("17 (f) the reduced Jamba hybrid, card against CPU")
+
+    # ---- phases 18-19: the measured planner and training, SimGNN-AIDS --
+    report["planner"] = planner_phase(params, dev, reset_counts, read_counts)
+    phase("18 the measured planner on the card")
+    report["train"] = train_phase(params, dev, reset_counts, read_counts)
+    phase("19 SimGNN training on the card")
     report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
@@ -1279,6 +1325,8 @@ class SpanTimer:
         self.events: list = []
 
     def _hook(self, site, thunk):
+        if site == "profile":           # the trace record: host bookkeeping
+            return thunk()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         out = thunk()
@@ -2869,6 +2917,524 @@ def hybrid_phase(dev, reset_counts, read_counts):
             "prefill_logits_err_vs_cpu": err}
 
 
+# ------------------------------------------------ phases 18-19: SimGNN-AIDS
+
+
+def _workloads() -> list:
+    """Phase 18's workloads: `search_pairs` at every size of PLANNER_SIZES
+    and every degree of PLANNER_DEGREES (None: the AIDS degree)."""
+    from repro_torch.data.graphs import search_pairs
+
+    return [(f"n{n} deg {'aids' if d is None else d}",
+             search_pairs(400 + 10 * i + j, n, avg_degree=d))
+            for i, n in enumerate(PLANNER_SIZES)
+            for j, d in enumerate(PLANNER_DEGREES)]
+
+
+def _crossovers(model, rows, mean_nodes: float, degree: float,
+                n_pairs: int = 256) -> dict:
+    """The crossovers the fitted model implies, at the AIDS workload's mean
+    nodes and degree: the pair counts (1..4096) where bucketed_mega is the
+    argmin, and where packed_sparse is predicted faster than packed_dense
+    at `n_pairs` pairs as a function of the degree (each prediction is
+    linear in it: faster below or above the degree where they meet, or at
+    no degree >= 0). Beside them, the measured ones: the workloads where
+    each path had the fastest median."""
+    from repro_torch.core.profile import trace_features
+
+    def argmin(n):
+        f = trace_features(n, mean_nodes, degree)
+        return min(PLANNER_CANDIDATES, key=lambda p: model.predict(p, f))
+    bucketed = [n for n in range(1, 4097) if argmin(n) == "bucketed_mega"]
+    ws, wd = (model.weights[p] for p in ("packed_sparse", "packed_dense"))
+    nodes = 2.0 * n_pairs * mean_nodes
+    # predicted sparse - dense = b + a * degree
+    a = (ws[3] - wd[3]) * nodes
+    b = (ws[0] - wd[0]) + (ws[1] - wd[1]) * n_pairs + (ws[2] - wd[2]) * nodes
+    meet = -b / a if a else None
+    if meet is None:
+        sparse = "at every degree" if b < 0 else "at no degree"
+    elif a > 0:
+        sparse = (f"below degree {meet:.3f}" if meet > 0
+                  else "at no degree >= 0")
+    else:
+        sparse = (f"above degree {meet:.3f}" if meet > 0
+                  else "at every degree >= 0")
+    fastest = {p: [r["workload"] for r in rows if r["best"] == p]
+               for p in PLANNER_CANDIDATES}
+    return {"bucketed_argmin_pairs": (bucketed[0], bucketed[-1], len(bucketed))
+            if bucketed else None,
+            "sparse_faster_at_256": sparse, "degree_where_equal": meet,
+            "measured_fastest": fastest,
+            "at_mean_nodes": mean_nodes, "at_degree": degree}
+
+
+def planner_phase(params, dev, reset_counts, read_counts) -> dict:
+    """Phase 18: the measured planner on the card at SimGNN-AIDS width.
+
+    Capture: one forced engine per candidate (`planner="threshold"`,
+    `degrade=False`, `validation="off"`) shares one `TraceRecorder` that
+    flushes into a temporary directory; each workload is scored once
+    unrecorded (warm) and PLANNER_REPS times recorded. Fit: the profile is
+    loaded back and fitted. Replay: a fresh auto engine with
+    `planner="measured"` on the loaded recorder scores every workload;
+    its pick, each path's predicted and measured median ms, the share of
+    picks within PLANNER_MARGIN of the measured best, each path's median
+    prediction error and the crossovers the fit implies are printed, not
+    gated. Gates: the warm engine's scores equal the picked path's forced
+    engine's bit for bit and the port's plain path on the CPU within
+    1e-6, its reason names the cost model, nothing degraded."""
+    import os
+    import tempfile
+
+    from repro_torch.configs.simgnn_aids import CONFIG as CFG
+    from repro_torch.core.engine import ScoringEngine
+    from repro_torch.core.profile import TraceRecorder, fit_cost_model
+
+    workloads = _workloads()
+    forced = {p: ScoringEngine(params, CFG, path=p, planner="threshold",
+                               degrade=False, validation="off", device=dev)
+              for p in PLANNER_CANDIDATES}
+    walls: dict = {}
+    outs: dict = {}
+    with tempfile.TemporaryDirectory(prefix="profile") as tmp:
+        path = os.path.join(tmp, "profile.jsonl")
+        rec = TraceRecorder(path=path)
+        reset_counts()
+        for p, eng in forced.items():
+            for name, pairs in workloads:
+                eng.recorder = None
+                eng.score(pairs)                    # warm, unrecorded
+                eng.recorder = rec
+                for _ in range(PLANNER_REPS):
+                    n0 = rec.total_records
+                    out = eng.score(pairs)
+                    assert rec.total_records == n0 + 1, (p, name)
+                    r = rec.records()[-1]
+                    assert r.path == p and not r.degraded_from, r
+                    walls.setdefault((name, p), []).append(r.wall_s)
+                outs[(name, p)] = out
+        capture_counts = read_counts()
+        print(f"planner capture: {len(workloads)} workloads x "
+              f"{len(PLANNER_CANDIDATES)} forced paths x {PLANNER_REPS} "
+              f"recorded calls = {rec.total_records} records; launches "
+              f"{capture_counts}")
+        for name in ("sparse_pair", "packed_pair", "fused_pair"):
+            assert capture_counts[name] > 0, capture_counts
+        assert sum(capture_counts.values()) == sum(
+            capture_counts[k] for k in ("sparse_pair", "packed_pair",
+                                        "fused_pair")), capture_counts
+        flushed = rec.flush()
+        assert flushed == rec.total_records and \
+            not rec.counters["flush_errors"], rec.counters
+        loaded = TraceRecorder.load(path)
+        assert loaded.total_records == flushed and \
+            not loaded.counters["records_dropped"], loaded.counters
+        t0 = time.perf_counter()
+        model = fit_cost_model(loaded.records(),
+                               min_support=ScoringEngine.PLANNER_MIN_SUPPORT)
+        fit_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"planner fit: {fit_ms:.3f} ms for {model.n_records} records "
+              f"(profile of {os.path.getsize(path)} bytes, format v2)")
+        for p in PLANNER_CANDIDATES:
+            w = model.weights[p]
+            print(f"  {p}: support {model.support[p]}, residual_medape "
+                  f"{model.residual_medape[p]:.4f}, weights " + ", ".join(
+                      f"{f} {v:.6g}" for f, v in zip(
+                          ("bias s", "s/pair", "s/node", "s/edge",
+                           "s/embed"), w)))
+        # the record call's cost alone: a scratch recorder, no flush
+        scratch = TraceRecorder()
+        t0 = time.perf_counter()
+        for i in range(2000):
+            scratch.record(kind="score", path="packed_sparse", n_pairs=256,
+                           max_nodes=64, mean_nodes=25.6, avg_degree=2.1,
+                           density=0.08, occupancy=0.8, wall_s=1e-3)
+        record_us = 1e6 * (time.perf_counter() - t0) / 2000
+
+        auto = ScoringEngine(params, CFG, recorder=loaded,
+                             planner="measured", device=dev)
+        cpu = {p: ScoringEngine(params, CFG, path=p, planner="threshold",
+                                device="cpu") for p in PLANNER_CANDIDATES}
+        rows, worst_cpu = [], 0.0
+        reset_counts()
+        for name, pairs in workloads:
+            got = auto.score(pairs)
+            plan = auto.last_plan
+            assert "cost model" in plan.reason, (name, plan.reason)
+            assert plan.degraded_from == () and plan.attempts == 1, plan
+            assert set(plan.cost_estimates) == set(PLANNER_CANDIDATES), plan
+            want = outs[(name, plan.path)]
+            assert got.tobytes() == want.tobytes(), (name, plan.path)
+            err = float(np.abs(got - cpu[plan.path].score(pairs)).max())
+            assert err <= 1e-6, (name, plan.path, err)
+            worst_cpu = max(worst_cpu, err)
+            measured = {p: statistics.median(walls[(name, p)])
+                        for p in PLANNER_CANDIDATES}
+            rows.append({"workload": name, "pick": plan.path,
+                         "pred_ms": {p: 1e3 * v for p, v in
+                                     plan.cost_estimates.items()},
+                         "measured_ms": {p: 1e3 * v for p, v in
+                                         measured.items()},
+                         "avg_degree": plan.stats.avg_degree,
+                         "mean_nodes": plan.stats.mean_nodes})
+        replay_counts = read_counts()
+    print(f"planner replay: launches {replay_counts}")
+    assert sum(replay_counts.values()) > 0
+    for r in rows:
+        best = min(r["measured_ms"], key=r["measured_ms"].get)
+        r["best"] = best
+        r["pick_over_best"] = r["measured_ms"][r["pick"]] / \
+            r["measured_ms"][best]
+        print(f"  {r['workload']} (degree {r['avg_degree']:.2f}): picks "
+              f"{r['pick']} ({r['pick_over_best']:.3f}x the measured best, "
+              f"{best}); predicted / measured ms " + ", ".join(
+                  f"{p} {r['pred_ms'][p]:.3f} / {r['measured_ms'][p]:.3f}"
+                  for p in PLANNER_CANDIDATES))
+    share = statistics.fmean(r["pick_over_best"] <= PLANNER_MARGIN
+                             for r in rows)
+    err = {p: statistics.median(abs(r["pred_ms"][p] - r["measured_ms"][p])
+                                / r["measured_ms"][p] for r in rows)
+           for p in PLANNER_CANDIDATES}
+    aids = [r for r in rows if r["workload"].endswith("aids")][-1]
+    cross = _crossovers(model, rows, aids["mean_nodes"], aids["avg_degree"])
+    print(f"planner replay: pick within {PLANNER_MARGIN:.2f}x of the "
+          f"measured best on {share:.3f} of {len(rows)} workloads; median "
+          f"|pred - measured| / measured " + ", ".join(
+              f"{p} {v:.3f}" for p, v in err.items())
+          + f"; vs the CPU plain path {worst_cpu:.3e} (bound 1e-06); scores "
+          f"equal the picked path's forced engine bit for bit")
+    span = cross["bucketed_argmin_pairs"]
+    print(f"planner crossovers (fit, at mean nodes {aids['mean_nodes']:.2f},"
+          f" degree {aids['avg_degree']:.2f}): bucketed_mega is the argmin "
+          + (f"for {span[2]} pair counts in {span[0]}..{span[1]}" if span
+             else "at no pair count in 1..4096")
+          + f"; at 256 pairs packed_sparse is predicted faster than "
+          f"packed_dense {cross['sparse_faster_at_256']}; measured fastest: "
+          + "; ".join(f"{p} on {len(w)} workloads"
+                      + (f" ({', '.join(w)})" if w else "")
+                      for p, w in cross["measured_fastest"].items()))
+    print(f"planner record: {record_us:.3f} us a record (ring append, "
+          f"2000 records); fit {fit_ms:.3f} ms")
+    return {"workloads": rows, "share_within_margin": share,
+            "median_rel_err": err, "crossovers": cross,
+            "model": model.snapshot(),
+            "weights": {p: [float(x) for x in w]
+                        for p, w in model.weights.items()},
+            "fit_ms": fit_ms, "record_us": record_us,
+            "capture_launches": capture_counts,
+            "replay_launches": replay_counts, "err_cpu": worst_cpu}
+
+
+def _tree_err(a, b) -> float:
+    """Largest |a - b| over every leaf of two params / grads trees."""
+    from repro_torch.params import tree_leaves
+
+    return max(float((x.detach().cpu().float() - y.detach().cpu().float())
+                     .abs().max()) for x, y in zip(tree_leaves(a),
+                                                   tree_leaves(b)))
+
+
+def _capture_rules(engine, pairs, target) -> dict:
+    """One card `loss_and_grad` with every backward rule's forward inputs
+    captured (the rules' `apply` wrapped, restored after): {rule: [args,
+    ...]} in call order."""
+    from repro_torch.kernels import common
+
+    seen: dict = {}
+    saved = {}
+    for name, cls_name in RULE_CLASSES.items():
+        cls = getattr(common, cls_name)
+        saved[name] = cls.apply
+
+        def wrap(*args, _name=name, _real=cls.apply):
+            seen.setdefault(_name, []).append(tuple(
+                a.detach() if isinstance(a, torch.Tensor) else a
+                for a in args))
+            return _real(*args)
+        cls.apply = wrap
+    try:
+        engine.loss_and_grad(pairs, target)
+    finally:
+        for name, cls_name in RULE_CLASSES.items():
+            getattr(common, cls_name).apply = saved[name]
+    assert all(args[-1] is True for args in seen["csr_aggregate_block_sym"])
+    return seen
+
+
+def _time_backward(fn, args, diff, iters: int = 20) -> float:
+    """Median ms of one backward pass of `fn(*args)` alone (CUDA events,
+    warm), with grads of the args at `diff` and a fixed random
+    cotangent."""
+    leaves = [a.clone().requires_grad_(True) if i in diff else a
+              for i, a in enumerate(args)]
+    out = fn(*leaves)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0)
+                    ).to(out.device)
+    wanted = [leaves[i] for i in diff]
+    torch.autograd.grad(out, wanted, g, retain_graph=True)     # warm
+    times = []
+    for _ in range(iters):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        torch.autograd.grad(out, wanted, g, retain_graph=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _rule_cases(seen) -> dict:
+    """Each rule's timed call at the served shapes, the plain autograd of
+    the same function, and its work: {rule: (custom fn, args, diff, plain
+    fn, flops, bytes)}. The edge and overflow rules (not on the sparse
+    training path) take the served CSR planes as an explicit edge list
+    and the served overflow list."""
+    from repro_torch.kernels import common
+
+    lab = seen["label_gather"][0]
+    csr = seen["csr_aggregate_block_sym"][0]
+    pool = seen["segment_att_pool_block"][0]
+    nbr, nbr_w, ov_snd, ov_rcv, ov_w, hw, _ = csr
+    gb, n, f = hw.shape
+    rcv = common._ell_receivers(nbr, n).contiguous()
+    nnz = int((nbr_w != 0).sum())
+    nnz_ov = int((ov_w != 0).sum())
+    idx = 2                                     # bytes of an int16 plane
+    csr_bytes = (nbr.numel() * idx + nbr_w.numel() * 4
+                 + ov_snd.numel() * 2 * idx + ov_w.numel() * 4
+                 + 2 * hw.numel() * 4)
+    w, labels = lab
+    m = labels.numel()
+    h, mask, seg, att_w, p = pool
+    live = int(mask.sum())
+    p_live = int(torch.unique(seg[mask > 0] + p * torch.arange(
+        gb, device=seg.device)[:, None].expand_as(seg)[mask > 0]).numel())
+
+    def plain_csr(nbr, nbr_w, ov_snd, ov_rcv, ov_w, hw):
+        return common._csr_aggregate(nbr, nbr_w, ov_snd, ov_rcv, ov_w, hw)
+
+    def plain_pool(h, mask, seg, att_w):
+        return common._seg_att_pool_from_onehot(
+            h, mask, common.segment_onehot(seg, mask, p), att_w)
+    return {
+        "label_gather": (common.label_gather, (w, labels), (0,),
+                         lambda w, labels: w.float()[labels.long()],
+                         2.0 * m * w.shape[1],
+                         labels.numel() * 4 + (m + w.shape[0]) *
+                         w.shape[1] * 4),
+        "csr_aggregate_block_sym": (
+            common.csr_aggregate_block_sym, csr[:6], (5,), plain_csr,
+            2.0 * (nnz + nnz_ov) * f, csr_bytes),
+        "csr_aggregate_block": (
+            common.csr_aggregate_block, csr[:6], (5,), plain_csr,
+            2.0 * (nnz + nnz_ov) * f, csr_bytes),
+        "edge_aggregate_block": (
+            common.edge_aggregate_block, (nbr, rcv, nbr_w, hw), (3,),
+            common._overflow_aggregate, 2.0 * nnz * f,
+            nbr.numel() * 2 * idx + nbr_w.numel() * 4 + 2 * hw.numel() * 4),
+        "overflow_aggregate_block": (
+            common.overflow_aggregate_block, (ov_snd, ov_rcv, ov_w, hw),
+            (3,), common._overflow_aggregate, 2.0 * nnz_ov * f,
+            ov_snd.numel() * 2 * idx + ov_w.numel() * 4
+            + 2 * hw.numel() * 4),
+        "segment_att_pool_block": (
+            lambda h, mask, seg, att_w: common.segment_att_pool_block(
+                h, mask, seg, att_w, p), (h, mask, seg, att_w), (0, 3),
+            plain_pool,
+            # the backward of pooling, attention and the segment means over
+            # live nodes (~3 x the forward's 7 flops a live (node, feature))
+            # and the context product over live slots (3 x 2 P F^2)
+            3.0 * (7.0 * live * f + 2.0 * p_live * f * f),
+            (2 * h.numel() + mask.numel() + seg.numel() + 2 * att_w.numel()
+             + gb * p * f) * 4),
+    }
+
+
+def train_phase(params, dev, reset_counts, read_counts) -> dict:
+    """Phase 19: SimGNN training on the card at SimGNN-AIDS width.
+
+    An auto engine on the card and one on the CPU from the same params;
+    batches `pair_stream(TRAIN_SEED, batch=TRAIN_BATCH)`. Gates: the first
+    batch plans `packed_sparse` (the AIDS degree is at most 4), loss within
+    1e-6 relative and every gradient leaf within GRAD_ATOL_F32 of the CPU;
+    `packed_dense` and `reference` forced once each with the same bounds;
+    `accum_steps=4` equal to one shot within 1e-6; two card runs bit-equal;
+    TRAIN_STEPS steps of `build_simgnn_train_step` within
+    TRAIN_PARAM_BOUND of the CPU's params; no scoring kernel launched and
+    no train rung degraded; a NaN target dropped and counted; a step with
+    NaN injected at `train:packed_sparse` (and the rungs below it) skipped
+    with params and state unchanged. Printed: the loss curve, step ms split
+    by CUDA events into `loss_and_grad` and the optimizer half, the
+    profiler's idle share, and each backward rule alone against its bound
+    and plain autograd."""
+    from repro_torch.configs.simgnn_aids import CONFIG as CFG
+    from repro_torch.core.engine import ScoringEngine
+    from repro_torch.data.graphs import pair_stream
+    from repro_torch.params import tree_leaves
+    from repro_torch.testing import faults
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_simgnn_train_step
+
+    stream = pair_stream(TRAIN_SEED, TRAIN_BATCH, device="cpu")
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    pairs, target = batches[0]["pairs"], batches[0]["target"]
+    card = ScoringEngine(params, CFG, device=dev)
+    host = ScoringEngine(params, CFG, device="cpu")
+    report: dict = {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS}
+
+    def held(tag, c_eng, h_eng, **kw):
+        cl, cg = c_eng.loss_and_grad(pairs, target, **kw)
+        hl, hg = h_eng.loss_and_grad(pairs, target, **kw)
+        plan = c_eng.last_plan
+        assert plan.path == h_eng.last_plan.path and \
+            plan.degraded_from == () and h_eng.last_plan.degraded_from == (), \
+            (plan, h_eng.last_plan)
+        rel = abs(float(cl) - float(hl)) / abs(float(hl))
+        gerr = _tree_err(cg, hg)
+        print(f"train {tag}: plan {plan.path} ({plan.reason}); loss card "
+              f"{float(cl):.8f}, CPU {float(hl):.8f} (relative "
+              f"{rel:.3e}, bound 1e-06); largest gradient difference "
+              f"{gerr:.3e} (bound {GRAD_ATOL_F32:g})")
+        assert rel <= 1e-6 and gerr <= GRAD_ATOL_F32, (tag, rel, gerr)
+        report[tag] = {"path": plan.path, "loss_rel": rel, "grad_err": gerr}
+        return cl, cg
+
+    reset_counts()
+    loss1, grads1 = held("first step", card, host)
+    assert card.last_plan.path == "packed_sparse", card.last_plan
+    for path in ("packed_dense", "reference"):
+        held(f"forced {path}",
+             ScoringEngine(params, CFG, path=path, device=dev),
+             ScoringEngine(params, CFG, path=path, device="cpu"))
+    loss4, grads4 = card.loss_and_grad(pairs, target, accum_steps=4)
+    acc = max(abs(float(loss4) - float(loss1)), _tree_err(grads4, grads1))
+    print(f"train accumulation: accum_steps 4 against 1, largest "
+          f"difference {acc:.3e} (bound 1e-06)")
+    assert acc <= 1e-6, acc
+    loss2, grads2 = card.loss_and_grad(pairs, target)
+    same = torch.equal(loss1, loss2) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(grads1),
+                                          tree_leaves(grads2)))
+    print(f"train determinism: two card runs of one step bit-equal: {same}")
+    assert same
+    report["accum_err"], report["deterministic"] = acc, same
+
+    # TRAIN_STEPS steps, card and CPU, from the same params
+    events = []
+    real = card.loss_and_grad
+
+    def timed(*args, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        events[-1]["fwd_bwd"] = (start, end)
+        return out
+    card.loss_and_grad = timed
+    step = build_simgnn_train_step(card)
+    host_step = build_simgnn_train_step(host)
+    cp, hp = card.params, host.params
+    cs, hs = adamw_init(cp), adamw_init(hp)
+    losses = []
+    try:
+        for b in batches:
+            batch = {"pairs": b["pairs"], "target": b["target"]}
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            events.append({})
+            start.record()
+            cp, cs, m = step(cp, cs, batch)
+            end.record()
+            events[-1]["step"] = (start, end)
+            assert "skipped" not in m and card.last_plan.degraded_from == (), \
+                card.last_plan
+            hp, hs, _ = host_step(hp, hs, batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+    finally:
+        del card.loss_and_grad
+    wall, busy, _, n_launch, top = _profile_busy(
+        lambda: step(cp, cs, {"pairs": batches[-1]["pairs"],
+                              "target": batches[-1]["target"]}), "none")
+    counts = read_counts()
+    print(f"train launches of the scoring kernels over the phase: {counts}")
+    assert not any(counts.values()), counts
+    step_ms = [e["step"][0].elapsed_time(e["step"][1]) for e in events]
+    fb_ms = [e["fwd_bwd"][0].elapsed_time(e["fwd_bwd"][1]) for e in events]
+    opt_ms = [s - f for s, f in zip(step_ms, fb_ms)]
+    perr = _tree_err(cp, hp)
+    print(f"train {TRAIN_STEPS} steps of {TRAIN_BATCH} pairs: loss curve "
+          + ", ".join(f"{x:.5f}" for x in losses))
+    print(f"train step (median of steps 2..{TRAIN_STEPS}, CUDA events): "
+          f"{statistics.median(step_ms[1:]):.3f} ms, of which loss_and_grad "
+          f"{statistics.median(fb_ms[1:]):.3f} ms and the optimizer half "
+          f"{statistics.median(opt_ms[1:]):.3f} ms; first step "
+          f"{step_ms[0]:.3f} ms")
+    print(f"train profiled step: wall {1e3 * wall:.3f} ms, device busy "
+          f"{1e3 * busy:.3f} ms (idle share {1 - busy / wall:.4f}), "
+          f"{n_launch} kernel launches by the host; longest device "
+          "activities: " + "; ".join(f"{name} {1e3 * t:.4f} ms x{c}"
+                                     for name, t, c in top))
+    print(f"train params after {TRAIN_STEPS} steps, card against CPU: "
+          f"largest difference {perr:.3e} (bound {TRAIN_PARAM_BOUND:g})")
+    assert perr <= TRAIN_PARAM_BOUND, perr
+    report.update(losses=losses, step_ms=step_ms, loss_and_grad_ms=fb_ms,
+                  optimizer_ms=opt_ms, profiled_wall_s=wall,
+                  device_busy_s=busy, idle_share=1 - busy / wall,
+                  host_kernel_launches=n_launch, top_device=top,
+                  param_err=perr)
+
+    # the skip path
+    poisoned = np.array(target)
+    poisoned[3] = np.nan
+    card.counters.clear()
+    card.loss_and_grad(pairs, poisoned)
+    assert card.counters["nonfinite_targets"] == 1, card.counters
+    before = [t.clone() for t in tree_leaves((cp, cs))]
+    with faults.inject("train:packed_sparse", mode="nan") as fired, \
+            faults.inject("train:packed_dense", mode="nan"), \
+            faults.inject("train:reference", mode="nan"):
+        sp, ss, sm = step(cp, cs, {"pairs": pairs, "target": target})
+    unchanged = all(torch.equal(a, b) for a, b in zip(
+        before, tree_leaves((sp, ss))))
+    print(f"train skip path: a NaN target dropped and counted "
+          f"(nonfinite_targets {card.counters['nonfinite_targets']}); NaN "
+          f"injected at train:packed_sparse ({fired.triggered} call) and "
+          f"the rungs below it (degraded_from "
+          f"{card.last_plan.degraded_from}): skipped "
+          f"{float(sm.get('skipped', 0))}, train_skipped_steps "
+          f"{card.counters['train_skipped_steps']}, params and state "
+          f"unchanged: {unchanged}")
+    assert float(sm["skipped"]) == 1.0 and unchanged and fired.triggered
+    report["skip"] = {"unchanged": unchanged,
+                      "degraded_from": card.last_plan.degraded_from}
+
+    # each backward rule alone at the served shapes
+    seen = _capture_rules(card, pairs, target)
+    rules = {}
+    for name, (fn, args, diff, plain, flops, nbytes) in _rule_cases(
+            seen).items():
+        ms = _time_backward(fn, args, diff)
+        plain_ms = _time_backward(plain, args, diff)
+        bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        rules[name] = {"ms": ms, "plain_autograd_ms": plain_ms,
+                       "bound_ms": bound_ms,
+                       "bound_by": "operations" if flops / PEAK_F32_FLOPS
+                       > nbytes / PEAK_BYTES else "bytes",
+                       "calls_a_step": len(seen.get(name, ())),
+                       "flops": flops, "bytes": nbytes,
+                       "shape": [tuple(a.shape) for a in args
+                                 if isinstance(a, torch.Tensor)]}
+        print(f"  backward {name}: {ms:.4f} ms (median of 20, CUDA events), "
+              f"plain autograd of the same function {plain_ms:.4f} ms, bound "
+              f"{bound_ms * 1e3:.3f} us ({rules[name]['bound_by']}), "
+              f"{rules[name]['calls_a_step']} calls a step; shapes "
+              f"{rules[name]['shape']}")
+    report["backward_rules"] = rules
+    return report
+
+
 class RequestTimer:
     """Where one served request's time goes, measured inside the request:
     the host clock around the engine's stages (plan = validation and
@@ -2894,6 +3460,8 @@ class RequestTimer:
         return run
 
     def _hook(self, site, thunk):
+        if site == "profile":           # the trace record: host bookkeeping
+            return thunk()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         out = self._timed("score", thunk)()

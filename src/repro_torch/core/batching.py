@@ -13,7 +13,9 @@ to the requested device once, at the end.
   * `pack_pairs` — first-fit-decreasing packing of pairs into fixed
     `[node_budget]` tiles with per-node segment ids (DESIGN.md §8);
   * `packed_pair_edges` — the packed-CSR view of each tile's A' non-zeros:
-    D ELLPACK neighbour planes plus a COO overflow list (DESIGN.md §9).
+    D ELLPACK neighbour planes plus a COO overflow list (DESIGN.md §9);
+  * `to_edge_batch` / `edge_aggregate` — a padded batch's A' non-zeros as
+    one edge list per graph, and the aggregation from it.
 """
 
 from __future__ import annotations
@@ -359,3 +361,66 @@ def next_pow2(n: int, floor: int = 8) -> int:
     while p < target:
         p *= 2
     return p
+
+
+#: (requested, grown) budget pairs already warned about: a stream that
+#: outruns its `max_edges` on every batch re-derives the same grown budget
+#: each call, so each distinct growth warns once per process.
+_GROW_WARNED: set[tuple[int, int]] = set()
+
+
+def reset_grow_warnings() -> None:
+    """Clear the warn-once registry so the next budget growth warns
+    again (test isolation, processes that re-tune budgets)."""
+    _GROW_WARNED.clear()
+
+
+def to_edge_batch(batch: GraphBatch, max_edges: int) -> EdgeBatch:
+    """The normalised adjacency's non-zeros (self loops included, A'
+    weights) as a padded edge list per graph, on the batch's device. The
+    scan runs on the host in numpy; senders / receivers are int32 and pad
+    slots carry node 0 with zero weight and mask.
+
+    When a graph has more non-zeros than `max_edges`, the whole batch's
+    budget grows to the next power of two that fits instead of raising,
+    with a RuntimeWarning once per distinct (requested, grown) pair per
+    process; the realised budget is `EdgeBatch.edge_budget`."""
+    from repro_torch.core.gcn import normalized_adjacency
+
+    a_norm = normalized_adjacency(batch.adj, batch.mask).cpu().numpy()
+    bsz = a_norm.shape[0]
+    nonzeros = [np.nonzero(a_norm[i]) for i in range(bsz)]
+    peak = max((len(r) for r, _ in nonzeros), default=0)
+    if peak > max_edges:
+        grown = next_pow2(peak, floor=max(8, max_edges))
+        if (max_edges, grown) not in _GROW_WARNED:
+            _GROW_WARNED.add((max_edges, grown))
+            import warnings
+            warnings.warn(
+                f"{peak} non-zeros exceed max_edges={max_edges}; growing the "
+                f"edge budget to {grown} (power-of-two) instead of raising "
+                "(warned once per stream: reuse EdgeBatch.edge_budget to "
+                "stop re-growing)",
+                RuntimeWarning, stacklevel=2)
+        max_edges = grown
+    senders = np.zeros((bsz, max_edges), np.int32)
+    receivers = np.zeros((bsz, max_edges), np.int32)
+    weights = np.zeros((bsz, max_edges), np.float32)
+    emask = np.zeros((bsz, max_edges), np.float32)
+    for i, (r, c) in enumerate(nonzeros):
+        e = len(r)
+        receivers[i, :e], senders[i, :e] = r, c
+        weights[i, :e] = a_norm[i, r, c]
+        emask[i, :e] = 1.0
+    return EdgeBatch(*_tensors((senders, receivers, weights, emask),
+                               batch.adj.device))
+
+
+def edge_aggregate(edges: EdgeBatch, hw: torch.Tensor) -> torch.Tensor:
+    """Aggregation from the edge list: out[b, r] = sum of w * hw[b, s] over
+    the edges (s, r, w) of graph b; pad slots add exact zeros. hw [B, N, F]
+    -> [B, N, F]. Differentiable (`kernels.common.edge_aggregate_block`)."""
+    from repro_torch.kernels.common import edge_aggregate_block
+
+    return edge_aggregate_block(edges.senders, edges.receivers,
+                                edges.weights * edges.edge_mask, hw)

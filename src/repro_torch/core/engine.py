@@ -25,14 +25,28 @@ engine):
                  graphs are resident.
 
 `plan()` quarantines invalid inputs (`core/validate.py`), measures the
-call and applies the threshold rules — the JAX engine's
-`planner="threshold"`, which its tests pin bit-identical to a cold measured
-planner; the measured planner, trace recording, device sharding and
-`loss_and_grad` are not ported yet. `score()` walks the degradation ladder
+call and decides (DESIGN.md §15). With `planner="measured"` (the default)
+it argmins a per-path latency model ridge-fitted from the engine's trace
+profile (`core/profile.py`) whenever every candidate path has
+`PLANNER_MIN_SUPPORT` clean records; otherwise, and always with
+`planner="threshold"`, it applies the threshold rules below, bit for bit.
+Every executed work item appends a `TraceRecord` (path, shape stats, pack
+occupancy, wall seconds from just before its ladder to the scores on the
+host) to `self.recorder`. `score()` walks the degradation ladder
 (`DEGRADE_LADDER`) on executor failure or non-finite scores, each
 non-terminal rung guarded by a per-(path, shape-class) circuit breaker
 (`core/health.py`). Every executor call goes through the `_FAULT_HOOK`
-seam below.
+seam below (`repro_torch.testing.faults` arms it).
+
+`loss_and_grad()` is the differentiable twin of `score()` (DESIGN.md §11):
+it plans over `TRAIN_PATHS`, packs once, and runs the packed bodies of
+`kernels/grad.py` (plain PyTorch with the JAX package's backward rules as
+`torch.autograd.Function`s) in `TRAIN_TILE_CHUNK`-tile chunks, or the
+plain reference, stepping down `TRAIN_DEGRADE_LADDER` on failure. No CUDA
+kernel runs on that path (no Pallas kernel runs on the JAX package's), so
+unlike the scoring ladder the train ladder keeps its `reference` rung on
+the card. The port runs on one device: every plan has `devices` 1 and
+every trace record `n_devices` 1.
 
 The device decides what runs, never a flag: on the card the embed stage
 (`embed_graphs`), the head (`pair_scores_from_embeddings`) and the
@@ -63,13 +77,18 @@ import torch
 
 from repro_torch.core.cache import EmbeddingCache, graph_fingerprint, graph_key
 from repro_torch.core.health import CircuitBreaker
+from repro_torch.core.profile import (TraceRecorder, fit_cost_model,
+                                      trace_features)
 from repro_torch.core.validate import GraphValidationError, validate_pairs
 from repro_torch.device import resolve_device
-from repro_torch.params import params_to
+from repro_torch.params import params_to, tree_leaves, tree_map
 
 PATHS = ("reference", "two_kernel", "bucketed_mega", "packed_dense",
          "packed_sparse", "embedding_cache")
 PACKED_PATHS = ("packed_dense", "packed_sparse")
+#: paths with a differentiable executor (DESIGN.md §11): the plain
+#: reference and the packed bodies of `kernels/grad.py`.
+TRAIN_PATHS = ("reference", "packed_dense", "packed_sparse")
 
 #: Graceful-degradation ladder (DESIGN.md §12): every rung computes the
 #: same scores; the dense reference is terminal.
@@ -79,6 +98,12 @@ DEGRADE_LADDER = {
     "bucketed_mega": ("reference",),
     "two_kernel": ("bucketed_mega", "reference"),
     "embedding_cache": ("bucketed_mega", "reference"),
+    "reference": (),
+}
+#: Training ladder: restricted to the differentiable executors (§11).
+TRAIN_DEGRADE_LADDER = {
+    "packed_sparse": ("packed_dense", "reference"),
+    "packed_dense": ("reference",),
     "reference": (),
 }
 
@@ -110,6 +135,33 @@ class NonFiniteOutput(RuntimeError):
     validation — treated like a crash by the degradation ladder."""
 
 
+def tree_all_finite(*trees) -> bool:
+    """True iff every floating tensor (or array) leaf of the given trees is
+    finite — the guard `train.step` uses to skip poisoned update steps."""
+    for leaf in tree_leaves(trees):
+        if isinstance(leaf, torch.Tensor):
+            if leaf.is_floating_point() and not bool(
+                    torch.isfinite(leaf).all()):
+                return False
+        else:
+            arr = np.asarray(leaf)
+            if (np.issubdtype(arr.dtype, np.floating)
+                    and not np.isfinite(arr).all()):
+                return False
+    return True
+
+
+def _tree_add(a, b):
+    """Leafwise a + b of two trees of one structure."""
+    it = iter(tree_leaves(b))
+    return tree_map(lambda x: x + next(it), a)
+
+
+def _zeros_like_tree(params):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
 def _empty_idx() -> np.ndarray:
     return np.empty(0, np.int64)
 
@@ -135,8 +187,10 @@ class ScorePlan:
     invocations tried). On the embedding-cached path `graph_keys` holds the
     canonical key of every graph the plan covers (all lhs, then all rhs),
     `cached_idx` the positions already resident and `to_embed_idx` the
-    first occurrence of each uncached key. The device and cost-model
-    fields keep their defaults until those layers are ported."""
+    first occurrence of each uncached key. `cost_estimates` holds the
+    predicted wall seconds per candidate when the fitted cost model drove
+    the decision (empty when the threshold rules did); `devices` is 1 (the
+    port runs on one device)."""
     path: str
     fallback: str
     fit_idx: np.ndarray
@@ -165,6 +219,14 @@ class ScoringEngine:
     #: auto takes the embedding-cached path when at least this fraction of
     #: a call's unique graphs already have resident embeddings.
     CACHE_MIN_HIT_FRAC = 0.5
+    #: tiles per backward chunk on the packed training paths: the chunk
+    #: loop is both cache blocking and gradient accumulation.
+    TRAIN_TILE_CHUNK = 16
+    #: measured planner: a candidate needs this many clean trace records
+    #: before the cost model may steer it.
+    PLANNER_MIN_SUPPORT = 8
+    #: refit the cost model after this many new records.
+    PLANNER_REFIT_EVERY = 32
 
     def __init__(self, params, cfg, *, path: str = "auto",
                  node_budget: int | None = None,
@@ -175,6 +237,9 @@ class ScoringEngine:
                  breaker_threshold: int = 3,
                  breaker_cooldown_s: float = 30.0,
                  clock: Callable[[], float] = time.monotonic,
+                 recorder: TraceRecorder | None = None,
+                 planner: str = "measured",
+                 grad_fn=None,
                  device=None):
         if path != "auto" and path not in PATHS:
             raise ValueError(f"unknown path {path!r}; expected 'auto' or one "
@@ -182,6 +247,9 @@ class ScoringEngine:
         if validation not in ("strict", "lenient", "off"):
             raise ValueError(f"unknown validation mode {validation!r}; "
                              "expected 'strict', 'lenient' or 'off'")
+        if planner not in ("measured", "threshold"):
+            raise ValueError(f"unknown planner mode {planner!r}; expected "
+                             "'measured' or 'threshold'")
         from repro_torch.kernels.ops import packed_node_budget
 
         self.device = resolve_device(device)
@@ -209,6 +277,24 @@ class ScoringEngine:
         self._clock = clock
         self.breakers: dict[tuple, CircuitBreaker] = {}
         self.counters: Counter = Counter()
+        #: value-and-grad executors, one per (train path, chunk tiles,
+        #: gradient-function kind).
+        self._train_fns: dict[tuple, Callable] = {}
+        #: the swappable gradient-function object (`train/sgf.py`).
+        if grad_fn is None:
+            from repro_torch.train.sgf import StandardGradient
+            grad_fn = StandardGradient()
+        self.grad_fn = grad_fn
+        #: per-call trace ring (+ optional JSONL profile) every executed
+        #: work item appends to; a shared recorder pools several engines'
+        #: samples.
+        self.recorder = TraceRecorder(clock=clock) if recorder is None \
+            else recorder
+        #: "measured": the fitted cost model when every candidate has
+        #: support, else the threshold rules; "threshold": always the rules.
+        self.planner = planner
+        self._model = None
+        self._model_fit_at = -1
 
     # ------------------------------------------------------------- planning
 
@@ -236,24 +322,52 @@ class ScoringEngine:
             avg_degree=nnz / max(nodes, 1), density=nnz / max(cells, 1.0),
             has_labels=has_labels)
 
-    def _select(self, stats: WorkloadStats,
-                cache_hit_frac: float = 0.0) -> tuple[str, str]:
-        """Dispatch decision (path, reason): the JAX engine's structural
-        rules and threshold rules."""
+    def _select(self, stats: WorkloadStats, cache_hit_frac: float = 0.0, *,
+                train: bool = False, n_to_embed: int = 0,
+                keys_known: bool = False) -> tuple[str, str, dict]:
+        """Dispatch decision (path, reason, cost_estimates). Forced paths,
+        empty calls and label-free batches are structural; otherwise the
+        measured planner argmins the fitted cost model when every candidate
+        has support, and a cold or partial profile falls back bit for bit
+        to `_select_threshold`."""
         if self.path != "auto":
-            return self.path, f"forced path={self.path}"
+            if train and self.path not in TRAIN_PATHS:
+                raise ValueError(
+                    f"path {self.path!r} has no VJP-capable executor; "
+                    f"training dispatch is restricted to {TRAIN_PATHS} "
+                    "(DESIGN.md §11)")
+            return self.path, f"forced path={self.path}", {}
         if stats.n_pairs == 0:
-            return "reference", "empty call"
+            return "reference", "empty call", {}
         if not stats.has_labels:
-            return ("bucketed_mega",
-                    "graphs without int labels cannot take a packed path")
-        if cache_hit_frac >= self.CACHE_MIN_HIT_FRAC:
+            return (("reference" if train else "bucketed_mega"),
+                    "graphs without int labels cannot take a packed path",
+                    {})
+        est = self._planner_estimates(stats, train=train,
+                                      n_to_embed=n_to_embed,
+                                      keys_known=keys_known)
+        if est is not None:
+            # Deterministic tie-break: predicted cost, then PATHS order.
+            path = min(est, key=lambda p: (est[p], PATHS.index(p)))
+            ms = ", ".join(f"{p}={est[p] * 1e3:.2f}ms"
+                           for p in sorted(est, key=est.get))
+            return (path, f"measured cost model argmin ({ms})", est)
+        path, reason = self._select_threshold(stats, cache_hit_frac,
+                                              train=train)
+        return path, reason, {}
+
+    def _select_threshold(self, stats: WorkloadStats,
+                          cache_hit_frac: float = 0.0, *,
+                          train: bool = False) -> tuple[str, str]:
+        """The threshold rules: the cold-profile fallback, and the whole
+        decision under `planner="threshold"`."""
+        if not train and cache_hit_frac >= self.CACHE_MIN_HIT_FRAC:
             return ("embedding_cache",
                     f"{cache_hit_frac:.0%} of unique graphs have resident "
                     f"embeddings (>= {self.CACHE_MIN_HIT_FRAC:.0%}): only "
                     "the NTN+FCN head runs")
         if stats.n_pairs < self.MIN_PACK_PAIRS:
-            return ("bucketed_mega",
+            return (("reference" if train else "bucketed_mega"),
                     f"batch of {stats.n_pairs} too small to fill packed tiles"
                     f" (< {self.MIN_PACK_PAIRS})")
         if stats.avg_degree <= self.SPARSE_MAX_DEGREE:
@@ -265,10 +379,89 @@ class ScoringEngine:
                 f"measured avg degree {stats.avg_degree:.2f} > "
                 f"{self.SPARSE_MAX_DEGREE:g}: dense MXU matmul wins")
 
-    def plan(self, pairs: Sequence[tuple]) -> ScorePlan:
+    # ------------------------------------------ measured planner (§15)
+
+    def _cost_model(self):
+        """The fitted per-path latency model, refit lazily every
+        `PLANNER_REFIT_EVERY` new records (None while the profile is too
+        small for even one path)."""
+        rec = self.recorder
+        if rec is None or rec.total_records < self.PLANNER_MIN_SUPPORT:
+            return self._model
+        if (self._model_fit_at < 0
+                or rec.total_records - self._model_fit_at
+                >= self.PLANNER_REFIT_EVERY):
+            self._model = fit_cost_model(
+                rec.records(), min_support=self.PLANNER_MIN_SUPPORT)
+            self._model_fit_at = rec.total_records
+            self.counters["planner_refits"] += 1
+        return self._model
+
+    def _planner_estimates(self, stats: WorkloadStats, *, train: bool,
+                           n_to_embed: int, keys_known: bool) -> dict | None:
+        """Predicted wall seconds per candidate path, or None when the
+        profile cannot steer this call (threshold planner, no model yet, or
+        any candidate below `PLANNER_MIN_SUPPORT`: partial support falls
+        back whole). Candidates: the bucketed and both packed scoring paths
+        (plus the embedding-cached path when this call hashed keys), or
+        `TRAIN_PATHS` under train, keyed `train:<path>`."""
+        if self.planner != "measured":
+            return None
+        model = self._cost_model()
+        if model is None:
+            return None
+        # One device: every candidate's key is its bare path
+        # (`profile.cost_key` with n_devices 1).
+        if train:
+            cand = {p: f"train:{p}" for p in TRAIN_PATHS}
+        else:
+            cand = {p: p for p in ("bucketed_mega", "packed_dense",
+                                   "packed_sparse")}
+            if keys_known:
+                cand["embedding_cache"] = "embedding_cache"
+        if not model.supports(cand.values()):
+            return None
+        est = {}
+        for path, key in cand.items():
+            feats = trace_features(
+                stats.n_pairs, stats.mean_nodes, stats.avg_degree,
+                n_to_embed if path == "embedding_cache" else 0)
+            est[path] = model.predict(key, feats)
+        return est
+
+    def _record_trace(self, kind: str, path: str, n_pairs: int,
+                      plan: ScorePlan, wall_s: float, *,
+                      degraded: Sequence[str] = (), attempts: int = 1):
+        """Append one executed work item to the trace ring, through the
+        fault seam (site "profile") and guarded: a failing recorder never
+        fails the call it observes."""
+        rec = self.recorder
+        if rec is None:
+            return
+        pstats = self.last_pack_stats or {}
+        occ = (float(pstats.get("occupancy_lhs", 0.0)
+                     + pstats.get("occupancy_rhs", 0.0)) / 2.0
+               if pstats else 0.0)
+        try:
+            _call("profile", lambda: rec.record(
+                kind=kind, path=path, n_pairs=int(n_pairs),
+                max_nodes=plan.stats.max_nodes,
+                mean_nodes=plan.stats.mean_nodes,
+                avg_degree=plan.stats.avg_degree,
+                density=plan.stats.density, occupancy=occ,
+                to_embed=len(plan.to_embed_idx),
+                degraded_from=list(degraded), attempts=int(attempts),
+                wall_s=float(wall_s), n_devices=1))
+        except Exception:
+            self.counters["profile_record_errors"] += 1
+
+    def plan(self, pairs: Sequence[tuple], *,
+             train: bool = False) -> ScorePlan:
         """Validate, measure and decide — without running anything.
         Quarantined pairs appear only in `plan.quarantined`; strict mode
-        raises instead."""
+        raises instead. With `train=True` the decision is restricted to
+        `TRAIN_PATHS`: the cache never steers, small and label-free batches
+        land on the reference, and so does the oversize split."""
         n = len(pairs)
         quarantined: tuple = ()
         valid_idx = np.arange(n, dtype=np.int64)
@@ -283,15 +476,22 @@ class ScoringEngine:
             valid, measure_density=self.path in ("auto", "packed_sparse"))
         # Keys are hashed only when the cache could hold answers: the path
         # is forced to the cached one, or auto sees a non-empty cache.
+        # Training never hashes: no path it may pick reads the cache.
         keys: tuple = ()
         hit_frac = 0.0
-        if len(valid) and stats.has_labels and self.cache.capacity > 0 and (
+        n_to_embed = 0
+        if not train and len(valid) and stats.has_labels \
+                and self.cache.capacity > 0 and (
                 self.path == "embedding_cache"
                 or (self.path == "auto" and len(self.cache))):
             keys = self._graph_keys(valid)
             unique = set(keys)
-            hit_frac = sum(1 for k in unique if k in self.cache) / len(unique)
-        path, reason = self._select(stats, hit_frac)
+            hits = sum(1 for k in unique if k in self.cache)
+            hit_frac = hits / len(unique)
+            n_to_embed = len(unique) - hits
+        path, reason, est = self._select(stats, hit_frac, train=train,
+                                         n_to_embed=n_to_embed,
+                                         keys_known=bool(keys))
         cached_idx = to_embed_idx = np.empty(0, np.int64)
         if path == "embedding_cache" and keys:
             hit = [k in self.cache for k in keys]
@@ -312,11 +512,12 @@ class ScoringEngine:
         else:
             fit_idx = np.empty(0, np.int64)
             over_idx = valid_idx
-        return ScorePlan(path=path, fallback=self._bucket_flavor,
+        fallback = "reference" if train else self._bucket_flavor
+        return ScorePlan(path=path, fallback=fallback,
                          fit_idx=fit_idx, over_idx=over_idx, stats=stats,
                          reason=reason, cached_idx=cached_idx,
                          to_embed_idx=to_embed_idx, graph_keys=keys,
-                         quarantined=quarantined)
+                         quarantined=quarantined, cost_estimates=est)
 
     def _graph_keys(self, pairs: Sequence[tuple]) -> tuple:
         """Canonical keys of every graph in the call: all lhs, then all rhs
@@ -477,15 +678,276 @@ class ScoringEngine:
 
     def health(self) -> dict:
         """Breaker snapshots keyed by path and shape class, the error /
-        degradation / quarantine counters and the embedding-LRU counters."""
+        degradation / quarantine counters, the embedding-LRU counters and
+        the measured planner (profile size, fitted model support and
+        residuals)."""
+        rec = self.recorder
+        planner: dict = {"mode": self.planner,
+                         "enabled": self._model is not None
+                         and bool(self._model.weights)}
+        if rec is not None:
+            planner.update(records=rec.total_records,
+                           records_dropped=int(
+                               rec.counters["records_dropped"]),
+                           record_errors=int(rec.counters["record_errors"]))
+        if self._model is not None:
+            planner["model"] = self._model.snapshot()
         return {
             "breakers": {
                 f"{path}[pairs<={b},nodes<={n}]": br.snapshot()
                 for (path, (b, n)), br in sorted(self.breakers.items())},
             "counters": dict(self.counters),
             "cache": self.cache.stats(),
-            "planner": {"mode": "threshold"},
+            "planner": planner,
         }
+
+    # -------------------------------------------------------- training path
+
+    def _sync(self) -> None:
+        """Wait for the card (no-op on the CPU): a recorded wall covers the
+        device work, not just its launches."""
+        if self._on_card():
+            torch.cuda.synchronize(self.device)
+
+    def _train_fn(self, path: str, chunk_tiles: int) -> Callable:
+        """One value-and-grad executor per (train path, chunk tiles,
+        gradient-function kind), cached on the engine. It maps (params,
+        targets, *arrays) -> (sum of squared errors, grads like params),
+        looping over `chunk_tiles`-tile chunks of the packed batch with the
+        grads summed in the loop (cache blocking and accumulation
+        microbatching in one mechanism: the batch is packed once and only
+        the slice moves). The loss -> (value, grads) transform is the
+        engine's `grad_fn` object, applied per chunk."""
+        key = (path, chunk_tiles, self.grad_fn.cache_key)
+        if key not in self._train_fns:
+            if path == "reference":
+                from repro_torch.core.simgnn import pair_score_from_labels
+
+                def sse(params, tgt, *arrays):
+                    return torch.sum(
+                        (pair_score_from_labels(params, *arrays) - tgt) ** 2)
+            else:
+                from repro_torch.kernels import grad as kgrad
+
+                score_fn = (kgrad.sparse_pair_score_grad
+                            if path == "packed_sparse"
+                            else kgrad.packed_pair_score_grad)
+
+                def sse(params, tgt, *arrays):
+                    # Pad pair slots score exact zero against target zero.
+                    return torch.sum((score_fn(params, *arrays) - tgt) ** 2)
+
+            grad_fn = self.grad_fn.value_and_grad(sse)
+            if path == "reference":
+                fn = grad_fn
+            else:
+                def fn(params, tgt, *arrays):
+                    n_chunks = tgt.shape[0] // chunk_tiles
+                    if n_chunks <= 1:
+                        return grad_fn(params, tgt, *arrays)
+                    acc = (torch.zeros((), dtype=torch.float32,
+                                       device=tgt.device),
+                           _zeros_like_tree(params))
+                    for c in range(n_chunks):
+                        sl = slice(c * chunk_tiles, (c + 1) * chunk_tiles)
+                        s, g = grad_fn(params, tgt[sl],
+                                       *(x[sl] for x in arrays))
+                        acc = (acc[0] + s, _tree_add(acc[1], g))
+                    return acc
+            self._train_fns[key] = fn
+        return self._train_fns[key]
+
+    def _packed_sse(self, params, fit_pairs, fit_targets: np.ndarray,
+                    plan: ScorePlan, accum_steps: int,
+                    path: str | None = None):
+        """Sum of squared errors and grads of the packed fit split: pack
+        once, scatter the targets to the [T, P] pair slots, pad the tile
+        axis to a chunk multiple (pad tiles are all zero: exact-zero
+        scores, targets and grads) and run the chunk loop under the fault
+        site `train:<path>`."""
+        from repro_torch.core.batching import next_pow2, pack_pairs
+        from repro_torch.kernels import grad as kgrad
+
+        path = plan.path if path is None else path
+        sparse = path == "packed_sparse"
+        slots = max(8, self.node_budget // 4)
+        if sparse:
+            packed, pstats = self._pack_sparse(fit_pairs, slots,
+                                               plan.stats.avg_degree)
+        else:
+            packed, pstats = pack_pairs(fit_pairs, self.node_budget,
+                                        slots_per_tile=slots,
+                                        device=self.device)
+        self.last_pack_stats = pstats
+
+        pair_mask = packed.pair_mask.cpu().numpy()
+        pair_index = packed.pair_index.cpu().numpy()
+        tgt = np.zeros(pair_mask.shape, np.float32)
+        live = pair_mask > 0
+        tgt[live] = fit_targets[pair_index[live]]
+
+        # A chunk small enough that accum_steps chunks exist and that
+        # padding never exceeds the batch itself; T pads to a chunk
+        # multiple (less than one chunk of pad tiles).
+        t = pair_mask.shape[0]
+        chunk_tiles = min(self.TRAIN_TILE_CHUNK, next_pow2(t, floor=1))
+        while chunk_tiles > 1 and (-(-t // chunk_tiles)) < accum_steps:
+            chunk_tiles //= 2
+        pad = (-t) % chunk_tiles
+
+        def pad_tiles(x):
+            if not pad:
+                return x
+            return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+        arrays = tuple(pad_tiles(x)
+                       for x in kgrad.packed_arrays(packed, sparse=sparse))
+        fn = self._train_fn(path, chunk_tiles)
+        tgt_t = pad_tiles(torch.from_numpy(tgt).to(self.device))
+        return _call(f"train:{path}", lambda: fn(params, tgt_t, *arrays))
+
+    def _reference_sse(self, params, pairs, targets: np.ndarray):
+        """SSE and grads of the plain reference executor (the train-mode
+        fallback for oversized pairs and small batches), bucketed like
+        `_score_bucketed` with power-of-two oversize buckets."""
+        from repro_torch.core.batching import bucket_pairs
+
+        fn = self._train_fn("reference", 1)
+        sse = torch.zeros((), dtype=torch.float32, device=self.device)
+        grads = _zeros_like_tree(params)
+        for _, (lhs, rhs, idxs) in bucket_pairs(
+                pairs, self.cfg.n_node_labels, allow_oversize=True,
+                device=self.device).items():
+            tgt = torch.from_numpy(targets[idxs]).to(self.device)
+            s, g = _call("train:reference",
+                         lambda lhs=lhs, rhs=rhs, tgt=tgt: fn(
+                             params, tgt, lhs.adj, lhs.labels, lhs.mask,
+                             rhs.adj, rhs.labels, rhs.mask))
+            sse = sse + s
+            grads = _tree_add(grads, g)
+        return sse, grads
+
+    def _run_train_ladder(self, start: str, params, sub, tgt: np.ndarray,
+                          plan: ScorePlan, accum_steps: int) -> tuple:
+        """Training twin of `_run_score_ladder`: walk
+        `TRAIN_DEGRADE_LADDER` (reference kept on the card too: no train
+        rung launches a kernel), breaker-gated per (train:path, shape
+        class). Non-terminal rungs that emit a non-finite loss or grads for
+        finite targets fail like crashes; the reference serves whatever it
+        computes. Returns (sse, grads, attempts, degraded, the rung that
+        served)."""
+        rungs = (start,) + (TRAIN_DEGRADE_LADDER.get(start, ())
+                            if self.degrade else ())
+        sc = self._shape_class(plan.stats)
+        degraded: list[str] = []
+        attempts = 0
+        last_err: Exception | None = None
+        for rung in rungs:
+            terminal = rung == "reference"
+            br = None if terminal else self._breaker(f"train:{rung}", sc)
+            if br is not None and not br.allow():
+                self.counters[f"breaker_rejected:train:{rung}"] += 1
+                degraded.append(rung)
+                continue
+            attempts += 1
+            try:
+                if rung in PACKED_PATHS:
+                    s, g = self._packed_sse(params, sub, tgt, plan,
+                                            accum_steps, path=rung)
+                else:
+                    s, g = self._reference_sse(params, sub, tgt)
+                if not terminal and not tree_all_finite(s, g):
+                    raise NonFiniteOutput(
+                        f"train:{rung} produced non-finite loss/grads for "
+                        "finite targets")
+                if br is not None:
+                    br.record_success()
+                return s, g, attempts, degraded, rung
+            except Exception as exc:
+                if br is not None:
+                    br.record_failure()
+                self.counters[f"errors:train:{rung}"] += 1
+                degraded.append(rung)
+                last_err = exc
+                if rung in PACKED_PATHS:
+                    self.last_pack_stats = None
+        raise last_err if last_err is not None else RuntimeError(
+            f"no executable train rung for {start} (ladder exhausted)")
+
+    def loss_and_grad(self, pairs: Sequence[tuple], targets, *,
+                      params=None, accum_steps: int = 1):
+        """MSE loss and parameter gradients for one batch of graph pairs,
+        the differentiable twin of `score()` (DESIGN.md §11).
+
+        Plans over `TRAIN_PATHS` with the oversize split going to the
+        reference. The packed paths pack once and always loop over
+        `TRAIN_TILE_CHUNK`-tile chunks; `accum_steps` (a power of two)
+        guarantees at least that many chunks. Non-finite targets are
+        dropped before planning (counted in `nonfinite_targets`), invalid
+        graphs are quarantined, and each work item walks
+        `TRAIN_DEGRADE_LADDER` and lands a `train:<rung>` trace record. The
+        loss is normalised by the pairs actually scored.
+
+        `params` defaults to the engine's own; a training loop passes its
+        evolving copy. Returns (loss, grads): a float32 scalar tensor and a
+        float32 tree like params, on the engine's device."""
+        if accum_steps < 1 or accum_steps & (accum_steps - 1):
+            raise ValueError(f"accum_steps must be a power of two, got "
+                             f"{accum_steps}")
+        params = self.params if params is None else params_to(params,
+                                                              self.device)
+        if isinstance(targets, torch.Tensor):
+            targets = targets.detach().cpu().numpy()
+        targets = np.asarray(targets, np.float32).reshape(-1)
+        if targets.shape[0] != len(pairs):
+            raise ValueError(f"{len(pairs)} pairs but {targets.shape[0]} "
+                             "targets")
+        finite_t = np.isfinite(targets)
+        if not finite_t.all():
+            self.counters["nonfinite_targets"] += int((~finite_t).sum())
+            keep = np.flatnonzero(finite_t)
+            pairs = [pairs[i] for i in keep]
+            targets = targets[keep]
+        plan = self.plan(pairs, train=True)
+        self.last_plan = plan
+        self.last_pack_stats = None
+        if plan.quarantined:
+            self.counters["quarantined_graphs"] += len(plan.quarantined)
+        zero = _zeros_like_tree(params)
+        loss0 = torch.zeros((), dtype=torch.float32, device=self.device)
+        if not len(pairs):
+            return loss0, zero
+        if not plan.stats.has_labels:
+            raise ValueError(
+                "graphs must carry int node labels ('labels'); a dense-"
+                "feats executor is not implemented yet (ROADMAP open item)")
+        sse = loss0
+        grads = zero
+        degraded: list[str] = []
+        attempts = 0
+        n_live = 0
+        for start, idx in ((plan.path, plan.fit_idx),
+                           ("reference", plan.over_idx)):
+            if not len(idx):
+                continue
+            t0 = self._clock()
+            s, g, a, d, rung = self._run_train_ladder(
+                start, params, [pairs[i] for i in idx], targets[idx],
+                plan, accum_steps)
+            self._sync()
+            self._record_trace("train", f"train:{rung}", len(idx), plan,
+                               self._clock() - t0, degraded=d, attempts=a)
+            sse = sse + s
+            grads = _tree_add(grads, g)
+            attempts += a
+            degraded.extend(d)
+            n_live += len(idx)
+        self.last_plan = replace(plan, degraded_from=tuple(degraded),
+                                 attempts=max(attempts, 1))
+        if not n_live:
+            return loss0, zero
+        n = float(n_live)
+        return sse / n, tree_map(lambda x: x / n, grads)
 
     # ------------------------------------------------- embedding-cached path
 
@@ -721,8 +1183,14 @@ class ScoringEngine:
                                (plan.fallback, plan.over_idx)):
                 if not len(idx):
                     continue
-                a, d, _ = self._run_score_ladder(
+                # The ladder returns with the scores on the host (each rung
+                # copies them out), so the wall covers the device work.
+                t0 = self._clock()
+                a, d, rung = self._run_score_ladder(
                     start, [pairs[i] for i in idx], idx, out, plan)
+                self._record_trace("score", rung, len(idx), plan,
+                                   self._clock() - t0, degraded=d,
+                                   attempts=a)
                 attempts += a
                 degraded.extend(d)
             self.last_plan = replace(plan, degraded_from=tuple(degraded),

@@ -64,8 +64,11 @@ def gcn_stack(layers, adj_norm, h, mask):
 def gcn_stack_from_labels(layers, adj_norm, labels, mask):
     """GCN stack whose input is int node labels [B, N] instead of one-hot
     features: the first H·W is the row gather W1[labels] (exactly equal to
-    the one-hot product)."""
-    hw = layers[0]["w"][labels.long()] + layers[0]["b"]
+    the one-hot product; its backward is `kernels.common.label_gather`'s
+    one-hot contraction, deterministic on the card)."""
+    from repro_torch.kernels.common import label_gather
+
+    hw = label_gather(layers[0]["w"], labels) + layers[0]["b"]
     h = torch.relu(torch.matmul(adj_norm, hw)) * mask[..., None]
     for p in layers[1:]:
         h = gcn_layer(p, adj_norm, h, mask, activation=True)

@@ -117,3 +117,14 @@ def pair_score_from_labels(params, adj1, labels1, mask1,
                               torch.cat([labels1, labels2]), mask)
     hg1, hg2 = attention_pooling(params["att"], h, mask).chunk(2)
     return fcn_head(params["fcn"], ntn_scores(params["ntn"], hg1, hg2))
+
+
+def simgnn_loss(params, batch):
+    """MSE against exp(-normalised GED) targets (SimGNN's training
+    objective). batch: a dict with adj1, feats1, mask1, adj2, feats2,
+    mask2 and target [B] (a tensor or numpy)."""
+    pred = pair_score(params, batch["adj1"], batch["feats1"], batch["mask1"],
+                      batch["adj2"], batch["feats2"], batch["mask2"])
+    target = torch.as_tensor(batch["target"], dtype=pred.dtype,
+                             device=pred.device)
+    return ((pred - target) ** 2).mean()

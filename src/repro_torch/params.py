@@ -8,6 +8,10 @@ so the port's public functions take the same trees the JAX package does.
 parity tests convert the JAX package's params with `params_from_numpy`
 instead of re-initializing.
 
+`adamw_state_from_numpy` / `adamw_state_to_numpy` move an AdamW state
+(step, m, v; the JAX package's `AdamWState` as numpy arrays) the same way,
+so an optimizer step can be held against the JAX package's.
+
 bfloat16 leaves stay bfloat16 both ways. numpy has no native bfloat16; the
 JAX stack hands them over as `ml_dtypes.bfloat16` arrays, which are moved
 bit for bit through a 16-bit integer view.
@@ -22,10 +26,12 @@ import torch
 
 
 def tree_map(fn: Callable, tree):
-    """Apply `fn` to every leaf of a nested dict/list/tuple tree, keeping
-    its structure and key order."""
+    """Apply `fn` to every leaf of a nested dict/list/tuple (or named
+    tuple) tree, keeping its structure and key order."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):    # NamedTuple
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
@@ -70,3 +76,22 @@ def params_to(params, device=None, dtype: torch.dtype | None = None):
     """Move (and optionally cast) every leaf; a no-op for leaves already
     there."""
     return tree_map(lambda t: t.to(device=device, dtype=dtype), params)
+
+
+def adamw_state_from_numpy(state, device="cpu"):
+    """An AdamW state with `step`, `m` and `v` fields of numpy (or
+    array-like) leaves -> the port's `train.optimizer.AdamWState` on
+    `device` (step a scalar int32 tensor)."""
+    from repro_torch.train.optimizer import AdamWState
+
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)),
+                                        dtype=torch.int32, device=device),
+                      m=params_from_numpy(state.m, device),
+                      v=params_from_numpy(state.v, device))
+
+
+def adamw_state_to_numpy(state):
+    """The port's AdamWState -> (step, m, v) as numpy: an int32 scalar
+    array and two numpy trees (the JAX state's fields, in order)."""
+    return (np.asarray(int(state.step), np.int32),
+            params_to_numpy(state.m), params_to_numpy(state.v))

@@ -191,6 +191,7 @@ def simgnn_query_server(params, cfg, *, use_kernels: bool = False,
                         path: str | None = None, cache_size: int = 4096,
                         validation: str = "lenient",
                         clock: Callable[[], float] = time.perf_counter,
+                        recorder=None, planner: str = "measured",
                         device=None):
     """Returns score_fn(list[(g1, g2)]) -> np.ndarray of similarity scores,
     scored on `device` (None = the card).
@@ -203,8 +204,9 @@ def simgnn_query_server(params, cfg, *, use_kernels: bool = False,
     the engine's per-graph embedding LRU (0 disables it); the LRU fills on
     the embedding-cached path (forced, or warmed through
     `score_fn.engine.embed_graphs`), after which auto dispatch serves
-    recurring graphs embedding-free. `validation` and `clock` are
-    forwarded to the engine.
+    recurring graphs embedding-free. `validation`, `clock`, `recorder` (a
+    `core.profile.TraceRecorder` several servers may share) and `planner`
+    ("measured" or "threshold") are forwarded to the engine.
 
     The returned score_fn exposes `bucket_fns` (the engine's per-bucket
     callable cache), `last_pack_stats`, `node_budget`, `last_plan` and
@@ -217,7 +219,8 @@ def simgnn_query_server(params, cfg, *, use_kernels: bool = False,
                 else "reference")
     engine = ScoringEngine(params, cfg, path=path, node_budget=node_budget,
                            cache_size=cache_size, validation=validation,
-                           clock=clock, device=device)
+                           clock=clock, recorder=recorder, planner=planner,
+                           device=device)
 
     def score(pairs):
         out = engine.score(pairs)

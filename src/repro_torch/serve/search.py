@@ -21,9 +21,10 @@ A failing prefilter degrades the query to the exact scan and is counted
 (`prefilter_degraded`). All scoring goes through `core.engine.
 ScoringEngine` (`embed_graphs`, `prefilter_topm`,
 `pair_scores_from_embeddings`), so the device rule and the fault seam stay
-in one place. Single device: the prefilter scans the corpus as one span.
-The JAX server's `recorder=` and `runtime=` (trace recording, the
-multi-device span split) and `embed_with_kernels=` are not ported.
+in one place. `recorder=` hands the engine a shared
+`core.profile.TraceRecorder`. Single device: the prefilter scans the
+corpus as one span. The JAX server's `runtime=` (the multi-device span
+split) and `embed_with_kernels=` are not ported.
 """
 
 from __future__ import annotations
@@ -121,13 +122,13 @@ class SimilaritySearchServer:
                  shard_rows: int = DEFAULT_SHARD_ROWS,
                  recall_sample_every: int = 0,
                  clock: Callable[[], float] = time.perf_counter,
-                 device=None):
+                 recorder=None, device=None):
         #: injectable timing source for every SearchStats stage timer; the
-        #: same clock feeds the engine (breaker cool-downs).
+        #: same clock feeds the engine (breaker cool-downs, trace records).
         self._clock = clock
         self.engine = ScoringEngine(params, cfg, path="embedding_cache",
                                     cache_size=cache_size, clock=clock,
-                                    device=device)
+                                    recorder=recorder, device=device)
         self.corpus: list[dict] = []
         self.corpus_emb = None
         self.stats = SearchStats()

@@ -23,6 +23,8 @@ calls of the expert FFN and of flash attention run the tensor-core
 bounds.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -63,6 +65,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models.init import init_params as init_lm_params
 from repro_torch.params import params_to
 from repro_torch.serve.step import greedy_generate
+from repro_torch.testing import faults
 
 ATOL_PACKED = 1e-6
 ATOL_BUCKETED = 2e-5
@@ -461,22 +464,13 @@ def test_engine_on_the_card_raises_when_every_kernel_fails(cuda):
     """On the card the ladder ends at its last kernel rung: with every
     kernel rung failing the engine raises, and the plain reference is
     never asked for scores."""
-    from repro_torch.core import engine as engine_mod
-
     p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
     card = ScoringEngine(p, CONFIG, device=cuda)
     sites = []
-
-    def hook(site, thunk):
-        sites.append(site)
-        raise RuntimeError(f"injected fault at {site}")
-
-    engine_mod._FAULT_HOOK = hook
-    try:
+    with faults.inject("packed_sparse"), faults.inject("packed_dense"), \
+            faults.inject("bucketed_mega"), _sites_seen(sites):
         with pytest.raises(RuntimeError, match="bucketed_mega"):
             card.score(query_pairs(5, 64))
-    finally:
-        engine_mod._FAULT_HOOK = None
     assert sites == ["packed_sparse", "packed_dense", "bucketed_mega"]
     assert card.health()["counters"] == {
         "errors:packed_sparse": 1, "errors:packed_dense": 1,
@@ -905,33 +899,36 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     assert retrieval.blocked_topm.launches == before
 
 
-def _fault(site, mode="raise"):
-    """A `_FAULT_HOOK` that fails (or NaNs) every call at `site`."""
-    def hook(s, thunk):
-        if s == site and mode == "raise":
-            raise RuntimeError(f"injected fault at {s}")
-        out = thunk()
-        return torch.full_like(out, float("nan")) if s == site else out
-    return hook
+@contextlib.contextmanager
+def _sites_seen(sites):
+    """Records every site the armed seam sees, in order; the hook that
+    fires stays `repro_torch.testing.faults`'."""
+    from repro_torch.core import engine as engine_mod
+
+    armed = engine_mod._FAULT_HOOK
+
+    def hook(site, thunk):
+        sites.append(site)
+        return armed(site, thunk)
+    engine_mod._FAULT_HOOK = hook
+    try:
+        yield
+    finally:
+        engine_mod._FAULT_HOOK = armed
 
 
 @pytest.mark.parametrize("mode", ("raise", "nan"))
 def test_engine_on_the_card_raises_when_the_head_fails(cuda, mode):
     """No plain head stands in for the head kernel on the card: the head
     raises, and a cached-path call steps down to the bucketed kernel."""
-    from repro_torch.core import engine as engine_mod
-
     p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
     card = ScoringEngine(p, CONFIG, path="embedding_cache", device=cuda)
     h = torch.randn((6, CONFIG.gcn_dims[-1]), device=cuda)
     pairs = query_pairs(5, 16)
-    engine_mod._FAULT_HOOK = _fault("head", mode)
-    try:
+    with faults.inject("head", mode=mode):
         with pytest.raises(RuntimeError):
             card.pair_scores_from_embeddings(h, h)
         out = card.score(pairs)
-    finally:
-        engine_mod._FAULT_HOOK = None
     plan = card.last_plan
     assert plan.degraded_from == ("embedding_cache",)
     assert np.isfinite(out).all()
@@ -942,16 +939,11 @@ def test_engine_on_the_card_raises_when_the_head_fails(cuda, mode):
 def test_engine_on_the_card_drops_a_failed_embed_bucket(cuda):
     """A failing embed bucket is dropped as NaN rows and counted; no plain
     embedder retries it on the card."""
-    from repro_torch.core import engine as engine_mod
-
     p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
     card = ScoringEngine(p, CONFIG, path="embedding_cache", device=cuda)
     graphs = zipf_corpus(3, 24)
-    engine_mod._FAULT_HOOK = _fault("embed")
-    try:
+    with faults.inject("embed"):
         emb = card.embed_graphs(graphs)
-    finally:
-        engine_mod._FAULT_HOOK = None
     assert np.isnan(emb).all()
     c = card.counters
     assert c["embed_dropped_graphs"] == len(graphs)
@@ -1584,3 +1576,79 @@ def test_recurrent_lm_on_the_card_matches_the_cpu(cuda, arch, prompt_len):
     assert launched == (5 * kinds.count("rwkv"), 5 * kinds.count("mamba"),
                         kinds.count("attn") if prompt_len >= 2048 else 0)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# ------------------------------------------------------- training on the card
+
+
+#: the training path's bounds, card against CPU (tests/test_grad.py's
+#: GRAD_ATOL_F32 on every gradient leaf, 1e-6 relative on the loss).
+GRAD_ATOL_F32 = 1e-5
+
+
+def _train_batch(seed=7, batch=32):
+    from repro_torch.data.graphs import pair_stream
+
+    b = next(pair_stream(seed, batch, device="cpu"))
+    return b["pairs"], b["target"]
+
+
+@pytest.mark.parametrize("path", ("auto", "packed_dense", "reference"))
+def test_loss_and_grad_on_the_card_matches_the_cpu(cuda, path):
+    from repro_torch.params import tree_leaves
+
+    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    pairs, target = _train_batch()
+    card = ScoringEngine(p, CONFIG, path=path, device=cuda)
+    host = ScoringEngine(p, CONFIG, path=path, device="cpu")
+    launched = sparse_pair_score.launches + packed_pair_score.launches
+    cl, cg = card.loss_and_grad(pairs, target)
+    hl, hg = host.loss_and_grad(pairs, target)
+    assert card.last_plan.path == host.last_plan.path
+    assert card.last_plan.degraded_from == ()
+    assert abs(float(cl) - float(hl)) <= 1e-6 * abs(float(hl))
+    for a, b in zip(tree_leaves(cg), tree_leaves(hg)):
+        assert a.is_cuda
+        assert float((a.cpu() - b).abs().max()) <= GRAD_ATOL_F32
+    # training launches no scoring kernel
+    assert sparse_pair_score.launches + packed_pair_score.launches == \
+        launched
+
+
+@pytest.mark.parametrize("path", ("packed_sparse", "packed_dense",
+                                  "reference"))
+def test_backward_bits_deterministic_on_the_card(cuda, path):
+    """No backward rule sums with atomics: two runs give the same bits."""
+    from repro_torch.params import tree_leaves
+
+    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    pairs, target = _train_batch(9, 64)
+    card = ScoringEngine(p, CONFIG, path=path, device=cuda)
+    runs = [card.loss_and_grad(pairs, target, accum_steps=2)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(tree_leaves(runs[0][1]), tree_leaves(runs[1][1])):
+        assert torch.equal(a, b)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.params import tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_simgnn_train_step
+
+    p = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    pairs, target = _train_batch(11, 64)
+    out = []
+    for dev in (cuda, "cpu"):
+        eng = ScoringEngine(p, CONFIG, device=dev)
+        step = build_simgnn_train_step(eng, peak_lr=1e-2)
+        params = eng.params
+        new, state, metrics = step(params, adamw_init(params),
+                                   {"pairs": pairs, "target": target})
+        assert "skipped" not in metrics and int(state.step) == 1
+        out.append((new, metrics))
+    (cp, cm), (hp, hm) = out
+    assert abs(float(cm["loss"]) - float(hm["loss"])) <= \
+        1e-6 * abs(float(hm["loss"]))
+    for a, b in zip(tree_leaves(cp), tree_leaves(hp)):
+        assert float((a.cpu() - b).abs().max()) <= GRAD_ATOL_F32

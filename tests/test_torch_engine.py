@@ -8,8 +8,8 @@ scores within the parity matrix's bounds (tests/test_parity_matrix.py):
 1e-6 for reference / packed_dense / packed_sparse, 2e-5 for bucketed_mega,
 2e-2 for bf16 params. Also pinned: the oversize split, quarantine
 (lenient NaN, strict raise), the empty call, a ladder walk through the
-port's `_FAULT_HOOK`, and the copied validation, breaker and MicroBatcher
-modules.
+port's `_FAULT_HOOK` (armed by `repro_torch.testing.faults`), and the
+copied validation, breaker and MicroBatcher modules.
 """
 
 import dataclasses
@@ -35,6 +35,7 @@ from repro_torch.core.simgnn import SimGNNConfig
 from repro_torch.data.graphs import random_graph
 from repro_torch.params import params_from_numpy
 from repro_torch.serve import batching as tserve
+from repro_torch.testing import faults as tfaults
 from test_parity_matrix import ATOL_BF16, ATOL_F32
 
 CFG = SimGNNConfig()
@@ -170,19 +171,10 @@ def test_fault_hook_ladder_walk_matches_jax():
     counted exactly as the JAX engine under `repro.testing.faults`."""
     pairs = list(_pairs(12))
     jax_engine, engine = _engines()
-
-    def hook(site, thunk):
-        if site == "packed_sparse":
-            raise RuntimeError("injected fault at packed_sparse")
-        return thunk()
-
     with faults.inject("packed_sparse"):
         want = jax_engine.score(pairs)
-    engine_mod._FAULT_HOOK = hook
-    try:
+    with tfaults.inject("packed_sparse"):
         got = engine.score(pairs)
-    finally:
-        engine_mod._FAULT_HOOK = None
     jp, tp = jax_engine.last_plan, engine.last_plan
     assert tp.degraded_from == jp.degraded_from == ("packed_sparse",)
     assert tp.attempts == jp.attempts == 2

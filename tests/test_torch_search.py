@@ -14,6 +14,7 @@ head retries and its prefilter -> exact-scan degradation, with the same
 counters.
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -38,6 +39,7 @@ from repro_torch.core.simgnn import SimGNNConfig
 from repro_torch.data import graphs as tgraphs
 from repro_torch.params import params_from_numpy
 from repro_torch.serve.search import SimilaritySearchServer
+from repro_torch.testing import faults as tfaults
 from test_parity_matrix import ATOL_F32
 
 CFG = SimGNNConfig()
@@ -70,31 +72,20 @@ def _queries(seed, n):
     return [next(stream)["query"] for _ in range(n)]
 
 
-def _hook(site, mode="raise", sites=None):
-    """The port's `_FAULT_HOOK` twin of `repro.testing.faults`: raise at
-    (or NaN the output of) every call at `site`."""
-    def hook(s, thunk):
-        if sites is not None:
-            sites.append(s)
-        if s == site and mode == "raise":
-            raise RuntimeError(f"injected fault at {s}")
-        out = thunk()
-        if s != site:
-            return out
-        if isinstance(out, tuple):
-            return tuple(x.float().fill_(np.nan) if x.is_floating_point()
-                         else x for x in out)
-        return out.clone().fill_(np.nan)
-    return hook
+@contextlib.contextmanager
+def _sites_seen(sites):
+    """Records every site the armed seam sees, in order; the hook that
+    fires stays `repro_torch.testing.faults`'."""
+    armed = engine_mod._FAULT_HOOK
 
-
-@pytest.fixture
-def armed():
-    """Arms the port's fault seam with a hook; disarms after the test."""
-    def arm(hook):
-        engine_mod._FAULT_HOOK = hook
-    yield arm
-    engine_mod._FAULT_HOOK = None
+    def hook(site, thunk):
+        sites.append(site)
+        return armed(site, thunk)
+    engine_mod._FAULT_HOOK = hook
+    try:
+        yield
+    finally:
+        engine_mod._FAULT_HOOK = armed
 
 
 # ------------------------------------------------- generators, keys, cache
@@ -171,12 +162,9 @@ def test_store_round_trip_corruption_and_fs_hook(tmp_path):
     with pytest.raises(tstore.StoreError):
         store.read_shard(store.shard_infos()[1])
     # The write seam: a torn shard and a lost manifest.
-    tstore._FS_HOOK = (lambda site, path, data: data[:-4]
-                       if site == "store:shard" else None)
-    try:
+    with tfaults.fs_inject("store:shard", "torn"), \
+            tfaults.fs_inject("store:manifest", "missing"):
         tstore.ShardStore(str(tmp_path / "torn")).write(m, shard_rows=5)
-    finally:
-        tstore._FS_HOOK = None
     with pytest.raises(tstore.ManifestError, match="no manifest"):
         tstore.ShardStore(str(tmp_path / "torn")).manifest()
 
@@ -243,7 +231,7 @@ def test_auto_flips_to_the_cache_like_jax():
 
 @pytest.mark.parametrize("site,mode", (("embed", "raise"), ("embed", "nan"),
                                        ("head", "raise"), ("head", "nan")))
-def test_cpu_fault_retries_match_jax(armed, site, mode):
+def test_cpu_fault_retries_match_jax(site, mode):
     """On the CPU a failing embed bucket or head is retried on the plain
     model, counted as the JAX engine counts it."""
     pairs = list(zip(_graphs(20, 5), _graphs(21, 5)))
@@ -253,15 +241,15 @@ def test_cpu_fault_retries_match_jax(armed, site, mode):
                          device="cpu")
     with faults.inject(site, mode=mode):
         want = jeng.score(pairs)
-    armed(_hook(site, mode))
-    got = teng.score(pairs)
+    with tfaults.inject(site, mode=mode):
+        got = teng.score(pairs)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=ATOL_F32["embedding_cache"])
     assert teng.health()["counters"] == jeng.health()["counters"]
     _check_plan(teng.last_plan, jeng.last_plan)
 
 
-def test_cpu_embed_bucket_dropped_when_both_embedders_fail(armed):
+def test_cpu_embed_bucket_dropped_when_both_embedders_fail():
     graphs = _graphs(22, 6, max_n=16)
     jeng = JaxEngine(_jparams(), JCFG, path="embedding_cache",
                      planner="threshold")
@@ -270,15 +258,9 @@ def test_cpu_embed_bucket_dropped_when_both_embedders_fail(armed):
     with faults.inject("embed"), faults.inject("embed_fallback"):
         want = jeng.embed_graphs(graphs)
     sites = []
-
-    def hook(s, thunk):
-        sites.append(s)
-        if s in ("embed", "embed_fallback"):
-            raise RuntimeError(f"injected fault at {s}")
-        return thunk()
-
-    armed(hook)
-    got = teng.embed_graphs(graphs)
+    with tfaults.inject("embed"), tfaults.inject("embed_fallback"), \
+            _sites_seen(sites):
+        got = teng.embed_graphs(graphs)
     assert np.isnan(got).all() and np.isnan(want).all()
     assert teng.counters == jeng.counters
     assert teng.counters["embed_dropped_graphs"] == len(graphs)
@@ -362,7 +344,7 @@ def test_port_load_recovers_a_bad_shard(tmp_path):
 
 
 @pytest.mark.parametrize("mode", ("raise", "nan"))
-def test_prefilter_fault_degrades_to_exact_like_jax(armed, mode):
+def test_prefilter_fault_degrades_to_exact_like_jax(mode):
     corpus = tgraphs.zipf_corpus(48, 48)
     js = JaxServer(_jparams(), JCFG)
     ts = SimilaritySearchServer(_tparams(), CFG, device="cpu")
@@ -372,8 +354,8 @@ def test_prefilter_fault_degrades_to_exact_like_jax(armed, mode):
     exact = ts.search(queries, k=5, mode="exact")
     with faults.inject("prefilter", mode=mode):
         want = js.search(queries, k=5, mode="two_stage", prefilter_m=8)
-    armed(_hook("prefilter", mode))
-    got = ts.search(queries, k=5, mode="two_stage", prefilter_m=8)
+    with tfaults.inject("prefilter", mode=mode):
+        got = ts.search(queries, k=5, mode="two_stage", prefilter_m=8)
     for (gi, gs), (wi, _), (ei, es) in zip(got, want, exact):
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_array_equal(gi, ei)
