@@ -35,8 +35,14 @@ share and the crossovers the fit implies; gating its scores). Phase 19
 trains SimGNN-AIDS on the card through `ScoringEngine.loss_and_grad` and
 `build_simgnn_train_step` (no CUDA kernel runs there), held against the
 CPU, with the step's time split, its idle share and each backward rule
-timed alone. Phases 4-7 pin `planner="threshold"`. Every failed check
-exits non-zero.
+timed alone. Phase 20 runs the training launcher (`python -m
+repro_torch.launch.train`) in a process killed at a step (exit 42) and a
+second one that resumes it from its checkpoint, holds the final params
+and AdamW state bit-equal to an uninterrupted run's on the card (and
+restored onto the CPU), times a checkpoint's save and verified restore,
+and runs the three examples (`repro_torch.examples`: quickstart,
+two-stage simgnn_search with the kernels, serve_lm against the CPU).
+Phases 4-7 pin `planner="threshold"`. Every failed check exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -96,6 +102,7 @@ without one.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -210,6 +217,12 @@ TRAIN_BATCH = 128
 TRAIN_STEPS = 20
 GRAD_ATOL_F32 = 1e-5
 TRAIN_PARAM_BOUND = 1e-4
+#: phase 20: the launcher's run (SimGNN-AIDS, its default 128-pair
+#: batches), a checkpoint every LAUNCH_CKPT_EVERY steps, killed once step
+#: LAUNCH_FAIL_AT has run.
+LAUNCH_STEPS = 12
+LAUNCH_CKPT_EVERY = 4
+LAUNCH_FAIL_AT = 6
 #: the backward rules' `torch.autograd.Function`s whose forward inputs a
 #: card training step captures (both edge-list rules share one class, as
 #: both packed-CSR rules do)
@@ -676,6 +689,10 @@ def main() -> int:
     phase("18 the measured planner on the card")
     report["train"] = train_phase(params, dev, reset_counts, read_counts)
     phase("19 SimGNN training on the card")
+
+    # ---- phase 20: the launcher, checkpoints and the examples ----------
+    report["launcher"] = launcher_phase(dev, reset_counts, read_counts)
+    phase("20 training launcher, checkpoints and examples on the card")
     report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
@@ -3432,6 +3449,161 @@ def train_phase(params, dev, reset_counts, read_counts) -> dict:
               f"{rules[name]['calls_a_step']} calls a step; shapes "
               f"{rules[name]['shape']}")
     report["backward_rules"] = rules
+    return report
+
+
+def _launch(ckpt_dir: Path, *extra: str) -> subprocess.CompletedProcess:
+    """`python -m repro_torch.launch.train` in a process of its own."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+           str(LAUNCH_STEPS), "--ckpt-every", str(LAUNCH_CKPT_EVERY),
+           "--ckpt-dir", str(ckpt_dir), "--log-every", "1", *extra]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=300, env={**os.environ,
+                                            "PYTHONPATH": str(ROOT / "src")})
+    print(f"  $ python -m repro_torch.launch.train {' '.join(cmd[3:])}: "
+          f"exit {proc.returncode}; last line: "
+          f"{(proc.stdout.strip().splitlines() or [''])[-1]}")
+    return proc
+
+
+def _bit_equal(a, b) -> bool:
+    from repro_torch.params import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+
+
+def launcher_phase(dev, reset_counts, read_counts) -> dict:
+    """Phase 20: the training launcher, checkpoints and the examples on the
+    card, through the entry points a user runs.
+
+    `python -m repro_torch.launch.train` (SimGNN-AIDS, 128-pair batches,
+    LAUNCH_STEPS steps, a checkpoint every LAUNCH_CKPT_EVERY) runs in a
+    process of its own with `--simulate-failure LAUNCH_FAIL_AT` and must
+    exit with 42; a second process resumes it from its last checkpoint; an
+    uninterrupted run goes through `launch.train.main` in this process.
+    Gates: the resumed run's final checkpoint restores onto the card
+    bit-equal to the uninterrupted run's params and AdamW state, and onto
+    the CPU bit-equal too. Then `quickstart` (kernel scores within 1e-6 of
+    the plain ones, the embedding and head kernels launched),
+    `simgnn_search --kernels --topk 5 --corpus 1024 --mode two_stage` and
+    `serve_lm` (tokens equal to the CPU's up to a flip under the CPU's
+    top-2 margin LM_F32_ATOL) run on the card. Printed: the step ms
+    (median, from the loop's own timing, which synchronizes on the loss),
+    save and restore ms of the final checkpoint (median of 5, CUDA
+    synchronized), its bytes, and each example's kernel launches."""
+    import shutil
+
+    from repro_torch.ckpt import manager as ckpt
+    from repro_torch.configs import reduced_config
+    from repro_torch.examples import quickstart, serve_lm, simgnn_search
+    from repro_torch.launch import train as launch
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to
+
+    work = ROOT / "build" / "launcher_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    report: dict = {"steps": LAUNCH_STEPS, "ckpt_every": LAUNCH_CKPT_EVERY,
+                    "fail_at": LAUNCH_FAIL_AT}
+    try:
+        killed = _launch(work / "killed", "--simulate-failure",
+                         str(LAUNCH_FAIL_AT))
+        assert killed.returncode == 42, killed.stdout + killed.stderr
+        last = LAUNCH_FAIL_AT // LAUNCH_CKPT_EVERY * LAUNCH_CKPT_EVERY
+        left = sorted(p.name for p in (work / "killed").iterdir())
+        assert left == [f"step_{last:09d}"], left
+        resumed = _launch(work / "killed")
+        assert resumed.returncode == 0, resumed.stdout + resumed.stderr
+        assert f"[loop] resumed from step {last}" in resumed.stdout, \
+            resumed.stdout
+        straight = launch.main(["--steps", str(LAUNCH_STEPS), "--ckpt-every",
+                                str(LAUNCH_CKPT_EVERY), "--ckpt-dir",
+                                str(work / "straight"), "--log-every", "1"])
+        like = (straight.params, straight.opt_state)
+        assert straight.params["att"]["w"].is_cuda
+        final = ckpt.restore(str(work / "killed"), LAUNCH_STEPS, like)
+        same = _bit_equal(final, like)
+        on_host = ckpt.restore(str(work / "killed"), LAUNCH_STEPS,
+                               params_to(like, "cpu"))
+        host_same = _bit_equal(on_host, like) and not \
+            on_host[0]["att"]["w"].is_cuda
+        print(f"launcher: killed at step {LAUNCH_FAIL_AT} (exit 42), "
+              f"resumed from step {last}; final params and AdamW state "
+              f"bit-equal to the uninterrupted run's on the card: {same}, "
+              f"restored onto the CPU bit-equal: {host_same}")
+        assert same and host_same
+        step_ms = [1e3 * r["sec_per_step"] for r in straight.history]
+        saves, restores = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(str(work / "timed"), LAUNCH_STEPS, like)
+            saves.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            ckpt.restore(str(work / "timed"), LAUNCH_STEPS, like)
+            torch.cuda.synchronize()
+            restores.append(1e3 * (time.perf_counter() - t0))
+        step_dir = work / "timed" / f"step_{LAUNCH_STEPS:09d}"
+        nbytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        n_leaves = len(ckpt._flatten_with_paths(like)[0])
+        print(f"launcher step (median of steps 1..{LAUNCH_STEPS - 1}, loop "
+              f"timing): {statistics.median(step_ms[1:]):.3f} ms, first "
+              f"step {step_ms[0]:.3f} ms; checkpoint of {n_leaves} leaves, "
+              f"{nbytes} bytes: save {statistics.median(saves):.3f} "
+              f"ms (min {min(saves):.3f}), verified restore onto the card "
+              f"{statistics.median(restores):.3f} ms (min "
+              f"{min(restores):.3f}); median of 5")
+        report.update(bit_equal=same, host_bit_equal=host_same,
+                      step_ms=step_ms, save_ms=saves, restore_ms=restores,
+                      ckpt_bytes=nbytes, losses=[r["loss"] for r in
+                                                 straight.history])
+
+        reset_counts()
+        quick = quickstart.main([])
+        counts = read_counts()
+        err = float((quick["scores_kernel"] - quick["scores"]).abs().max())
+        print(f"quickstart on the card: kernel path against plain path, max "
+              f"abs err {err:.3e} (bound 1e-06); launches {counts}")
+        assert err <= 1e-6 and counts["fused_gcn"] and counts["simgnn_head"]
+        report["quickstart"] = {"err": err, "launches": counts}
+
+        reset_counts()
+        search = simgnn_search.main(["--kernels", "--topk", "5", "--corpus",
+                                     "1024", "--mode", "two_stage"])
+        counts = read_counts()
+        idx, scores = search["top"]
+        st = search["server"].stats
+        print(f"simgnn_search on the card: launches {counts}; recall "
+              f"{st.recall_mean:.4f} over {st.recall_samples} samples")
+        assert len(idx) == 5 and np.isfinite(scores).all()
+        assert counts["fused_gcn"] and counts["simgnn_head"] and \
+            counts["topm"] + counts["topm_ntn"]
+        report["simgnn_search"] = {"launches": counts,
+                                   "queries_per_s": search["queries_per_s"],
+                                   "recall": st.recall_mean}
+
+        lm_params = init_params(torch.Generator().manual_seed(0),
+                                reduced_config("gemma2-9b"), device="cpu")
+        card_lm = serve_lm.main([], params=lm_params)
+        host_lm = serve_lm.main(["--device", "cpu"], params=lm_params)
+        flips, compared = [], 0
+        for b in range(card_lm["tokens"].shape[0]):
+            for t in range(card_lm["tokens"].shape[1]):
+                if card_lm["tokens"][b, t] == host_lm["tokens"][b, t]:
+                    compared += 1
+                    continue
+                margin = float(host_lm["margins"][b, t])
+                assert margin <= LM_F32_ATOL, (b, t, margin)
+                flips.append({"sequence": b, "step": t, "margin": margin})
+                break
+        print(f"serve_lm on the card: {compared} tokens equal to the CPU's, "
+              f"{len(flips)} flips under the {LM_F32_ATOL:g} margin")
+        report["serve_lm"] = {"equal": compared, "flips": flips}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return report
 
 

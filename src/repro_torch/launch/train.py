@@ -1,0 +1,152 @@
+"""Training launcher — port of `repro.launch.train`.
+
+    python -m repro_torch.launch.train --model simgnn --steps 300 \\
+        --ckpt-dir runs/simgnn
+
+`--model simgnn` (the default) trains the paper's SimGNN at SimGNN-AIDS
+width (`configs/simgnn_aids`: GCN 128/64/32, NTN K=16, FCN 16->8->4->1) on
+the synthetic AIDS-like pair stream, in batches of `--batch` pairs, through
+`train/loop.run`: checkpoints every `--ckpt-every` steps, verified resume
+(`--resume auto`) with a deterministic replay of the batches by step,
+straggler monitoring and retry after a failed step. `--simulate-failure N`
+kills the process with exit code 42 once the update of step N is
+computed, before the loop records it or writes any later checkpoint, to
+exercise the restart path.
+
+It runs on `--device` (default: the card; without CUDA it raises unless
+`--device cpu` is given). Language-model training (`--model <arch>`; the
+JAX launcher's `--seq-len`, `--reduced`, `--mesh` and `--compress-grads`
+belong to it) and data-parallel SimGNN training (`--devices N`) are not
+ported yet and raise NotImplementedError (ROADMAP Queue 1, items 7 and
+6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclass
+class TrainRun:
+    """What a finished run leaves: its final params and optimizer state,
+    the loop's history records and the engine's counters."""
+    params: dict
+    opt_state: object
+    history: list
+    counters: dict
+
+
+def train_simgnn(args) -> TrainRun:
+    from repro_torch.configs.simgnn_aids import CONFIG as scfg
+    from repro_torch.core.engine import ScoringEngine
+    from repro_torch.core.simgnn import init_simgnn_params
+    from repro_torch.data.graphs import pair_stream
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_simgnn_train_step
+
+    if args.devices > 1:
+        raise NotImplementedError(
+            "data-parallel SimGNN training (--devices > 1) is not ported yet "
+            "(ROADMAP Queue 1, item 6: multi-device)")
+    device = resolve_device(args.device)
+    params = init_simgnn_params(torch.Generator().manual_seed(args.seed),
+                                scfg, device=device)
+    opt_state = adamw_init(params)
+    # The engine dispatches the forward AND backward passes (DESIGN.md
+    # §11): it measures each batch and picks the executor; the step itself
+    # contains no path selection.
+    engine = ScoringEngine(params, scfg, device=device)
+    step_fn = build_simgnn_train_step(engine, peak_lr=args.lr)
+    # The stream's padded tensors are not used (the engine packs the raw
+    # pairs itself), so they stay on the host.
+    stream = pair_stream(args.seed, args.batch, max_nodes=scfg.max_nodes,
+                         device="cpu")
+    batches = {}
+    current = {"step": None}
+
+    def batch_fn(step):            # deterministic per step for restartability
+        while step not in batches:
+            batches[len(batches)] = next(stream)
+        current["step"] = step
+        return batches[step]
+
+    def run_step(params, opt_state, batch):
+        out = step_fn(params, opt_state, batch)
+        if args.simulate_failure and current["step"] == args.simulate_failure:
+            print(f"[train] simulated failure after step "
+                  f"{args.simulate_failure}!", flush=True)
+            os._exit(42)
+        return out
+
+    def on_metrics(step, rec):
+        print(f"step {step:5d} loss {rec['loss']:.5f} "
+              f"gnorm {rec['grad_norm']:.3f} {rec['sec_per_step']*1e3:.0f}ms")
+
+    def on_resume(step, skipped):
+        # Land the verified-restore outcome on the engine's counters so
+        # `engine.health()` reports the resume story next to the breakers:
+        # how many corrupt checkpoints the walk-back skipped, and whether a
+        # resume happened at all.
+        if step is not None:
+            engine.counters["ckpt_resumes"] += 1
+        engine.counters["ckpt_walkback_skipped"] += len(skipped)
+
+    params, opt_state, hist = loop.run(
+        run_step, params, opt_state, batch_fn, n_steps=args.steps,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        resume=args.resume, log_every=args.log_every, on_metrics=on_metrics,
+        on_resume=on_resume)
+    if engine.counters.get("train_skipped_steps"):
+        print(f"[train] skipped {engine.counters['train_skipped_steps']} "
+              "non-finite steps")
+    if engine.counters.get("ckpt_walkback_skipped"):
+        print(f"[train] resume walked back past "
+              f"{engine.counters['ckpt_walkback_skipped']} corrupt "
+              "checkpoint(s)")
+    if hist:
+        print(f"[train] final loss {hist[-1]['loss']:.5f}")
+    return TrainRun(params, opt_state, hist, dict(engine.counters))
+
+
+def train_lm(args):
+    raise NotImplementedError(
+        f"language-model training (--model {args.model}) is not ported yet "
+        "(ROADMAP Queue 1, item 7: enc-dec/VLM and LM training)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Train SimGNN-AIDS with checkpoints and restart.")
+    ap.add_argument("--model", default="simgnn")
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    # "auto" restores the latest valid checkpoint in --ckpt-dir and
+    # replays the deterministic data stream from there; "none" always
+    # starts from step 0 (fresh run into a reused directory).
+    ap.add_argument("--resume", default="auto", choices=["auto", "none"])
+    ap.add_argument("--devices", type=int, default=1)
+    ap.add_argument("--simulate-failure", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="record and print the metrics every N steps (and "
+                         "at the last step)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.model == "simgnn":
+        return train_simgnn(args)
+    return train_lm(args)
+
+
+if __name__ == "__main__":
+    main()

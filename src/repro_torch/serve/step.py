@@ -32,8 +32,9 @@ def build_prefill_step(cfg: ModelConfig):
     _no_enc_dec(cfg)
 
     @torch.inference_mode()
-    def step(params, tokens, embeds=None):
-        return lm.prefill(params, cfg, tokens, embeds=embeds)
+    def step(params, tokens, embeds=None, cache_len=None):
+        return lm.prefill(params, cfg, tokens, embeds=embeds,
+                          cache_len=cache_len)
     return step
 
 

@@ -156,19 +156,19 @@ def inject(site: str, mode: str = "raise", *, after: int = 0,
 #
 #     "store:shard"    — one ShardStore row-shard file
 #     "store:manifest" — the ShardStore JSON manifest
+#     "ckpt:arrays"    — a checkpoint's arrays.<proc>.npz payload
+#     "ckpt:manifest"  — a checkpoint's msgpack manifest
 #     "profile"        — a TraceRecorder JSONL flush: torn or garbled record
 #                        lines are skipped and counted on the next read
-#
-# The checkpoint sites ("ckpt:arrays", "ckpt:manifest") wait for the port's
-# checkpoint manager.
 #
 # Write-time modes:
 #
 #     "torn"    — the write is truncated at byte `at_byte` (default: half);
 #     "bitflip" — one bit of byte `at_byte` is flipped (silent bit rot);
 #     "missing" — the write is dropped, the writer believes it succeeded;
-#     "stale"   — store manifest only: written with a format version this
-#                 reader does not support.
+#     "stale"   — manifest sites only: the manifest is written with a
+#                 format version this reader does not support (JSON for the
+#                 store, msgpack for a checkpoint).
 #
 # `corrupt_file()` applies the same damage to a file already on disk.
 
@@ -195,12 +195,18 @@ def _damage_bytes(data: bytes, mode: str, at_byte: int | None,
     if mode == "missing":
         return None
     if mode == "stale":
-        if site != "store:manifest":
-            raise ValueError(f"mode 'stale' applies to the store manifest "
-                             f"only, got {site!r}")
-        man = json.loads(data.decode())
+        if not site.endswith("manifest"):
+            raise ValueError(f"mode 'stale' only applies to manifest sites, "
+                             f"got {site!r}")
+        if site.startswith("store:"):
+            man = json.loads(data.decode())
+            man["format_version"] = man.get("format_version", 0) + 1000
+            return json.dumps(man).encode()
+        from repro_torch.ckpt import msgpack_codec
+
+        man = msgpack_codec.unpackb(data)
         man["format_version"] = man.get("format_version", 0) + 1000
-        return json.dumps(man).encode()
+        return msgpack_codec.packb(man)
     at = len(data) // 2 if at_byte is None else min(at_byte, len(data) - 1)
     if mode == "torn":
         return data[:at]
@@ -247,7 +253,10 @@ def corrupt_file(path: str, mode: str = "bitflip", *,
     if mode == "missing":
         os.remove(path)
         return
-    site = "store:manifest" if path.endswith(".json") else path
+    # Map the file back to its manifest dialect so mode="stale" works at
+    # rest too (store manifests are JSON, checkpoint manifests msgpack).
+    site = ("store:manifest" if path.endswith(".json")
+            else "ckpt:manifest" if path.endswith(".msgpack") else path)
     with open(path, "rb") as f:
         data = f.read()
     data = _damage_bytes(data, mode, at_byte, site=site)

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no file under `src/repro_torch/`, and not
-`chip_smoke.py` or the port's card tools under `tools/`, imports `jax` or
-anything of the JAX package `repro`
+`chip_smoke.py` or the port's card tools under `tools/`, imports `jax`,
+anything of the JAX package `repro`, or `msgpack` (the card's machine has
+none; the port's checkpoints use `repro_torch.ckpt.msgpack_codec`)
 (checked on the source, with an AST walk), and importing every module of
-the port leaves both out of `sys.modules`. The port keeps its own copies of
+the port leaves them out of `sys.modules`. The port keeps its own copies of
 the JAX package's numpy-only modules instead.
 
 `chip_smoke.py` needs a CUDA device and the repository beside it: without
@@ -22,7 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
            + sorted((ROOT / "tools").glob("*.py")))
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -62,7 +63,8 @@ def test_importing_the_port_loads_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'msgpack'))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
