@@ -42,7 +42,22 @@ and AdamW state bit-equal to an uninterrupted run's on the card (and
 restored onto the CPU), times a checkpoint's save and verified restore,
 and runs the three examples (`repro_torch.examples`: quickstart,
 two-stage simgnn_search with the kernels, serve_lm against the CPU).
-Phases 4-7 pin `planner="threshold"`. Every failed check exits non-zero.
+Phase 21 serves seamless-m4t-large-v2 (the enc-dec model, 1.77 B
+parameters) at full width and depth in bf16 through the enc-dec prefill
+and decode steps (4 x 1024 frames with a 128-token decoder prompt and 16
+tokens, and 1 x 1024 frames with a 2048-token prompt: one `flash_attn`
+launch per decoder layer), gated against its full forward and a reduced
+float32 model against the CPU; trains it for 5 steps through
+`build_train_step` (remat, bf16 params, float32 AdamW); holds the loss
+and every gradient with the LM kernels in the forward (their backward
+through the plain versions) against plain autograd for reduced granite
+(`flash_attn`, `moe_experts`), rwkv6 (`wkv6`) and the Jamba hybrid
+(`mamba_scan`), timing each kernel's forward beside its backward through
+plain; holds three train steps of reduced qwen1.5-4b, internvl2-2b and
+seamless against the CPU; and runs the launcher in LM mode killed at a
+step and resumed (bit-equal to an uninterrupted run) and the `train_lm`
+example. Phases 4-7 pin `planner="threshold"`. Every failed check exits
+non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -223,6 +238,34 @@ TRAIN_PARAM_BOUND = 1e-4
 LAUNCH_STEPS = 12
 LAUNCH_CKPT_EVERY = 4
 LAUNCH_FAIL_AT = 6
+#: phase 21: seamless-m4t-large-v2 at full width and depth in bf16, served
+#: at the speech-translation shape (ENCDEC_BATCH x ENCDEC_FRAMES frames, a
+#: decoder prompt of ENCDEC_FRAMES / dec_seq_divisor = 128 tokens,
+#: ENCDEC_NEW tokens) and with a 1 x ENCDEC_LONG_PROMPT-token decoder
+#: prompt (one `flash_attn` launch per decoder layer), the logits' bound
+#: against the full forward (a share of their largest magnitude, the
+#: parity matrix's bf16 band) and the reduced float32 model's against the
+#: CPU; ENCDEC_TRAIN_STEPS train steps of `batch_for_step(global_batch=
+#: ENCDEC_TRAIN_BATCH, seq_len=ENCDEC_FRAMES)`; gradients through each LM
+#: kernel (GRAD_CASES: arch, config changes, batch, tokens, the kernels it
+#: runs and the kernels' bound from tests/test_torch_cuda.py); three train
+#: steps on the card against the CPU for STEP_ARCHS (params within
+#: STEP_PARAM_BOUND); the LM launcher killed after step LM_LAUNCH_FAIL_AT
+#: of LM_LAUNCH_STEPS and resumed.
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_NEW = 4, 1024, 16
+ENCDEC_LONG_PROMPT = 2048
+ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_BATCH = 5, 2
+ENCDEC_BF16_SHARE = 2e-2
+ENCDEC_F32_ATOL = 1e-6
+GRAD_CASES = (("granite-moe-3b-a800m", {"moe_use_kernel": True}, 1, 2048,
+               ("flash_attn", "moe_experts"), FLASH_TOL),
+              ("rwkv6-7b", {}, 2, 64, ("wkv6",), SCAN_TOL),
+              (JAMBA_ARCH, {}, 2, 64, ("mamba_scan",), SCAN_TOL))
+STEP_ARCHS = ("qwen1.5-4b", "internvl2-2b", SEAMLESS_ARCH)
+STEP_PARAM_BOUND = 1e-5
+LM_LAUNCH_ARCH = "qwen1.5-4b"
+LM_LAUNCH_STEPS, LM_LAUNCH_EVERY, LM_LAUNCH_FAIL_AT = 6, 2, 4
 #: the backward rules' `torch.autograd.Function`s whose forward inputs a
 #: card training step captures (both edge-list rules share one class, as
 #: both packed-CSR rules do)
@@ -693,6 +736,11 @@ def main() -> int:
     # ---- phase 20: the launcher, checkpoints and the examples ----------
     report["launcher"] = launcher_phase(dev, reset_counts, read_counts)
     phase("20 training launcher, checkpoints and examples on the card")
+
+    # ---- phase 21: enc-dec serving and LM training ---------------------
+    torch.cuda.empty_cache()
+    report["encdec"] = encdec_phase(dev, reset_counts, read_counts)
+    phase("21 seamless serving and training, LM training")
     report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
@@ -3605,6 +3653,483 @@ def launcher_phase(dev, reset_counts, read_counts) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return report
+
+
+# ------------------------------------------ phase 21: enc-dec, LM training
+
+
+def _batch_on(batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _excess(got, want, tol) -> float:
+    """max(|got - want| - (atol + rtol |want|)); <= 0 passes."""
+    return float(((got.float() - want.float()).abs()
+                  - tol["atol"] - tol["rtol"] * want.float().abs()).max())
+
+
+def _encdec_serving(dev, cfg, params, reset_counts, read_counts) -> dict:
+    """21 (a): seamless served at full width and depth in bf16; then the
+    reduced float32 model on the card against the CPU."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain)
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    batch = _batch_on(batch_for_step(cfg, 0, global_batch=ENCDEC_BATCH,
+                                     seq_len=ENCDEC_FRAMES), dev)
+    frames, prompt = batch["frames"], batch["tokens"]
+    s = prompt.shape[1]
+    cache_len = s + ENCDEC_NEW
+    prefill(params, frames, prompt, cache_len=cache_len)        # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    last, enc_out, caches, pos = prefill(params, frames, prompt,
+                                         cache_len=cache_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = read_counts()
+    assert torch.isfinite(last).all()
+    toks = [torch.argmax(last, -1)]
+    step_s, first = [], None
+    for _ in range(ENCDEC_NEW - 1):
+        t0 = time.perf_counter()
+        logits, caches, pos = decode(params, toks[-1][:, None], enc_out,
+                                     caches, pos)
+        toks.append(torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        assert torch.isfinite(logits).all()
+        first = logits if first is None else first
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, _, n_launch, top = _profile_busy(
+        lambda: decode(params, toks[-1][:, None], enc_out, caches, pos), ())
+    # the first decode step against the full forward over prompt + token
+    with torch.inference_mode():
+        full, _ = encdec.forward_encdec(params, cfg, frames, torch.cat(
+            [prompt, toks[0][:, None].to(prompt.dtype)], 1))
+    v = cfg.vocab_size
+    ref, got = full[:, -1, :v], first[:, :v]
+    scale = float(ref.abs().max())
+    full_err = float((got - ref).abs().max())
+    decode_ms = 1e3 * statistics.median(step_s)
+    total_s = prefill_s + sum(step_s)
+    print(f"seamless (a): {SEAMLESS_ARCH} bf16, frames {tuple(frames.shape)}"
+          f", decoder prompt {s}, {ENCDEC_NEW} tokens: prefill "
+          f"{1e3 * prefill_s:.3f} ms, decode {decode_ms:.3f} ms a step "
+          f"(median of {len(step_s)}; mean "
+          f"{1e3 * statistics.fmean(step_s):.3f}), "
+          f"{ENCDEC_BATCH / (decode_ms / 1e3):.1f} tokens/s decoding, "
+          f"{ENCDEC_BATCH * ENCDEC_NEW / total_s:.1f} tokens/s end to end; "
+          f"peak memory {peak / 2**30:.2f} GiB; prefill launches {counts}")
+    print(f"  a profiled decode step: wall {1e3 * wall:.3f} ms, device "
+          f"busy {1e3 * busy:.3f} ms, idle share {1 - busy / wall:.4f}, "
+          f"{n_launch} kernel launches; top: {top[:3]}")
+    print(f"  first decode step against the full forward over prompt + "
+          f"token: max abs err {full_err:.3e}, bound "
+          f"{ENCDEC_BF16_SHARE:g} x {scale:.3f}")
+    assert full_err <= ENCDEC_BF16_SHARE * scale, (full_err, scale)
+    rep = {"prefill_ms": 1e3 * prefill_s, "decode_ms_per_step": decode_ms,
+           "decode_step_ms": [1e3 * x for x in step_s],
+           "decode_tokens_per_s": ENCDEC_BATCH / (decode_ms / 1e3),
+           "tokens_per_s": ENCDEC_BATCH * ENCDEC_NEW / total_s,
+           "peak_bytes": peak, "decode_step_wall_s": wall,
+           "decode_step_busy_s": busy, "idle_share": 1 - busy / wall,
+           "decode_step_launches": n_launch, "prefill_launches": counts,
+           "full_forward_err": full_err, "full_forward_scale": scale}
+    del caches, enc_out, full
+
+    # shape 2: a 2048-token decoder prompt (flash_attn in every layer)
+    long_frames = _batch_on(batch_for_step(
+        cfg, 1, global_batch=1, seq_len=ENCDEC_FRAMES), dev)["frames"]
+    long_prompt = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (1, ENCDEC_LONG_PROMPT)).astype(np.int32)).to(dev)
+    prefill(params, long_frames, long_prompt)                   # warm
+    keep = {"calls": {0, cfg.n_layers - 1}, "args": []}
+    restore = _capture(layers_mod, "flash_attention", keep)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        last, enc_out, caches, pos = prefill(params, long_frames,
+                                             long_prompt)
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+        long_counts = read_counts()
+    finally:
+        restore()
+    t0 = time.perf_counter()
+    logits, _, _ = decode(params, torch.argmax(last, -1)[:, None], enc_out,
+                          caches, pos)
+    torch.cuda.synchronize()
+    long_step_s = time.perf_counter() - t0
+    long_peak = torch.cuda.max_memory_allocated()
+    print(f"seamless (a): 1 x {ENCDEC_FRAMES} frames, a "
+          f"{ENCDEC_LONG_PROMPT}-token decoder prompt: prefill "
+          f"{1e3 * long_s:.3f} ms, one decode step {1e3 * long_step_s:.3f} "
+          f"ms, peak memory {long_peak / 2**30:.2f} GiB; launches "
+          f"{long_counts}")
+    assert long_counts["flash_attn"] == cfg.n_layers, long_counts
+    assert torch.isfinite(last).all() and torch.isfinite(logits).all()
+    # the decoder's first and last self-attention calls of that prefill,
+    # kernel against plain on the captured tensors
+    held = {}
+    for layer, ((q, k, v), kw) in zip((0, cfg.n_layers - 1), keep["args"]):
+        held[layer] = _held_f64(
+            "flash_attn", f"seamless {ENCDEC_LONG_PROMPT}-token prefill, "
+            f"decoder layer {layer}", flash_attention(q, k, v, **kw),
+            flash_attention_plain(q, k, v, **kw), _flash_f64(q, k, v, **kw),
+            FLASH_TOL)
+    assert len(held) == 2, len(keep["args"])
+    rep.update(long_prefill_ms=1e3 * long_s,
+               long_decode_step_ms=1e3 * long_step_s,
+               long_peak_bytes=long_peak, long_prefill_launches=long_counts,
+               long_captured_flash=held)
+    del caches, enc_out, keep
+
+    # the reduced float32 model on the card against the CPU
+    rcfg = reduced_config(SEAMLESS_ARCH)
+    host = init_params(torch.Generator().manual_seed(5), rcfg, device="cpu")
+    card = params_to(host, dev)
+    rb = batch_for_step(rcfg, 0, global_batch=2, seq_len=64)
+    rprefill, rdecode = build_prefill_step(rcfg), build_decode_step(rcfg)
+
+    def serve(p, device):
+        fr, tk = (torch.from_numpy(rb[k]).to(device)
+                  for k in ("frames", "tokens"))
+        lg, eo, cc, ps = rprefill(p, fr, tk, cache_len=tk.shape[1] + 8)
+        out = [lg]
+        for _ in range(7):
+            lg, cc, ps = rdecode(p, torch.argmax(lg, -1)[:, None], eo, cc,
+                                 ps)
+            out.append(lg)
+        return torch.stack([x[:, :rcfg.vocab_size].cpu() for x in out], 1)
+
+    on_card, on_host = serve(card, dev), serve(host, "cpu")
+    same = bool(torch.equal(on_card.argmax(-1), on_host.argmax(-1)))
+    f32_err = float((on_card - on_host).abs().max())
+    print(f"seamless (a): reduced float32 ({rcfg.n_layers} + "
+          f"{rcfg.n_enc_layers} layers), prefill + 7 decode steps: tokens "
+          f"equal to the CPU's {same}; logits max abs err {f32_err:.3e} "
+          f"(bound {ENCDEC_F32_ATOL:g})")
+    assert same and f32_err <= ENCDEC_F32_ATOL, (same, f32_err)
+    rep.update(reduced_tokens_equal=same, reduced_logits_err=f32_err)
+    return rep
+
+
+def _encdec_training(dev, cfg, params) -> dict:
+    """21 (b): ENCDEC_TRAIN_STEPS train steps of seamless at full width and
+    depth (bf16 params, float32 AdamW state, remat on). Gates: the loss
+    and gradient norm finite at every step, every leaf changed."""
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.params import tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_train_step
+
+    init = tree_leaves(params)
+    opt_state = adamw_init(params, cfg.opt_state_dtype)
+    step = build_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, norms = [], [], []
+    for s in range(ENCDEC_TRAIN_STEPS):
+        batch = _batch_on(batch_for_step(cfg, s,
+                                         global_batch=ENCDEC_TRAIN_BATCH,
+                                         seq_len=ENCDEC_FRAMES), dev)
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        assert np.isfinite(losses[-1]) and np.isfinite(norms[-1]), (s, m)
+    peak = torch.cuda.max_memory_allocated()
+    unchanged = [i for i, (a, b) in enumerate(zip(init, tree_leaves(params)))
+                 if torch.equal(a, b)]
+    del init
+    wall, busy, _, n_launch, top = _profile_busy(
+        lambda: step(params, opt_state, batch), ())
+    print(f"seamless (b): {ENCDEC_TRAIN_STEPS} train steps, frames "
+          f"[{ENCDEC_TRAIN_BATCH}, {ENCDEC_FRAMES}, {cfg.d_model}], decoder "
+          f"tokens [{ENCDEC_TRAIN_BATCH}, {tuple(batch['tokens'].shape)[1]}]"
+          f", bf16 params, float32 AdamW, remat: "
+          f"{statistics.median(step_ms[1:]):.3f} ms a step (median of steps "
+          f"2-{ENCDEC_TRAIN_STEPS}; first {step_ms[0]:.3f}); peak memory "
+          f"{peak / 2**30:.2f} GiB; losses "
+          f"{[round(x, 4) for x in losses]}, gradient norms "
+          f"{[round(x, 4) for x in norms]}; leaves unchanged "
+          f"{len(unchanged)} of {len(tree_leaves(params))}")
+    print(f"  a profiled step: wall {1e3 * wall:.3f} ms, device busy "
+          f"{1e3 * busy:.3f} ms, idle share {1 - busy / wall:.4f}, "
+          f"{n_launch} kernel launches; top: {top}")
+    assert not unchanged, unchanged
+    return {"step_ms": step_ms, "peak_bytes": peak, "losses": losses,
+            "grad_norms": norms, "leaves": len(tree_leaves(params)),
+            "profiled_wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall, "launches": n_launch,
+            "top_device": top}
+
+
+def _kernel_grads(dev, reset_counts, read_counts) -> dict:
+    """21 (c): a loss and every gradient with the LM kernels in the
+    forward (their backward through the plain versions) against plain
+    autograd (the plain versions swapped into the model) on the card, each
+    GRAD_CASES config in float32; the kernels' launch counters must move.
+    The value-and-grad times are of a second, warm run of each. Then each
+    kernel's first captured call is timed: the kernel forward (no grad),
+    the plain forward, and the backward through the plain version
+    (`torch.autograd.grad` of the wrapper's output under grad)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import moe_experts as me
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import layers, mamba, moe, rwkv6
+    from repro_torch.models.init import init_params
+    from repro_torch.params import tree_leaves
+    from repro_torch.train.step import value_and_grad
+
+    sites = {"flash_attn": (layers, "flash_attention", fa.flash_attention,
+                            fa.flash_attention_plain),
+             "moe_experts": (moe, "moe_expert_ffn", me.moe_expert_ffn,
+                             me.moe_expert_ffn_plain),
+             "wkv6": (rwkv6, "wkv6_state", wk.wkv6_state,
+                      wk.wkv6_state_plain),
+             "mamba_scan": (mamba, "mamba_selective_scan_state",
+                            ms.mamba_selective_scan_state,
+                            ms.mamba_selective_scan_state_plain)}
+    rep = {}
+    for arch, kw, b, t, names, tol in GRAD_CASES:
+        cfg = reduced_config(arch).with_(**kw)
+        params = init_params(torch.Generator().manual_seed(7), cfg,
+                             device=dev)
+        batch = _batch_on(batch_for_step(cfg, 0, global_batch=b, seq_len=t),
+                          dev)
+        keep = {n: {"calls": {0}, "args": []} for n in names}
+        restores = [_capture(sites[n][0], sites[n][1], keep[n])
+                    for n in names]
+        try:
+            reset_counts()
+            loss_k, grads_k = value_and_grad(params, cfg, batch,
+                                             allow_unused=False)
+            grads_k = tree_leaves(grads_k)
+            counts = read_counts()
+        finally:
+            for restore in restores:
+                restore()
+
+        def timed():
+            t0 = time.perf_counter()
+            out = value_and_grad(params, cfg, batch,
+                                 allow_unused=False)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        kern_s = timed()[1]
+        for n in names:
+            setattr(sites[n][0], sites[n][1], sites[n][3])
+        try:
+            (loss_p, grads_p), _ = timed()
+            grads_p = tree_leaves(grads_p)
+            plain_s = timed()[1]
+        finally:
+            for n in names:
+                setattr(sites[n][0], sites[n][1], sites[n][2])
+        loss_ex = _excess(loss_k, loss_p, tol)
+        grad_ex = max(_excess(a, b_, tol) for a, b_ in zip(grads_k, grads_p))
+        grad_err = max(float((a - b_).abs().max())
+                       for a, b_ in zip(grads_k, grads_p))
+        print(f"kernel gradients (c): reduced {arch} float32, tokens "
+              f"[{b}, {t}]: launches {counts}; loss {float(loss_k):.6f} "
+              f"against plain {float(loss_p):.6f} (excess {loss_ex:.3e}); "
+              f"{len(grads_k)} gradients, max abs err {grad_err:.3e}, "
+              f"excess over (rtol {tol['rtol']:g}, atol {tol['atol']:g}) "
+              f"{grad_ex:.3e}; value and grad {1e3 * kern_s:.1f} ms with "
+              f"the kernels, {1e3 * plain_s:.1f} ms plain")
+        assert all(counts[n] > 0 for n in names), counts
+        assert loss_ex <= 0 and grad_ex <= 0, (arch, loss_ex, grad_ex)
+        entry = {"launches": counts, "loss_excess": loss_ex,
+                 "grad_excess": grad_ex, "grad_err": grad_err,
+                 "value_and_grad_ms": 1e3 * kern_s,
+                 "plain_value_and_grad_ms": 1e3 * plain_s, "kernels": {}}
+        for n in names:
+            args, kwargs = keep[n]["args"][0]
+            args = [a.detach() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+            kernel, plain = sites[n][2], sites[n][3]
+            with torch.no_grad():
+                fwd_ms = time_cuda(lambda: kernel(*args, **kwargs))
+                plain_ms = time_cuda(lambda: plain(*args, **kwargs))
+            leaves = [a.clone().requires_grad_(True)
+                      if isinstance(a, torch.Tensor) else a for a in args]
+            out = kernel(*leaves, **kwargs)
+            y = out[0] if isinstance(out, tuple) else out
+            wrt = [a for a in leaves if isinstance(a, torch.Tensor)]
+            g = torch.randn_like(y)
+            bwd_ms = time_cuda(lambda: torch.autograd.grad(
+                y, wrt, g, retain_graph=True), iters=10, warmup=1)
+            shapes = [tuple(a.shape) for a in wrt]
+            print(f"  {n}: shapes {shapes}: kernel forward {fwd_ms:.4f} ms,"
+                  f" plain forward {plain_ms:.4f} ms, backward through the "
+                  f"plain version {bwd_ms:.4f} ms; {counts[n]} launches in "
+                  f"the step (forward and remat recompute)")
+            entry["kernels"][n] = {"shapes": shapes, "forward_ms": fwd_ms,
+                                   "plain_forward_ms": plain_ms,
+                                   "plain_backward_ms": bwd_ms,
+                                   "launches_a_step": counts[n]}
+            del out, y, leaves, wrt
+        rep[arch] = entry
+    return rep
+
+
+def _train_steps_against_cpu(dev) -> dict:
+    """21 (d): three `build_train_step` steps of reduced float32 models on
+    the card and on the CPU from the same params: params within
+    STEP_PARAM_BOUND."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to, tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_train_step
+
+    rep = {}
+    for arch in STEP_ARCHS:
+        cfg = reduced_config(arch)
+        host = init_params(torch.Generator().manual_seed(11), cfg,
+                           device="cpu")
+        card = params_to(host, dev)
+        step = build_train_step(cfg)
+        ho, co = adamw_init(host), adamw_init(card)
+        for s in range(3):
+            batch = batch_for_step(cfg, s, global_batch=2, seq_len=64)
+            host, ho, hm = step(host, ho, batch)
+            card, co, cm = step(card, co, batch)
+        err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(tree_leaves(card), tree_leaves(host)))
+        loss_err = abs(float(cm["loss"]) - float(hm["loss"]))
+        print(f"train steps (d): reduced {arch} float32, 3 steps of "
+              f"{tuple(batch['tokens'].shape)} tokens"
+              + (" with embeds" if "embeds" in batch else "")
+              + (" and frames" if "frames" in batch else "")
+              + f": params max abs err against the CPU {err:.3e} (bound "
+              f"{STEP_PARAM_BOUND:g}); last loss err {loss_err:.3e}")
+        assert err <= STEP_PARAM_BOUND, (arch, err)
+        rep[arch] = {"param_err": err, "loss_err": loss_err}
+    return rep
+
+
+def _launch_lm(ckpt_dir: Path, *extra: str) -> subprocess.CompletedProcess:
+    """The launcher in LM mode in a process of its own."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--model",
+           LM_LAUNCH_ARCH, "--reduced", "--steps", str(LM_LAUNCH_STEPS),
+           "--ckpt-every", str(LM_LAUNCH_EVERY), "--log-every", "1",
+           "--ckpt-dir", str(ckpt_dir), *extra]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=300, env={**os.environ,
+                                            "PYTHONPATH": str(ROOT / "src")})
+    print(f"  $ python -m repro_torch.launch.train {' '.join(cmd[3:])}: "
+          f"exit {proc.returncode}; last line: "
+          f"{(proc.stdout.strip().splitlines() or [''])[-1]}")
+    return proc
+
+
+def _lm_launcher(dev) -> dict:
+    """21 (e): the launcher in LM mode killed after step LM_LAUNCH_FAIL_AT
+    (exit 42), resumed in a second process, held bit-equal to an
+    uninterrupted run in this process; then the `train_lm` example."""
+    import shutil
+
+    from repro_torch.ckpt import manager as ckpt
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train as launch
+
+    work = ROOT / "build" / "lm_launcher_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        killed = _launch_lm(work / "killed", "--simulate-failure",
+                            str(LM_LAUNCH_FAIL_AT))
+        assert killed.returncode == 42, killed.stdout + killed.stderr
+        left = sorted(p.name for p in (work / "killed").iterdir())
+        assert left[-1] == f"step_{LM_LAUNCH_FAIL_AT:09d}", left
+        resumed = _launch_lm(work / "killed")
+        assert resumed.returncode == 0, resumed.stdout + resumed.stderr
+        assert f"[loop] resumed from step {LM_LAUNCH_FAIL_AT}" in \
+            resumed.stdout, resumed.stdout
+        straight = launch.main(
+            ["--model", LM_LAUNCH_ARCH, "--reduced", "--steps",
+             str(LM_LAUNCH_STEPS), "--ckpt-every", str(LM_LAUNCH_EVERY),
+             "--log-every", "1", "--ckpt-dir", str(work / "straight")])
+        like = (straight.params, straight.opt_state)
+        assert straight.params["embed"]["table"].is_cuda
+        final = ckpt.restore(str(work / "killed"), LM_LAUNCH_STEPS, like)
+        same = _bit_equal(final, like)
+        step_ms = [1e3 * r["sec_per_step"] for r in straight.history]
+        print(f"LM launcher (e): reduced {LM_LAUNCH_ARCH}, killed after step"
+              f" {LM_LAUNCH_FAIL_AT} (exit 42) and resumed: final params and "
+              f"AdamW state bit-equal to the uninterrupted run's on the card:"
+              f" {same}; a step {statistics.median(step_ms[1:]):.3f} ms "
+              f"(median of steps 1-{LM_LAUNCH_STEPS - 1}, loop timing)")
+        assert same
+        example = train_lm.main(["--steps", "4"])
+        loss = example.history[-1]["loss"]
+        print(f"  train_lm example on the card: 4 steps, last loss "
+              f"{loss:.4f}")
+        assert int(example.opt_state.step) == 4 and np.isfinite(loss)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"bit_equal": same, "step_ms": step_ms,
+            "losses": [r["loss"] for r in straight.history],
+            "example_loss": loss}
+
+
+def encdec_phase(dev, reset_counts, read_counts) -> dict:
+    """Phase 21: seamless-m4t-large-v2 served (a) and trained (b) at full
+    width and depth on the card (random weights from `torch.Generator`
+    seed 0, drawn on the card), gradients through each LM kernel against
+    plain autograd (c), three train steps against the CPU (d), and the
+    launcher's LM mode and the `train_lm` example (e). Each part prints
+    its seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.init import init_params
+    from repro_torch.params import tree_leaves
+
+    rep, clock = {}, PhaseClock()
+    cfg = get_config(SEAMLESS_ARCH)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"seamless: {SEAMLESS_ARCH}, {cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size} padded to {cfg.vocab_padded}: {n_params} "
+          f"parameters ({cfg.param_dtype})")
+    rep["n_params"] = n_params
+    rep["serving"] = _encdec_serving(dev, cfg, params, reset_counts,
+                                     read_counts)
+    clock("21 (a) seamless serving")
+    torch.cuda.empty_cache()
+    rep["training"] = _encdec_training(dev, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    clock("21 (b) seamless training")
+    rep["kernel_grads"] = _kernel_grads(dev, reset_counts, read_counts)
+    clock("21 (c) gradients through the LM kernels")
+    rep["train_steps"] = _train_steps_against_cpu(dev)
+    clock("21 (d) train steps against the CPU")
+    rep["launcher"] = _lm_launcher(dev)
+    clock("21 (e) the LM launcher and train_lm")
+    rep["seconds"] = clock.seconds
+    return rep
 
 
 class RequestTimer:

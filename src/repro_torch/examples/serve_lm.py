@@ -8,7 +8,8 @@ port of `examples/serve_lm.py`.
 seed 0, a [2, 8] prompt drawn from seed 1; one prefill into a cache
 of 8 + `--new` slots and `--new - 1` decode steps through
 `serve.step.build_prefill_step` / `build_decode_step`. Decoder configs
-only: enc-dec models are not ported yet.
+only: an enc-dec model's steps also take the encoder's frames
+(`serve.step`).
 """
 
 from __future__ import annotations

@@ -11,7 +11,10 @@ sees nothing gives 0.
 CUDA tensors launch a kernel of `csrc/flash_attn.cu` (counted in
 `flash_attention.launches`): bfloat16 inputs the tensor-core kernel
 (wgmma, P split into two bf16 terms), float32 inputs the FMA body;
-`flash_attention_plan` says which. CPU tensors run
+`flash_attention_plan` says which. A call that autograd records (grad
+enabled, an input requiring grad) launches the same kernel through
+`kernels.grad.kernel_with_plain_backward`: its backward is autograd of the
+plain version. CPU tensors run
 `flash_attention_plain`, the JAX oracle `flash_attention_ref`'s dense
 softmax. The Pallas `block_q` / `block_kv` policies have no counterpart:
 T and S are taken unpadded. The kernels take float32 or bfloat16 (one
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch.device import on_cuda
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import kernel_with_plain_backward, needs_grad
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -125,6 +129,11 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None):
     if not on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap)
+    if needs_grad(q, k, v):
+        opts = dict(causal=causal, window=window, softcap=softcap)
+        return kernel_with_plain_backward(
+            lambda *a: flash_attention(*a, **opts),
+            lambda *a: flash_attention_plain(*a, **opts), q, k, v)
     b, t, s, h, kv, d = _shapes(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:

@@ -17,6 +17,12 @@ take and return the same `[T, P]` pair-slot scores (exact zeros at pad
 slots), so one packing pass serves the forward and backward passes of
 every accumulation chunk. `core.engine.ScoringEngine.loss_and_grad` is the
 dispatch point.
+
+`kernel_with_plain_backward` is the port's own: it gives the LM kernels'
+wrappers (`flash_attention`, `wkv6_state`, `mamba_selective_scan_state`,
+`moe_expert_ffn`) a backward on the card. Their forward stays the CUDA
+kernel; their backward is autograd of the plain version, the port's
+counterpart of `jax.grad` over the `jnp` code the JAX package trains with.
 """
 
 from __future__ import annotations
@@ -74,3 +80,72 @@ def packed_arrays(packed, *, sparse: bool) -> tuple:
     return (packed.adj1, packed.labels1, packed.mask1, packed.seg1,
             packed.adj2, packed.labels2, packed.mask2, packed.seg2,
             packed.pair_mask)
+
+
+# ------------------------------------- gradients through the LM kernels
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd records and one of `tensors` (None entries
+    skipped) requires grad: the case in which a CUDA kernel wrapper must
+    go through `kernel_with_plain_backward`."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class _KernelPlainBackward(torch.autograd.Function):
+    """Forward: the kernel. Backward: autograd of the plain version,
+    recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.set_materialize_grads(False)
+        ctx.plain = plain
+        ctx.slots = [i for i, x in enumerate(inputs)
+                     if isinstance(x, torch.Tensor)]
+        ctx.n_inputs = len(inputs)
+        ctx.save_for_backward(*(inputs[i] for i in ctx.slots))
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs: list = [None] * ctx.n_inputs
+        leaves = []
+        for i, saved in zip(ctx.slots, ctx.saved_tensors):
+            x = saved.detach()
+            if ctx.needs_input_grad[2 + i]:
+                x.requires_grad_(True)
+                leaves.append((i, x))
+            inputs[i] = x
+        with torch.enable_grad():
+            out = ctx.plain(*inputs)
+        outs = out if isinstance(out, tuple) else (out,)
+        # an output whose incoming gradient is None contributes zeros
+        used = [(o, g) for o, g in zip(outs, grads)
+                if g is not None and o.requires_grad]
+        result: list = [None] * (2 + ctx.n_inputs)
+        if used and leaves:
+            got = torch.autograd.grad([o for o, _ in used],
+                                      [x for _, x in leaves],
+                                      [g for _, g in used], allow_unused=True)
+            for (i, x), g in zip(leaves, got):
+                result[2 + i] = torch.zeros_like(x) if g is None else g
+        return tuple(result)
+
+
+def kernel_with_plain_backward(kernel, plain, *inputs):
+    """`kernel(*inputs)` whose backward is autograd of `plain(*inputs)`.
+
+    The JAX package has no backward kernel for `flash_attention`,
+    `wkv6`, `mamba_selective_scan` or `moe_expert_ffn`: its training path
+    differentiates `jnp` code. A pybind- or ctypes-launched CUDA kernel's
+    output has no `grad_fn`, so the kernel wrappers route a call that
+    autograd records through here: the forward launches the kernel (the
+    launch counts once), the backward recomputes the plain version under
+    `torch.enable_grad()` on detached copies of the saved inputs and
+    returns `torch.autograd.grad` of that recompute. `inputs` are tensors
+    or None (an absent initial state); `kernel` and `plain` take them
+    positionally and return a tensor or a tuple of tensors. An output
+    whose incoming gradient is None (the final states of `wkv6_state` and
+    `mamba_selective_scan_state` when a loss reads only y) counts as
+    zeros."""
+    return _KernelPlainBackward.apply(kernel, plain, *inputs)

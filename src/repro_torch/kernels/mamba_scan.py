@@ -15,7 +15,9 @@ takes an optional initial state h0 [B, Din, N] and returns (y, h_T), y in
 does, so a caller must not add it again. Both launch the CUDA kernel
 `csrc/mamba_scan.cu` on CUDA tensors (counted in
 `mamba_selective_scan_state.launches`) and run the plain versions beside
-them on CPU tensors. The kernel takes dt and x in float32 or bfloat16 (one
+them on CPU tensors. A call that autograd records launches the same kernel
+through `kernels.grad.kernel_with_plain_backward` (backward: autograd of
+the plain version). The kernel takes dt and x in float32 or bfloat16 (one
 dtype); the wrapper upcasts B, C, A and D to float32 (exact; they are the
 small operands). The Pallas `block_t` / `block_d` policies have no
 counterpart. `mamba_scan_plan` reports what a launch at given sizes runs:
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch.device import on_cuda
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import kernel_with_plain_backward, needs_grad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 32
@@ -139,6 +142,11 @@ def mamba_selective_scan_state(dt, x, b, c, a, d, h0=None,
     if not on_cuda(*tensors):
         return mamba_selective_scan_state_plain(dt, x, b, c, a, d, h0,
                                                 out_dtype)
+    if needs_grad(*tensors):
+        return kernel_with_plain_backward(
+            lambda *z: mamba_selective_scan_state(*z, out_dtype=out_dtype),
+            lambda *z: mamba_selective_scan_state_plain(
+                *z, out_dtype=out_dtype), dt, x, b, c, a, d, h0)
     bsz, t, din, n = _shapes(dt, x, b, c, a, d, h0, out_dtype)
     b, c, a, d = (z.float() for z in (b, c, a, d))
     y = torch.empty((bsz, t, din), dtype=torch.float32, device=x.device)

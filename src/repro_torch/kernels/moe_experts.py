@@ -11,7 +11,9 @@ device memory), bfloat16 inputs the tensor-core kernels (two launches, the
 up-projection with SwiGLU, then the down-projection, h between them as
 three bf16 planes in scratch this wrapper allocates). Either way one call
 counts one in `moe_expert_ffn.launches`; `moe_expert_ffn_plan` says what a
-call launches.
+call launches. A call that autograd records launches the same kernels
+through `kernels.grad.kernel_with_plain_backward` (backward: autograd of
+the plain version).
 
 x is the dispatch buffer [E, C, D] of one sequence, as the JAX kernel
 takes it, or [B, E, C, D] for a whole batch: the JAX model vmaps the
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.device import on_cuda
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import kernel_with_plain_backward, needs_grad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -105,6 +108,10 @@ def moe_expert_ffn(x, w_in, w_out):
     plain version."""
     if not on_cuda(x, w_in, w_out):
         return moe_expert_ffn_plain(x, w_in, w_out)
+    if needs_grad(x, w_in, w_out):
+        return kernel_with_plain_backward(moe_expert_ffn,
+                                          moe_expert_ffn_plain,
+                                          x, w_in, w_out)
     b, e, c, d, f = _shapes(x, w_in, w_out)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     if y.numel() == 0:

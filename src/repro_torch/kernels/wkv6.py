@@ -11,7 +11,10 @@ returns the final state too, and decode carries it): it takes an optional
 initial state s0 [B, H, K, V] and returns (o, s_T), o in `out_dtype`
 (float32 by default, as `wkv_scan`). Both launch the CUDA kernel
 `csrc/wkv6.cu` on CUDA tensors (counted in `wkv6_state.launches`) and run
-the plain versions beside them on CPU tensors. The kernel takes r, k, v in
+the plain versions beside them on CPU tensors. A call that autograd
+records launches the same kernel through `kernels.grad.
+kernel_with_plain_backward` (backward: autograd of the plain version; a
+loss that reads only o gives s_T no gradient). The kernel takes r, k, v in
 float32 or bfloat16 (one dtype) and w, u in float32; the wrapper upcasts a
 bfloat16 w or u (exact) and rounds o to bfloat16 when asked (one rounding,
 as the TPU body). The Pallas `block_t` policy has no counterpart: T is taken
@@ -29,6 +32,7 @@ import torch
 
 from repro_torch.device import on_cuda
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import kernel_with_plain_backward, needs_grad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_K = 128
@@ -127,6 +131,11 @@ def wkv6_state(r, k, v, w, u, s0=None, out_dtype=torch.float32):
     tensors = (r, k, v, w, u) + (() if s0 is None else (s0,))
     if not on_cuda(*tensors):
         return wkv6_state_plain(r, k, v, w, u, s0, out_dtype)
+    if needs_grad(*tensors):
+        return kernel_with_plain_backward(
+            lambda *a: wkv6_state(*a, out_dtype=out_dtype),
+            lambda *a: wkv6_state_plain(*a, out_dtype=out_dtype),
+            r, k, v, w, u, s0)
     b, t, h, kd, vd = _shapes(r, k, v, w, u, s0, out_dtype)
     w, u = w.float(), u.float()
     o = torch.empty((b, t, h, vd), dtype=torch.float32, device=r.device)

@@ -2,6 +2,8 @@
 
     python -m repro_torch.launch.train --model simgnn --steps 300 \\
         --ckpt-dir runs/simgnn
+    python -m repro_torch.launch.train --model qwen1.5-4b --reduced \\
+        --steps 30 --batch 8 --seq-len 128 --ckpt-dir runs/qwen
 
 `--model simgnn` (the default) trains the paper's SimGNN at SimGNN-AIDS
 width (`configs/simgnn_aids`: GCN 128/64/32, NTN K=16, FCN 16->8->4->1) on
@@ -13,12 +15,17 @@ kills the process with exit code 42 once the update of step N is
 computed, before the loop records it or writes any later checkpoint, to
 exercise the restart path.
 
+`--model <arch>` (any id of `repro_torch.configs`) trains that language
+model (`--reduced`: its `reduced_config`) on `data/tokens.batch_for_step`
+batches of `--batch` sequences of `--seq-len` tokens (enc-dec: frames of
+`--seq-len` and decoder tokens; VLM: prepended patch embeddings) through
+`train/step.build_train_step` (peak lr `--lr`, `--compress-grads`: int8
+gradients) and the same loop, checkpoints and `--simulate-failure`.
+
 It runs on `--device` (default: the card; without CUDA it raises unless
-`--device cpu` is given). Language-model training (`--model <arch>`; the
-JAX launcher's `--seq-len`, `--reduced`, `--mesh` and `--compress-grads`
-belong to it) and data-parallel SimGNN training (`--devices N`) are not
-ported yet and raise NotImplementedError (ROADMAP Queue 1, items 7 and
-6).
+`--device cpu` is given). A mesh (`--mesh single|multi`) and data-parallel
+SimGNN training (`--devices N`) are not ported yet and raise
+NotImplementedError (ROADMAP Queue 1, item 6: multi-device).
 """
 
 from __future__ import annotations
@@ -35,11 +42,30 @@ from repro_torch.device import resolve_device
 @dataclass
 class TrainRun:
     """What a finished run leaves: its final params and optimizer state,
-    the loop's history records and the engine's counters."""
+    the loop's history records and the engine's counters (SimGNN; an LM
+    run has no engine and leaves them empty)."""
     params: dict
     opt_state: object
     history: list
     counters: dict
+
+
+def _failing_after(step_fn, args):
+    """`step_fn` that kills the process with exit code 42 once the step
+    `args.simulate_failure` has been computed (0: never), before the loop
+    records it or writes a later checkpoint; and the batch function's
+    record of the current step it reads."""
+    current = {"step": None}
+
+    def run_step(params, opt_state, batch):
+        out = step_fn(params, opt_state, batch)
+        if args.simulate_failure and current["step"] == args.simulate_failure:
+            print(f"[train] simulated failure after step "
+                  f"{args.simulate_failure}!", flush=True)
+            os._exit(42)
+        return out
+
+    return run_step, current
 
 
 def train_simgnn(args) -> TrainRun:
@@ -69,21 +95,13 @@ def train_simgnn(args) -> TrainRun:
     stream = pair_stream(args.seed, args.batch, max_nodes=scfg.max_nodes,
                          device="cpu")
     batches = {}
-    current = {"step": None}
+    run_step, current = _failing_after(step_fn, args)
 
     def batch_fn(step):            # deterministic per step for restartability
         while step not in batches:
             batches[len(batches)] = next(stream)
         current["step"] = step
         return batches[step]
-
-    def run_step(params, opt_state, batch):
-        out = step_fn(params, opt_state, batch)
-        if args.simulate_failure and current["step"] == args.simulate_failure:
-            print(f"[train] simulated failure after step "
-                  f"{args.simulate_failure}!", flush=True)
-            os._exit(42)
-        return out
 
     def on_metrics(step, rec):
         print(f"step {step:5d} loss {rec['loss']:.5f} "
@@ -115,18 +133,57 @@ def train_simgnn(args) -> TrainRun:
     return TrainRun(params, opt_state, hist, dict(engine.counters))
 
 
-def train_lm(args):
-    raise NotImplementedError(
-        f"language-model training (--model {args.model}) is not ported yet "
-        "(ROADMAP Queue 1, item 7: enc-dec/VLM and LM training)")
+def train_lm(args) -> TrainRun:
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.models.init import init_params
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_train_step
+
+    if args.mesh != "none":
+        raise NotImplementedError(
+            f"--mesh {args.mesh} is not ported yet (ROADMAP Queue 1, item 6: "
+            "multi-device)")
+    cfg = reduced_config(args.model) if args.reduced else get_config(
+        args.model)
+    device = resolve_device(args.device)
+    params = init_params(torch.Generator().manual_seed(args.seed), cfg,
+                         device=device)
+    opt_state = adamw_init(params, cfg.opt_state_dtype)
+    step_fn = build_train_step(cfg, peak_lr=args.lr,
+                               compress_grads=args.compress_grads)
+    run_step, current = _failing_after(step_fn, args)
+
+    def batch_fn(step):            # deterministic per step for restartability
+        current["step"] = step
+        b = batch_for_step(cfg, step, global_batch=args.batch,
+                           seq_len=args.seq_len)
+        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+    def on_metrics(step, rec):
+        print(f"step {step:5d} loss {rec['loss']:.4f} "
+              f"gnorm {rec['grad_norm']:.2f} lr {rec['lr']:.2e} "
+              f"{rec['sec_per_step']*1e3:.0f}ms")
+
+    params, opt_state, hist = loop.run(
+        run_step, params, opt_state, batch_fn, n_steps=args.steps,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        resume=args.resume, log_every=args.log_every, on_metrics=on_metrics)
+    if hist:
+        print(f"[train] final loss {hist[-1]['loss']:.4f}")
+    return TrainRun(params, opt_state, hist, {})
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Train SimGNN-AIDS with checkpoints and restart.")
-    ap.add_argument("--model", default="simgnn")
+        description="Train SimGNN-AIDS or an LM with checkpoints and "
+                    "restart.")
+    ap.add_argument("--model", default="simgnn",
+                    help="simgnn (default) or an LM architecture id")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
@@ -135,6 +192,10 @@ def main(argv=None):
     # replays the deterministic data stream from there; "none" always
     # starts from step 0 (fresh run into a reused directory).
     ap.add_argument("--resume", default="auto", choices=["auto", "none"])
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "single", "multi"])
+    ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--devices", type=int, default=1)
     ap.add_argument("--simulate-failure", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10,

@@ -1,5 +1,5 @@
-"""Parameter initialization for attention-block LMs — port of
-`repro.models.init`.
+"""Parameter initialization for every block kind, enc-dec included — port
+of `repro.models.init`.
 
 Init is truncated-normal(±2σ) × 0.02 with depth-scaled output projections,
 drawn in float32 and cast to `param_dtype`; the router stays float32. Leaves
@@ -10,8 +10,10 @@ keys, key order (sorted, as JAX returns a vmapped dict), shapes and dtypes.
 the parity tests convert the JAX package's params (`params.
 params_from_numpy`) instead of re-initializing. Every leaf is drawn on the
 target device from a device generator seeded by the caller's generator, so
-a 3B-parameter tree is never copied from the host. Cross-attention and
-enc-dec blocks are not ported yet (ROADMAP Queue 1, enc-dec/VLM).
+a 3B-parameter tree is never copied from the host. An enc-dec config
+(seamless) adds `ln_x` and `xattn` to every decoder block, and
+`enc_groups` (one stack of `n_enc_layers` attention blocks) and
+`enc_final_norm` to the tree, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -159,9 +161,10 @@ _MIXERS = {"attn": ("attn", init_attn), "attn_local": ("attn", init_attn),
 
 
 def init_block(draw: _Draw, cfg: ModelConfig, kind: str, is_moe: bool,
-               dtype, stack=None):
+               dtype, stack=None, cross_attn: bool = False):
     """One layer's params for a block kind (leaves [stack, ...] when
-    `stack` is given)."""
+    `stack` is given); `cross_attn` adds the decoder's `ln_x` and
+    `xattn`."""
     if kind not in _MIXERS:
         raise ValueError(kind)
     d, dev = cfg.d_model, draw.device
@@ -170,6 +173,9 @@ def init_block(draw: _Draw, cfg: ModelConfig, kind: str, is_moe: bool,
          name: init_mixer(draw, cfg, dtype, stack)}
     if cfg.post_block_norm:
         p["post_ln1"] = _norm(d, dtype, dev, stack)
+    if cross_attn:
+        p["ln_x"] = _norm(d, dtype, dev, stack)
+        p["xattn"] = init_attn(draw, cfg, dtype, stack)
     p["ln2"] = _norm(d, dtype, dev, stack)
     if kind == "rwkv":
         p["cmix"] = init_cmix(draw, cfg, dtype, stack)
@@ -191,9 +197,6 @@ def _sorted(tree):
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
     """Full parameter tree, group-stacked leaves on axis 0, drawn on
     `device` (None = the card; raises without CUDA unless "cpu")."""
-    if cfg.is_enc_dec:
-        raise NotImplementedError("enc-dec models are not ported yet "
-                                  "(ROADMAP Queue 1, enc-dec/VLM)")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     draw = _Draw(gen, dev)
@@ -201,11 +204,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
         "embed": {"table": draw.dense((cfg.vocab_padded, cfg.d_model),
                                       dtype)},
         "final_norm": _norm(cfg.d_model, dtype, dev),
-        "groups": [init_block(draw, cfg, kind, moe, dtype, stack=cfg.n_groups)
+        "groups": [init_block(draw, cfg, kind, moe, dtype, stack=cfg.n_groups,
+                              cross_attn=cfg.is_enc_dec)
                    for kind, moe in zip(cfg.layer_kinds(),
                                         cfg.layer_is_moe())],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": draw.dense((cfg.d_model, cfg.vocab_padded),
                                              dtype)}
-    return params
+    if cfg.is_enc_dec:
+        params["enc_groups"] = [init_block(draw, cfg, "attn", False, dtype,
+                                           stack=cfg.n_enc_layers)]
+        params["enc_final_norm"] = _norm(cfg.d_model, dtype, dev)
+    return _sorted(params)

@@ -15,8 +15,8 @@ Attention has two exact paths, as in the JAX package:
 
 The rest is plain PyTorch, as the JAX package computes it with XLA
 outside any Pallas kernel. Masks follow the JAX package's causal,
-sliding-window and softcap semantics. `cross_attention` (enc-dec) is not
-ported yet (ROADMAP Queue 1, the enc-dec/VLM slice).
+sliding-window and softcap semantics. `cross_attention` (the enc-dec
+decoder's) is always dense, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -225,3 +225,21 @@ def quantize_kv(x: torch.Tensor):
     s = torch.clamp(x32.abs().amax(-1), min=1e-6) / 127.0
     q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127)
     return q.to(torch.int8), s
+
+
+def cross_attention(p, x: torch.Tensor, enc_out: torch.Tensor, cfg,
+                    enc_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Decoder cross-attention (seamless), dense — port of `repro.models.
+    layers.cross_attention`. x [B,T,D], enc_out [B,S,D], enc_mask [B,S]
+    bool or None (every frame seen). No RoPE, no bias, no causal mask:
+    queries and keys all sit at position 0."""
+    b, t, _ = x.shape
+    s = enc_out.shape[1]
+    q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = (enc_out @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q_pos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+    kv_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    mask = _mask(q_pos, kv_pos, causal=False, window=None,
+                 kv_len_mask=enc_mask)
+    return _out_proj(p, attention_core(q, k, v, cfg, mask))

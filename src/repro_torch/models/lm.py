@@ -1,28 +1,33 @@
-"""LM assembly for decoder LMs: block dispatch, the group stack, forward /
-prefill / decode — port of `repro.models.lm`.
+"""LM assembly: block dispatch, the group stack, forward / prefill / decode
+and the training loss — port of `repro.models.lm`.
 
 The layer stack is a plain loop over groups (the JAX package runs it under
-`lax.scan`; serving needs no remat). Params and caches keep the JAX
-layout: a list over group positions whose leaves are stacked [G, ...];
+`lax.scan`). Training runs each group under `torch.utils.checkpoint`
+(`remat=True`, as the JAX package wraps the scan body in
+`jax.checkpoint`): only the group's input is kept, and the group's
+activations are recomputed in the backward pass. Params and caches keep
+the JAX layout: a list over group positions whose leaves are stacked
+[G, ...];
   attn  -> {"k","v" [G,B,W,KV,hd], "pos" [G,B,W]}   (W = window for local)
   mamba -> {"conv" [G,B,K-1,Din], "ssm" [G,B,Din,N] float32}
   rwkv  -> {"shift_t","shift_c" [G,B,1,D], "wkv" [G,B,H,K,V] float32}
 
-Not ported yet, and raising `NotImplementedError`: enc-dec and
-cross-attention (ROADMAP Queue 1, enc-dec/VLM) and `lm_loss` (Queue 1,
-training).
+The enc-dec model (`models/encdec.py`) runs its encoder through
+`_run_groups` with `groups_key="enc_groups"` and `causal=False`, and its
+decoder with `enc_out` (cross-attention in every block).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import torch_dtype
 from repro_torch.models.mamba import mamba_block
 from repro_torch.models.moe import moe_ffn
-from repro_torch.params import tree_map
+from repro_torch.params import tree_leaves, tree_map
 
 _ATTN = ("attn", "attn_local")
 
@@ -54,15 +59,33 @@ def _mixer(p, h, cfg, kind: str, positions, cache, cache_pos):
     raise ValueError(kind)
 
 
+def _encoder_attention(p, h, cfg, positions):
+    """The encoder's bidirectional self-attention: dense at every length,
+    as in the JAX package (never the chunked path or the kernel)."""
+    mask = layers._mask(positions, positions, causal=False, window=None)
+    q, k, v = layers._qkv(p, h, cfg, positions)
+    return layers._out_proj(p, layers.attention_core(q, k, v, cfg, mask))
+
+
 def apply_block(p, x: torch.Tensor, cfg, kind: str, is_moe: bool, *,
-                positions: torch.Tensor, cache=None, cache_pos=None):
-    """One layer: (mixer + residual) then (FFN + residual). Returns
-    (x, new_cache, aux_loss)."""
+                positions: torch.Tensor, cache=None, cache_pos=None,
+                enc_out=None, causal: bool = True):
+    """One layer: (mixer + residual), then cross-attention + residual when
+    `enc_out` is given (the enc-dec decoder), then (FFN + residual).
+    `causal=False` is the encoder's attention block. Returns (x,
+    new_cache, aux_loss)."""
     h = layers.rmsnorm(x, p["ln1"]["scale"], cfg.norm_eps)
-    y, new_cache = _mixer(p, h, cfg, kind, positions, cache, cache_pos)
+    if kind in _ATTN and not causal:
+        y, new_cache = _encoder_attention(p["attn"], h, cfg, positions), {}
+    else:
+        y, new_cache = _mixer(p, h, cfg, kind, positions, cache, cache_pos)
     if cfg.post_block_norm:
         y = layers.rmsnorm(y, p["post_ln1"]["scale"], cfg.norm_eps)
     x = x + y
+
+    if enc_out is not None:                     # decoder cross-attention
+        h = layers.rmsnorm(x, p["ln_x"]["scale"], cfg.norm_eps)
+        x = x + layers.cross_attention(p["xattn"], h, enc_out, cfg)
 
     h = layers.rmsnorm(x, p["ln2"]["scale"], cfg.norm_eps)
     aux = 0.0
@@ -93,22 +116,44 @@ def _stack(trees: list):
 
 
 def _run_groups(params, cfg, x: torch.Tensor, *, positions, caches=None,
-                cache_pos=None):
-    """Every layer in order: group g, then position j within the group.
-    Returns (x, per-position new caches stacked [G, ...], aux sum)."""
-    kinds, moes = cfg.layer_kinds(), cfg.layer_is_moe()
-    outs = [[] for _ in kinds]
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.n_groups):
+                cache_pos=None, enc_out=None, causal: bool = True,
+                remat: bool = False, groups_key: str = "groups",
+                kinds=None, moes=None):
+    """Every layer in order: group g, then position j within the group
+    (JAX `_scan_groups`). `groups_key`, `kinds` and `moes` pick the stack
+    (the encoder's is `"enc_groups"`, `["attn"]`, `[False]`); with
+    `remat` each group runs under `torch.utils.checkpoint`, which changes
+    memory, never values. Returns (x, per-position new caches stacked
+    [G, ...], aux sum)."""
+    kinds = kinds or cfg.layer_kinds()
+    moes = moes if moes is not None else cfg.layer_is_moe()
+    stacks = params[groups_key]
+    n_groups = tree_leaves(stacks[0])[0].shape[0]
+
+    def group(x, g):
+        new_caches, aux_total = [], 0.0
         for j, kind in enumerate(kinds):
-            grp = tree_map(lambda t: t[g], params["groups"][j])
+            grp = tree_map(lambda t: t[g], stacks[j])
             cache = (None if caches is None
                      else tree_map(lambda t: t[g], caches[j]))
             x, nc, aux = apply_block(grp, x, cfg, kind, moes[j],
                                      positions=positions, cache=cache,
-                                     cache_pos=cache_pos)
-            outs[j].append(nc)
+                                     cache_pos=cache_pos, enc_out=enc_out,
+                                     causal=causal)
+            new_caches.append(nc)
             aux_total = aux_total + aux
+        return x, new_caches, aux_total
+
+    outs = [[] for _ in kinds]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(n_groups):
+        if remat:
+            x, ncs, aux = checkpoint(group, x, g, use_reentrant=False)
+        else:
+            x, ncs, aux = group(x, g)
+        for j, nc in enumerate(ncs):
+            outs[j].append(nc)
+        aux_total = aux_total + aux
     return x, [_stack(o) for o in outs], aux_total
 
 
@@ -133,25 +178,28 @@ def logits_from_hidden(params, cfg, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """arange(S) for every row of x [B, S, D], int32."""
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+
 def _embed_inputs(params, cfg, tokens, embeds):
-    if cfg.is_enc_dec:
-        raise NotImplementedError("enc-dec models are not ported yet "
-                                  "(ROADMAP Queue 1, enc-dec/VLM)")
     x = embed_tokens(params, cfg, tokens)
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
-    return x, positions
+    return x, _positions(x)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            embeds: torch.Tensor | None = None):
-    """Scoring forward. tokens [B,S_tok]; embeds [B,P,D] prepended (VLM
-    patches). Returns (logits [B,S,V] float32, aux_loss)."""
+            embeds: torch.Tensor | None = None, remat: bool = False):
+    """Training/scoring forward. tokens [B,S_tok]; embeds [B,P,D]
+    prepended (VLM patches). Returns (logits [B,S,V] float32, aux_loss)."""
+    if cfg.is_enc_dec:
+        raise ValueError("use encdec.forward_encdec for enc-dec models")
     x, positions = _embed_inputs(params, cfg, tokens, embeds)
-    x, _, aux = _run_groups(params, cfg, x, positions=positions)
+    x, _, aux = _run_groups(params, cfg, x, positions=positions,
+                            remat=remat)
     return logits_from_hidden(params, cfg, x), aux
 
 
@@ -250,6 +298,24 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     return logits, new_caches, cache_pos + 1
 
 
-def lm_loss(*args, **kwargs):
-    raise NotImplementedError("LM training is not ported yet (ROADMAP "
-                              "Queue 1, training)")
+# ------------------------------------------------------------------- loss
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor):
+    """Mean next-token cross-entropy: logits [B,T,V] at the positions that
+    predict tokens[:, 1:] (T = S_tok - 1)."""
+    tgt = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
+            aux_weight: float = 0.01):
+    """Next-token cross-entropy (+ MoE aux). batch: {"tokens" [B,S],
+    optional "embeds" [B,P,D]} — targets are tokens shifted by one; with
+    embeds the logits from position P on predict them."""
+    tokens = batch["tokens"]
+    embeds = batch.get("embeds")
+    logits, aux = forward(params, cfg, tokens, embeds=embeds, remat=remat)
+    p = 0 if embeds is None else embeds.shape[1]
+    return next_token_nll(logits[:, p:-1], tokens) + aux_weight * aux

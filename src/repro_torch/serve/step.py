@@ -1,14 +1,14 @@
-"""Serving steps: prefill, decode and greedy generation for decoder LMs
-(attention, mamba and rwkv blocks: dense, MoE, RWKV-6 and the Jamba
-hybrid) — port of `repro.serve.step`.
+"""Serving steps: prefill, decode and greedy generation for every family,
+enc-dec included — port of `repro.serve.step`.
 
 The JAX package jits each step; the port runs them eagerly under
 `torch.inference_mode`. On the card the model's kernels launch from the
 layers: with `cfg.moe_use_kernel` every MoE layer's expert FFN is one
 launch of `csrc/moe_experts.cu`; every rwkv layer runs `csrc/wkv6.cu` and
 every mamba layer `csrc/mamba_scan.cu` once per step; prompts of 2048
-tokens or more run `csrc/flash_attn.cu` once per attention layer in
-prefill. Enc-dec models are not ported yet (ROADMAP Queue 1, enc-dec/VLM).
+tokens or more run `csrc/flash_attn.cu` once per (decoder) attention layer
+in prefill. The enc-dec steps (seamless) take the encoder's frames in
+prefill and its output in decode, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -17,19 +17,21 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.params import params_to
 
 
-def _no_enc_dec(cfg: ModelConfig) -> None:
-    if cfg.is_enc_dec:
-        raise NotImplementedError("enc-dec serving is not ported yet "
-                                  "(ROADMAP Queue 1, enc-dec/VLM)")
-
-
 def build_prefill_step(cfg: ModelConfig):
-    _no_enc_dec(cfg)
+    """step(params, tokens, embeds=None, cache_len=None) -> (last_logits,
+    caches, cache_pos); for enc-dec step(params, frames, tokens,
+    cache_len=None) -> (last_logits, enc_out, caches, cache_pos)."""
+    if cfg.is_enc_dec:
+        @torch.inference_mode()
+        def encdec_step(params, frames, tokens, cache_len=None):
+            return encdec.prefill_encdec(params, cfg, frames, tokens,
+                                         cache_len=cache_len)
+        return encdec_step
 
     @torch.inference_mode()
     def step(params, tokens, embeds=None, cache_len=None):
@@ -39,7 +41,15 @@ def build_prefill_step(cfg: ModelConfig):
 
 
 def build_decode_step(cfg: ModelConfig):
-    _no_enc_dec(cfg)
+    """step(params, token, caches, cache_pos) -> (logits, caches,
+    cache_pos); for enc-dec step(params, token, enc_out, caches,
+    cache_pos)."""
+    if cfg.is_enc_dec:
+        @torch.inference_mode()
+        def encdec_step(params, token, enc_out, caches, cache_pos):
+            return encdec.decode_step_encdec(params, cfg, token, enc_out,
+                                             caches, cache_pos)
+        return encdec_step
 
     @torch.inference_mode()
     def step(params, token, caches, cache_pos):
@@ -54,8 +64,10 @@ def greedy_generate(params, cfg: ModelConfig, prompt, *, max_new: int = 16,
     prompt's length, as the JAX package's host loop. Runs on `device`
     (None = the card; raises without CUDA unless "cpu"); params and inputs
     are moved there (a no-op for tensors already there). Returns [B,
-    max_new] int32 token ids."""
-    _no_enc_dec(cfg)
+    max_new] int32 token ids. Enc-dec models raise NotImplementedError,
+    as in the JAX package: their steps are driven directly."""
+    if cfg.is_enc_dec:
+        raise NotImplementedError("use encdec steps directly")
     dev = resolve_device(device)
     params = params_to(params, dev)
     prompt = torch.as_tensor(np.asarray(prompt) if not isinstance(

@@ -1,10 +1,19 @@
-"""The SimGNN train step — port of the SimGNN half of `repro.train.step`:
-clip -> cosine schedule -> AdamW around `ScoringEngine.loss_and_grad`
-(DESIGN.md §11). The language-model step (`build_train_step`) is not
-ported yet.
+"""Train-step builders — port of `repro.train.step`: value-and-grad ->
+(optional int8 compression) -> clip -> cosine schedule -> AdamW, for the
+LM substrate (`build_train_step`) and the paper's SimGNN model
+(`build_simgnn_train_step`).
 
-No path selection happens here: packing, bucketing and the choice of
-executor live in the engine, for training as for serving.
+The LM step differentiates `lm.lm_loss` / `encdec.encdec_loss` with
+autograd on detached copies of the params, with each layer group under
+`torch.utils.checkpoint` (the losses' `remat=True`, as the JAX package's
+`jax.checkpoint` over the scan). On the card the LM kernels run in the
+forward pass; their backward is autograd of their plain versions
+(`kernels.grad.kernel_with_plain_backward`). Gradient accumulation runs
+`accum_steps` microbatches along the batch leaves' leading axis.
+
+No path selection happens in the SimGNN step: packing, bucketing and the
+choice of executor live in the engine, for training as for serving
+(DESIGN.md §11).
 """
 
 from __future__ import annotations
@@ -13,7 +22,89 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed.compression import int8_compress_tree
+from repro_torch.models import encdec, lm
+from repro_torch.models.config import ModelConfig
+from repro_torch.params import tree_leaves, tree_map
 from repro_torch.train import optimizer as opt
+
+
+def loss_for(cfg: ModelConfig) -> Callable:
+    if cfg.is_enc_dec:
+        return encdec.encdec_loss
+    return lm.lm_loss
+
+
+def _on(batch, device):
+    """Batch leaves (arrays or tensors) as tensors on `device`."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def value_and_grad(params, cfg: ModelConfig, batch, *,
+                   allow_unused: bool = True, **loss_kw):
+    """(loss, grads): `loss_for(cfg)` and its gradient for every leaf, as
+    a tree like `params`, by autograd on detached copies of the leaves.
+    `loss_kw` goes to the loss (e.g. `remat`). A leaf the loss does not
+    reach gets zeros, as `jax.grad` gives it; with `allow_unused=False`
+    autograd raises instead."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    it = iter(leaves)
+    loss = loss_for(cfg)(tree_map(lambda _: next(it), params), cfg, batch,
+                         **loss_kw)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=allow_unused)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    it = iter(grads)
+    return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def build_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
+                     max_grad_norm: float = 1.0, accum_steps: int = 1,
+                     compress_grads: bool = False):
+    """Returns step_fn(params, opt_state, batch) -> (params, opt_state,
+    metrics {"loss", "grad_norm", "lr", "step"}). Batch leaves (numpy
+    arrays or tensors; moved to the params' device) carry a leading
+    accumulation axis when accum_steps > 1; the microbatches' losses and
+    float32 gradients are summed in order and divided by accum_steps.
+    Nothing is updated in place. The JAX step's `constrain_grads` (pin
+    each gradient to its parameter's sharding) acts only on a mesh; the
+    port has none, as the JAX package with `rt.mesh is None`."""
+    def step_fn(params, opt_state, batch):
+        device = tree_leaves(params)[0].device
+        batch = _on(batch, device)
+        if accum_steps > 1:
+            loss = torch.zeros((), dtype=torch.float32, device=device)
+            grads = tree_map(lambda p: torch.zeros(p.shape,
+                                                   dtype=torch.float32,
+                                                   device=device), params)
+            for i in range(accum_steps):
+                mb_loss, mb_grads = value_and_grad(
+                    params, cfg, {k: v[i] for k, v in batch.items()})
+                loss = loss + mb_loss
+                grads = _add_trees(grads, mb_grads)
+            loss = loss / accum_steps
+            grads = tree_map(lambda g: g / accum_steps, grads)
+        else:
+            loss, grads = value_and_grad(params, cfg, batch)
+
+        with torch.no_grad():
+            if compress_grads:
+                grads = int8_compress_tree(grads)
+            grads, grad_norm = opt.clip_by_global_norm(grads, max_grad_norm)
+            lr = opt.cosine_schedule(opt_state.step, peak_lr=peak_lr)
+            params, opt_state = opt.adamw_update(grads, opt_state, params,
+                                                 lr=lr)
+        metrics = {"loss": loss.float(), "grad_norm": grad_norm, "lr": lr,
+                   "step": opt_state.step}
+        return params, opt_state, metrics
+
+    return step_fn
+
+
+def _add_trees(a, b):
+    """Leafwise a + b of two trees of one structure."""
+    it = iter(tree_leaves(b))
+    return tree_map(lambda x: x + next(it), a)
 
 
 def build_simgnn_apply(*, peak_lr: float = 1e-3,

@@ -1652,3 +1652,59 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         1e-6 * abs(float(hm["loss"]))
     for a, b in zip(tree_leaves(cp), tree_leaves(hp)):
         assert float((a.cpu() - b).abs().max()) <= GRAD_ATOL_F32
+
+
+# ----------------------------- gradients through the LM kernels' wrappers
+
+def _lm_kernel_case(name, dev):
+    """(wrapper, plain version, float32 inputs, bound) of one LM kernel at
+    a small shape; the first output is what a loss reads."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    if name == "flash_attn":
+        q = _randn(g, (1, 300, 4, 32), dev)
+        k, v = (_randn(g, (1, 300, 2, 32), dev) for _ in range(2))
+        return flash_attention, flash_attention_plain, (q, k, v), FLASH_TOL
+    if name == "wkv6":
+        r, k = (_randn(g, (2, 40, 2, 16), dev, 0.5) for _ in range(2))
+        v = _randn(g, (2, 40, 2, 16), dev, 0.5)
+        w = torch.exp(-torch.exp(_randn(g, (2, 40, 2, 16), dev, 0.5) - 1))
+        u = _randn(g, (2, 16), dev, 0.5)
+        return wkv6_state, wkv6_state_plain, (r, k, v, w, u), SCAN_TOL
+    if name == "mamba_scan":
+        dt = torch.nn.functional.softplus(_randn(g, (2, 40, 24), dev) - 2)
+        x = _randn(g, (2, 40, 24), dev)
+        b, c = (_randn(g, (2, 40, 8), dev) for _ in range(2))
+        a = -torch.exp(_randn(g, (24, 8), dev, 0.5))
+        d = _randn(g, (24,), dev)
+        return (mamba_selective_scan_state, mamba_selective_scan_state_plain,
+                (dt, x, b, c, a, d), SCAN_TOL)
+    x = _randn(g, (2, 4, 8, 32), dev)
+    w_in = _randn(g, (4, 32, 64), dev, 0.1)
+    w_out = _randn(g, (4, 32, 32), dev, 0.1)
+    return moe_expert_ffn, moe_expert_ffn_plain, (x, w_in, w_out), BODY_TOL
+
+
+@pytest.mark.parametrize("name", ("flash_attn", "wkv6", "mamba_scan",
+                                  "moe_experts"))
+def test_lm_kernel_gradients_match_plain_autograd(cuda, name):
+    """Under grad the wrapper still launches its kernel (one count) and
+    its output has a backward: autograd of the plain version, giving every
+    input the plain forward's gradients within the kernel's bound."""
+    wrapper, plain, inputs, tol = _lm_kernel_case(name, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    before = wrapper.launches
+    out = wrapper(*leaves)
+    assert wrapper.launches == before + 1
+    y = out[0] if isinstance(out, tuple) else out
+    assert y.grad_fn is not None
+    ref_leaves = [t.clone().requires_grad_(True) for t in inputs]
+    ref = plain(*ref_leaves)
+    ref_y = ref[0] if isinstance(ref, tuple) else ref
+    torch.testing.assert_close(y, ref_y, **tol)
+    cot = torch.randn(y.shape, device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(4))
+    got = torch.autograd.grad(y, leaves, cot)
+    want = torch.autograd.grad(ref_y, ref_leaves, cot)
+    assert wrapper.launches == before + 1        # the backward is plain
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **tol)

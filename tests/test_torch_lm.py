@@ -331,11 +331,18 @@ def test_no_silent_cpu():
 
 @pytest.mark.parametrize("arch", ("seamless-m4t-large-v2",))
 def test_unported_blocks_raise_not_implemented(arch):
+    """The blocks that once raised (enc-dec) are ported: seamless now
+    initialises and prefills through its enc-dec prefill step
+    (`tests/test_torch_encdec.py` holds it against the JAX package)."""
+    from repro_torch.serve.step import build_prefill_step
+
     _, tcfg = _configs(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if tcfg.is_enc_dec:
-            tlm.prefill({}, tcfg, torch.zeros((1, 4), dtype=torch.int32))
-        else:
-            tlm.init_cache(tcfg, 1, 8)
+    tp = init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
+    assert {"enc_groups", "enc_final_norm"} <= set(tp)
+    frames = torch.zeros((1, 6, tcfg.d_model))
+    last, enc_out, caches, pos = build_prefill_step(tcfg)(
+        tp, frames, torch.zeros((1, 4), dtype=torch.int32))
+    assert last.shape == (1, tcfg.vocab_padded) and torch.isfinite(
+        last[:, :tcfg.vocab_size]).all()
+    assert enc_out.shape == (1, 6, tcfg.d_model) and pos.tolist() == [4]
+    assert caches[0]["attn"]["pos"][:, 0].tolist() == [[0, 1, 2, 3]] * 2
