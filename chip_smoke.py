@@ -56,8 +56,16 @@ through the plain versions) against plain autograd for reduced granite
 plain; holds three train steps of reduced qwen1.5-4b, internvl2-2b and
 seamless against the CPU; and runs the launcher in LM mode killed at a
 step and resumed (bit-equal to an uninterrupted run) and the `train_lm`
-example. Phases 4-7 pin `planner="threshold"`. Every failed check exits
-non-zero.
+example. Phase 22 serves SimGNN-AIDS device-sharded over 2 and 4 devices
+(the first N cards, or N logical devices over cuda:0, each its own
+stream, on a one-card machine; printed): the AIDS and average-degree-8
+streams through `simgnn_query_server(runtime=...)` bitwise equal to the
+unsharded server with one launch a non-empty shard, the collapse rung
+under a `raise` and a `nan` fault at `sharded:<path>`, and the
+span-split search server with both prefilter proxies bit-equal to one
+span (a dead span served by the exact scan); it prints request wall ms
+and device span at 1, 2 and 4 shards and each shard's kernel ms. Phases
+4-7 pin `planner="threshold"`. Every failed check exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -266,6 +274,11 @@ STEP_ARCHS = ("qwen1.5-4b", "internvl2-2b", SEAMLESS_ARCH)
 STEP_PARAM_BOUND = 1e-5
 LM_LAUNCH_ARCH = "qwen1.5-4b"
 LM_LAUNCH_STEPS, LM_LAUNCH_EVERY, LM_LAUNCH_FAIL_AT = 6, 2, 4
+#: phase 22: device-sharded SimGNN-AIDS serving over SHARD_COUNTS devices
+#: (logical devices over cuda:0 where the machine has fewer cards), the
+#: AIDS and average-degree-8 streams in requests of BATCH pairs, and the
+#: span-split search server over the phase-6 corpus and queries.
+SHARD_COUNTS = (2, 4)
 #: the backward rules' `torch.autograd.Function`s whose forward inputs a
 #: card training step captures (both edge-list rules share one class, as
 #: both packed-CSR rules do)
@@ -741,6 +754,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["encdec"] = encdec_phase(dev, reset_counts, read_counts)
     phase("21 seamless serving and training, LM training")
+
+    # ---- phase 22: device-sharded SimGNN serving -----------------------
+    torch.cuda.empty_cache()
+    report["sharded"], counts = sharded_phase(params, corpus, queries,
+                                              reset_counts, read_counts)
+    for name, n in counts.items():
+        served[name] += n
+        kernels[name]["sharded_phase_launches"] = n
+    phase("22 device-sharded SimGNN serving")
     report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
@@ -766,6 +788,283 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _shard_runtime(n: int):
+    """A tile runtime of `n` devices: the first n cards where the machine
+    has them, else n logical devices over cuda:0 (armed here). Returns
+    (runtime, "cards" or "logical")."""
+    from repro_torch.distributed import sharding
+
+    if torch.cuda.device_count() >= n:
+        sharding.disarm_logical_devices()
+        return sharding.tile_runtime(n), "cards"
+    sharding.force_logical_device_count(n, "cuda:0")
+    return sharding.tile_runtime(n), "logical"
+
+
+def _served_sharded(tag, score, batches, want, n, kern, reset_counts,
+                    read_counts) -> dict:
+    """One stream's requests on a sharded server: each request planned on
+    `n` devices without degradation, its pack stats the plan's, one
+    `kern` launch a non-empty shard and no other launch, scores bitwise
+    equal to the unsharded server's (`want`); wall ms and device span
+    (RequestTimer) per request, and each shard's launch of the last
+    request timed alone (kernel ms from the profiler, as phase 3)."""
+    from repro_torch.kernels import ops
+
+    name = "sparse_pair" if kern == "sparse_pair_score" else "packed_pair"
+    real = getattr(ops, kern)
+    calls = []
+
+    def recording(*args):
+        calls.append(args)
+        return real(*args)
+
+    timer = RequestTimer(score.engine)
+    walls, shards = [], []
+    reset_counts()
+    setattr(ops, kern, recording)
+    try:
+        for batch, ref in zip(batches, want):
+            calls.clear()
+            before = read_counts()
+            t0 = time.perf_counter()
+            with timer:
+                out = score(batch)
+            walls.append(time.perf_counter() - t0)
+            after = read_counts()
+            plan, ps = score.last_plan, score.last_pack_stats
+            assert plan.devices == n and plan.degraded_from == () \
+                and plan.attempts == 1, (tag, plan)
+            target, tb = ops.sharded_tile_plan(
+                ps["tiles"], score.engine.node_budget, n,
+                sparse=name == "sparse_pair")
+            spans = ops.shard_spans(ps["tiles"], target, n)
+            span = target // n
+            assert ps["devices"] == n and ps["tiles_padded"] == target and \
+                ps["device_occupancy"] == [
+                    (hi - lo) / span for lo, hi in spans], (tag, ps)
+            live = [hi - lo for lo, hi in spans if hi > lo]
+            delta = {k: after[k] - before[k] for k in after}
+            assert delta[name] == len(live) == sum(delta.values()), \
+                (tag, delta, spans)
+            assert [c[0].shape[0] for c in calls] == live, (tag, live)
+            assert out.tobytes() == ref.tobytes(), \
+                f"{tag}: sharded scores differ from the unsharded server's"
+            shards = live
+    finally:
+        setattr(ops, kern, real)
+    counts = read_counts()
+    symbols = SYMBOLS.get(name, f"{name}_kernel")
+    shard_ms, sources = [], []
+    for c in calls:
+        ms = kernel_device_ms(lambda c=c: real(*c), symbols)
+        sources.append("profiler" if ms else "events")
+        shard_ms.append(ms or time_cuda_batch(lambda c=c: real(*c)))
+    del calls
+    torch.cuda.synchronize()
+    steady = timer.stages[1:]
+    wall = statistics.fmean(walls[1:])
+    device = statistics.fmean(st["device"] for st in steady)
+    print(f"  {tag}: {len(walls)} requests of {BATCH} pairs bitwise equal "
+          f"to unsharded; shards of the last request {shards} tiles "
+          f"(tile block {tb}, {target} tiles padded); request {1e3 * wall:.3f} "
+          f"ms wall, {1e3 * device:.3f} ms device span (requests 2..); each "
+          f"shard's {name} launch alone "
+          + ", ".join(f"{ms:.4f} ({src})"
+                      for ms, src in zip(shard_ms, sources))
+          + " ms (events: the profiler saw no device time; CUDA events "
+          "around back-to-back wrapper calls)")
+    return {"launches": counts, "wall_ms": 1e3 * wall,
+            "device_span_ms": 1e3 * device, "walls_ms": [1e3 * x for x in
+                                                        walls],
+            "shard_tiles": shards, "shard_kernel_ms": shard_ms,
+            "shard_kernel_ms_source": sources,
+            "tiles_padded": target, "tile_block": tb}
+
+
+def _unsharded(tag, score, batches) -> tuple[list, dict]:
+    """The unsharded server's scores of each request, with its wall ms and
+    device span (requests 2..), the phase's one-shard timing."""
+    timer = RequestTimer(score.engine)
+    outs, walls = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        with timer:
+            outs.append(score(batch))
+        walls.append(time.perf_counter() - t0)
+        assert score.last_plan.devices == 1
+    wall = statistics.fmean(walls[1:])
+    device = statistics.fmean(st["device"] for st in timer.stages[1:])
+    print(f"  {tag} unsharded: request {1e3 * wall:.3f} ms wall, "
+          f"{1e3 * device:.3f} ms device span (requests 2..)")
+    return outs, {"wall_ms": 1e3 * wall, "device_span_ms": 1e3 * device}
+
+
+def sharded_phase(params, corpus, queries, reset_counts,
+                  read_counts) -> tuple[dict, dict]:
+    """Phase 22: device-sharded SimGNN-AIDS serving at N in SHARD_COUNTS
+    devices (logical devices over cuda:0 on a one-card machine, printed).
+    (a) The AIDS stream (`query_pairs(1, 2048)`, `packed_sparse`) and the
+    average-degree-8 stream (`search_pairs(5, 2048, avg_degree=8.0)`,
+    `packed_dense`) in requests of 256 through `simgnn_query_server(
+    use_kernels=True, planner="threshold", runtime=...)`: scores bitwise
+    equal to the same server without a runtime, plans on N devices, pack
+    stats the plan's, one launch a non-empty shard. (b) A `raise` fault at
+    `sharded:packed_sparse` and a `nan` fault at `sharded:packed_dense`
+    each serve one request on one device, bitwise equal, with
+    `errors:<path>@Nd` and `degraded_from` as in JAX. (c) The span-split
+    `SimilaritySearchServer` over the corpus: 64 two-stage top-10 queries
+    (`prefilter_m` 64) with each proxy equal to the one-span server's bit
+    for bit, N span scans a call (N scan launches), and a dead span
+    ("prefilter" fault) degrading to the exact scan. (d) Wall ms and
+    device span of a request at 1, 2 and 4 shards and each shard's kernel
+    ms, printed; nothing is gated on them. Returns (report, launch counts
+    of the served runs)."""
+    from repro_torch.configs.simgnn_aids import CONFIG as CFG
+    from repro_torch.data.graphs import query_pairs, search_pairs
+    from repro_torch.distributed import sharding
+    from repro_torch.serve.batching import simgnn_query_server
+    from repro_torch.serve.search import SimilaritySearchServer
+    from repro_torch.testing import faults
+
+    served: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            served[k] = served.get(k, 0) + v
+
+    streams = {
+        "aids": (query_pairs(1, N_PAIRS), "packed_sparse",
+                 "sparse_pair_score"),
+        "degree8": (search_pairs(5, N_PAIRS, avg_degree=8.0),
+                    "packed_dense", "packed_pair_score")}
+    one = simgnn_query_server(params, CFG, use_kernels=True,
+                              planner="threshold")
+    rep: dict = {"cards": torch.cuda.device_count(), "streams": {},
+                 "collapse": {}, "search": {}}
+    want = {}
+    reset_counts()
+    for tag, (pairs, path, _) in streams.items():
+        batches = [pairs[i:i + BATCH] for i in range(0, len(pairs), BATCH)]
+        want[tag] = (batches, *_unsharded(tag, one, batches))
+        assert one.last_plan.path == path, (tag, one.last_plan.reason)
+        rep["streams"][tag] = {"1": want[tag][2]}
+    add(read_counts())
+    for n in SHARD_COUNTS:
+        rt, kind = _shard_runtime(n)
+        print(f"phase 22: {n} devices: " + (
+            f"the first {n} cards" if kind == "cards" else
+            f"{n} logical devices over cuda:0, a stream each"))
+        rep.setdefault("device_kind", {})[n] = kind
+        score = simgnn_query_server(params, CFG, use_kernels=True,
+                                    planner="threshold", runtime=rt)
+        for tag, (_, path, kern) in streams.items():
+            batches, outs, _ = want[tag]
+            r = _served_sharded(f"{tag} on {n} devices", score, batches,
+                                outs, n, kern, reset_counts, read_counts)
+            assert score.last_plan.path == path, score.last_plan.reason
+            add(r.pop("launches"))
+            rep["streams"][tag][str(n)] = r
+        # (b) the collapse rung
+        for tag, mode in (("aids", "raise"), ("degree8", "nan")):
+            path = streams[tag][1]
+            batch, ref = want[tag][0][0], want[tag][1][0]
+            errors = score.engine.counters[f"errors:{path}@{n}d"]
+            reset_counts()
+            with faults.inject(f"sharded:{path}", mode, times=1) as fp:
+                out = score(batch)
+            add(read_counts())
+            plan = score.last_plan
+            assert fp.triggered == 1 and out.tobytes() == ref.tobytes(), \
+                (tag, mode, "collapsed scores differ")
+            assert plan.degraded_from == (f"{path}@{n}d",) and \
+                plan.attempts == 2 and plan.devices == n, plan
+            assert score.engine.counters[f"errors:{path}@{n}d"] == \
+                errors + 1, dict(score.engine.counters)
+            assert any(k.startswith(f"{path}@{n}d[")
+                       for k in score.engine.health()["breakers"])
+            rep["collapse"][f"{tag}/{n}"] = {
+                "mode": mode, "degraded_from": list(plan.degraded_from),
+                "counters": dict(score.engine.counters)}
+            print(f"  collapse rung, {mode} at sharded:{path} on {n} "
+                  f"devices: served single-device bitwise equal, "
+                  f"degraded_from {plan.degraded_from}, counters "
+                  f"{dict(score.engine.counters)}")
+        del score
+    # (c) the span-split search server
+    base = SimilaritySearchServer(params, CFG, cache_size=16384)
+    base.index(corpus)
+    calib = base._calibration()
+    exact = None
+    for n in SHARD_COUNTS:
+        rt, _ = _shard_runtime(n)
+        srv = SimilaritySearchServer(params, CFG, cache_size=16384,
+                                     runtime=rt)
+        srv.index(corpus)
+        assert srv.corpus_emb.tobytes() == base.corpus_emb.tobytes()
+        assert srv.health()["prefilter"]["spans"] == n
+        # the queries' embeddings cached on both servers: the timed calls
+        # below are the two-stage path alone, as phase 6's second call
+        srv.engine.embed_graphs(queries)
+        base.engine.embed_graphs(queries)
+        for proxy in ("linear", "ntn_exact"):
+            scan = "topm" if proxy == "linear" else "topm_ntn"
+            for s in (base, srv):
+                s._calib = dict(calib, proxy=proxy)
+            t0 = time.perf_counter()
+            ref = base.search(queries, k=TOPK, mode="two_stage",
+                              prefilter_m=PREFILTER_M)
+            one_wall = time.perf_counter() - t0
+            spans0 = srv.engine.counters["prefilter_span_scans"]
+            reset_counts()
+            t0 = time.perf_counter()
+            got = srv.search(queries, k=TOPK, mode="two_stage",
+                             prefilter_m=PREFILTER_M)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            add(counts)
+            for (gi, gs), (wi, ws) in zip(got, ref):
+                assert np.array_equal(gi, wi) and gs.tobytes() == \
+                    ws.tobytes(), (n, proxy, "span search differs")
+            assert srv.engine.counters["prefilter_span_scans"] - spans0 \
+                == n and counts[scan] == n, (n, proxy, counts)
+            plan = srv.engine.last_plan
+            assert plan.devices == n and f"({n} span(s)" in plan.reason, \
+                plan.reason
+            rep["search"][f"{proxy}/{n}"] = {
+                "wall_ms": 1e3 * wall, "one_span_wall_ms": 1e3 * one_wall,
+                "launches": counts, "reason": plan.reason}
+            print(f"  span search, {proxy} proxy, {n} spans: {SEARCH_QUERIES} "
+                  f"two-stage top-{TOPK} queries equal to one span bit for "
+                  f"bit, {counts[scan]} {scan} launches, {1e3 * wall:.3f} ms "
+                  f"a call (one span {1e3 * one_wall:.3f}); {plan.reason}")
+        if exact is None:
+            exact = base.search(queries, k=TOPK, mode="exact")
+        reset_counts()
+        with faults.inject("prefilter", "raise", times=1) as fp:
+            got = srv.search(queries, k=TOPK, mode="two_stage",
+                             prefilter_m=PREFILTER_M)
+        add(read_counts())
+        assert fp.triggered == 1 and srv.stats.prefilter_degraded == \
+            SEARCH_QUERIES, srv.stats.prefilter_degraded
+        for (gi, gs), (wi, ws) in zip(got, exact):
+            assert np.array_equal(gi, wi) and gs.tobytes() == ws.tobytes()
+        print(f"  span search on {n} devices, a dead span: "
+              f"{SEARCH_QUERIES} queries served by the exact scan "
+              f"(prefilter_degraded {srv.stats.prefilter_degraded})")
+        del srv
+    sharding.disarm_logical_devices()
+    # (d) timings at 1, 2 and 4 shards
+    for tag, by_n in rep["streams"].items():
+        print(f"  {tag} stream, request wall / device span ms by shards: "
+              + "; ".join(f"{k}: {v['wall_ms']:.3f} / "
+                          f"{v['device_span_ms']:.3f}"
+                          for k, v in by_n.items()))
+    rep["launches"] = served
+    print(f"phase 22 launches: {served}")
+    return rep, served
 
 
 def record(name, worst, ms, ms_source, call_ms, plain_ms, label, flops,

@@ -28,7 +28,7 @@ bfloat16 leaves are written as the JAX manager writes them, 2-byte void
 entries with "bfloat16" in the manifest's `dtypes`, and read back through
 an int16 view into `torch.bfloat16`.
 
-The port runs on one device: `restore` takes no `shardings`, and elastic
+Checkpoints are single-device: `restore` takes no `shardings`, and elastic
 resharding (`ckpt/reshard.py`) is not ported (ROADMAP Queue 1, item 6).
 """
 

@@ -45,8 +45,20 @@ it plans over `TRAIN_PATHS`, packs once, and runs the packed bodies of
 plain reference, stepping down `TRAIN_DEGRADE_LADDER` on failure. No CUDA
 kernel runs on that path (no Pallas kernel runs on the JAX package's), so
 unlike the scoring ladder the train ladder keeps its `reference` rung on
-the card. The port runs on one device: every plan has `devices` 1 and
-every trace record `n_devices` 1.
+the card.
+
+Device-sharded scoring (DESIGN.md §16): with `runtime=` a
+`distributed.sharding.Runtime` of N devices, `plan()` assigns a packed
+call's tiles to `devices` of them (halved while a device would get fewer
+than `MIN_PACK_PAIRS` pairs) and `score()` packs on the host and scores
+each device's tile span there (`kernels.ops.score_tiles_sharded`), through
+the fault site `sharded:<path>`. A failing shard collapses the call to the
+same path on one device before the ladder crosses paths: the rungs are
+`path@Nd`, `path`, then `DEGRADE_LADDER`; counters, breakers and
+`degraded_from` name a sharded rung `path@Nd`, as do the trace records'
+`n_devices` and the planner's cost keys (`profile.cost_key`). Training
+stays single-device: `loss_and_grad` on an engine of more than one device
+raises `NotImplementedError`.
 
 The device decides what runs, never a flag: on the card the embed stage
 (`embed_graphs`), the head (`pair_scores_from_embeddings`) and the
@@ -77,8 +89,8 @@ import torch
 
 from repro_torch.core.cache import EmbeddingCache, graph_fingerprint, graph_key
 from repro_torch.core.health import CircuitBreaker
-from repro_torch.core.profile import (TraceRecorder, fit_cost_model,
-                                      trace_features)
+from repro_torch.core.profile import (TraceRecorder, cost_key,
+                                      fit_cost_model, trace_features)
 from repro_torch.core.validate import GraphValidationError, validate_pairs
 from repro_torch.device import resolve_device
 from repro_torch.params import params_to, tree_leaves, tree_map
@@ -108,16 +120,32 @@ TRAIN_DEGRADE_LADDER = {
 }
 
 
-def degrade_rungs(start: str, *, on_card: bool,
-                  degrade: bool = True) -> tuple[str, ...]:
-    """The rungs one work item may run on, `start` first. On the card every
-    rung but the reference launches a kernel, so the reference is left out:
-    a run whose kernels all fail raises instead of quietly serving plain
-    PyTorch on the card."""
+def _rung_name(path: str, devices: int) -> str:
+    """Counter, breaker and cost-key name of a rung: the bare path on one
+    device, `path@Nd` when it runs tile-sharded over N devices."""
+    return path if devices <= 1 else f"{path}@{int(devices)}d"
+
+
+def _rung_of(name: str) -> tuple[str, int]:
+    """(path, devices) of a rung name (`_rung_name`'s inverse)."""
+    path, _, nd = name.partition("@")
+    return path, int(nd[:-1]) if nd else 1
+
+
+def degrade_rungs(start: str, *, on_card: bool, degrade: bool = True,
+                  devices: int = 1) -> tuple[str, ...]:
+    """The rung names one work item may run on, `start` first. A start
+    sharded over `devices` > 1 is followed by the same path on one device
+    (a dead shard costs the mesh, never the batch), then the single-device
+    ladder. On the card every rung but the reference launches a kernel, so
+    the reference is left out: a run whose kernels all fail raises instead
+    of quietly serving plain PyTorch on the card."""
     steps = DEGRADE_LADDER.get(start, ()) if degrade else ()
     if on_card:
         steps = tuple(r for r in steps if r != "reference")
-    return (start,) + steps
+    if devices > 1 and degrade:
+        steps = (start,) + steps
+    return (_rung_name(start, devices),) + steps
 
 
 #: Fault-injection seam: tests arm it with hook(site, thunk); production
@@ -189,8 +217,9 @@ class ScorePlan:
     `cached_idx` the positions already resident and `to_embed_idx` the
     first occurrence of each uncached key. `cost_estimates` holds the
     predicted wall seconds per candidate when the fitted cost model drove
-    the decision (empty when the threshold rules did); `devices` is 1 (the
-    port runs on one device)."""
+    the decision (empty when the threshold rules did); `devices` is the
+    count of mesh devices the call's packed tiles go to (1 without a
+    runtime and on unpacked paths)."""
     path: str
     fallback: str
     fit_idx: np.ndarray
@@ -239,6 +268,7 @@ class ScoringEngine:
                  clock: Callable[[], float] = time.monotonic,
                  recorder: TraceRecorder | None = None,
                  planner: str = "measured",
+                 runtime=None,
                  grad_fn=None,
                  device=None):
         if path != "auto" and path not in PATHS:
@@ -254,6 +284,18 @@ class ScoringEngine:
 
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
+        #: the tile mesh (`distributed.sharding.Runtime`); None, or a
+        #: mesh-less runtime, keeps every path on `device` alone.
+        self.runtime = runtime
+        self.n_devices = (int(runtime.n_devices)
+                          if runtime is not None else 1)
+        if self.n_devices > 1 and runtime.mesh.kind != self.device.type:
+            raise ValueError(
+                f"runtime mesh on {runtime.mesh.kind} devices, engine on "
+                f"{self.device.type}")
+        #: float32 params on each device of the mesh, made at the first
+        #: sharded call (`kernels.ops.shard_params`).
+        self._shard_params: dict | None = None
         self.cfg = cfg
         self.path = path
         self.node_budget = (packed_node_budget(cfg.max_nodes)
@@ -410,13 +452,15 @@ class ScoringEngine:
         model = self._cost_model()
         if model is None:
             return None
-        # One device: every candidate's key is its bare path
-        # (`profile.cost_key` with n_devices 1).
+        # Keys carry the device count the planner would assign
+        # (`profile.cost_key`): a sharded wall never predicts a
+        # single-device call, nor the other way round.
         if train:
             cand = {p: f"train:{p}" for p in TRAIN_PATHS}
         else:
-            cand = {p: p for p in ("bucketed_mega", "packed_dense",
-                                   "packed_sparse")}
+            cand = {p: cost_key(p, self._plan_devices(p, stats))
+                    for p in ("bucketed_mega", "packed_dense",
+                              "packed_sparse")}
             if keys_known:
                 cand["embedding_cache"] = "embedding_cache"
         if not model.supports(cand.values()):
@@ -429,9 +473,21 @@ class ScoringEngine:
             est[path] = model.predict(key, feats)
         return est
 
+    def _plan_devices(self, path: str, stats: WorkloadStats) -> int:
+        """Mesh devices a call's packed tiles go to: only the packed paths
+        shard, and the count halves until each device gets at least
+        `MIN_PACK_PAIRS` pairs (a 3-pair call on 8 devices runs on one)."""
+        nd = self.n_devices
+        if nd <= 1 or path not in PACKED_PATHS:
+            return 1
+        while nd > 1 and stats.n_pairs < nd * self.MIN_PACK_PAIRS:
+            nd //= 2
+        return max(nd, 1)
+
     def _record_trace(self, kind: str, path: str, n_pairs: int,
                       plan: ScorePlan, wall_s: float, *,
-                      degraded: Sequence[str] = (), attempts: int = 1):
+                      degraded: Sequence[str] = (), attempts: int = 1,
+                      n_devices: int = 1):
         """Append one executed work item to the trace ring, through the
         fault seam (site "profile") and guarded: a failing recorder never
         fails the call it observes."""
@@ -451,7 +507,7 @@ class ScoringEngine:
                 density=plan.stats.density, occupancy=occ,
                 to_embed=len(plan.to_embed_idx),
                 degraded_from=list(degraded), attempts=int(attempts),
-                wall_s=float(wall_s), n_devices=1))
+                wall_s=float(wall_s), n_devices=int(n_devices)))
         except Exception:
             self.counters["profile_record_errors"] += 1
 
@@ -517,7 +573,8 @@ class ScoringEngine:
                          fit_idx=fit_idx, over_idx=over_idx, stats=stats,
                          reason=reason, cached_idx=cached_idx,
                          to_embed_idx=to_embed_idx, graph_keys=keys,
-                         quarantined=quarantined, cost_estimates=est)
+                         quarantined=quarantined, cost_estimates=est,
+                         devices=self._plan_devices(path, stats))
 
     def _graph_keys(self, pairs: Sequence[tuple]) -> tuple:
         """Canonical keys of every graph in the call: all lhs, then all rhs
@@ -571,27 +628,53 @@ class ScoringEngine:
             out[idx[idxs]] = s.detach().cpu().numpy()
 
     def _score_packed(self, pairs, idx: np.ndarray, out: np.ndarray,
-                      sparse: bool, stats: WorkloadStats):
+                      sparse: bool, stats: WorkloadStats, devices: int = 1):
+        """Packed scoring, on the engine's device, or with the tile axis
+        split over the first `devices` mesh devices: then the batch is
+        packed on the host, each device's tile span is scored there and the
+        [T, P] scores are gathered, under the fault site `sharded:<path>`,
+        and `last_pack_stats` adds the plan's `devices`, `tiles`,
+        `tiles_padded` and each device's live share of its span
+        (`device_occupancy`; pad tiles sit at the end), the JAX engine's
+        numbers."""
         from repro_torch.core.batching import pack_pairs, unpack_pair_scores
         from repro_torch.kernels import ops
 
+        path = "packed_sparse" if sparse else "packed_dense"
         slots = max(8, self.node_budget // 4)
+        # a sharded call packs on the host: each shard copies its own span
+        where = self.device if devices == 1 else torch.device("cpu")
         if sparse:
-            packed, pstats = self._pack_sparse(pairs, slots, stats.avg_degree)
-            s = _call("packed_sparse", lambda: ops.pair_score_sparse(
-                self.params, packed, device=self.device))
+            packed, pstats = self._pack_sparse(pairs, slots, stats.avg_degree,
+                                               device=where)
         else:
             packed, pstats = pack_pairs(pairs, self.node_budget,
-                                        slots_per_tile=slots,
-                                        device=self.device)
-            s = _call("packed_dense", lambda: ops.pair_score_packed(
-                self.params, packed, device=self.device))
+                                        slots_per_tile=slots, device=where)
+        if devices == 1:
+            score = ops.pair_score_sparse if sparse else ops.pair_score_packed
+            s = _call(path, lambda: score(self.params, packed,
+                                          device=self.device))
+        else:
+            mesh = self.runtime.mesh
+            if self._shard_params is None:
+                self._shard_params = ops.shard_params(self.params, mesh)
+            s, target = _call(f"sharded:{path}",
+                              lambda: ops.score_packed_sharded(
+                                  packed, self._shard_params,
+                                  mesh.first(devices), sparse=sparse))
+            t = packed.mask1.shape[0]
+            pstats = dict(pstats, devices=devices, tiles=t,
+                          tiles_padded=target, device_occupancy=[
+                              (hi - lo) / (target // devices) for lo, hi in
+                              ops.shard_spans(t, target, devices)])
         self.last_pack_stats = pstats
         out[idx] = unpack_pair_scores(s, packed, len(pairs))
 
-    def _pack_sparse(self, pairs, slots: int, avg_degree: float):
-        """Sparse packing: ladder-sized edge budget, with the realized
-        overflow budget of earlier calls as the floor."""
+    def _pack_sparse(self, pairs, slots: int, avg_degree: float,
+                     device=None):
+        """Sparse packing on `device` (default the engine's): ladder-sized
+        edge budget, with the realized overflow budget of earlier calls as
+        the floor."""
         from repro_torch.core.batching import pack_pairs
         from repro_torch.kernels import ops
 
@@ -602,7 +685,7 @@ class ScoringEngine:
                                     slots_per_tile=slots, with_edges=True,
                                     edge_budget=edge_budget,
                                     overflow_budget=self._overflow_floor,
-                                    device=self.device)
+                                    device=device or self.device)
         self._overflow_floor = max(self._overflow_floor,
                                    pstats["overflow_budget"])
         return packed, pstats
@@ -625,11 +708,11 @@ class ScoringEngine:
                 cooldown_s=self.breaker_cooldown_s, clock=self._clock)
         return br
 
-    def _execute_rung(self, rung: str, sub, idx: np.ndarray, out: np.ndarray,
-                      plan: ScorePlan):
+    def _execute_rung(self, rung: str, devices: int, sub, idx: np.ndarray,
+                      out: np.ndarray, plan: ScorePlan):
         if rung in PACKED_PATHS:
             self._score_packed(sub, idx, out, rung == "packed_sparse",
-                               plan.stats)
+                               plan.stats, devices)
         elif rung == "embedding_cache":
             self._score_cached(sub, idx, out, plan)
         else:
@@ -637,39 +720,43 @@ class ScoringEngine:
 
     def _run_score_ladder(self, start: str, sub, idx: np.ndarray,
                           out: np.ndarray, plan: ScorePlan
-                          ) -> tuple[int, list, str]:
+                          ) -> tuple[int, list, str, int]:
         """Execute one work item from `start`, stepping down the ladder
         (`degrade_rungs`) when a rung raises or emits non-finite scores.
-        Returns (attempts, degraded rung names, the rung that served);
-        re-raises only if every rung failed."""
-        rungs = degrade_rungs(start, on_card=self.device.type == "cuda",
-                              degrade=self.degrade)
+        Each non-terminal rung has its own breaker, a sharded rung apart
+        from its single-device twin. Returns (attempts, degraded rung
+        names, the path that served, the devices it served on); re-raises
+        only if every rung failed."""
+        rungs = degrade_rungs(
+            start, on_card=self.device.type == "cuda", degrade=self.degrade,
+            devices=plan.devices if start == plan.path else 1)
         sc = self._shape_class(plan.stats)
         degraded: list[str] = []
         attempts = 0
         last_err: Exception | None = None
-        for rung in rungs:
+        for name in rungs:
+            rung, nd = _rung_of(name)
             terminal = rung == "reference"
-            br = None if terminal else self._breaker(rung, sc)
+            br = None if terminal else self._breaker(name, sc)
             if br is not None and not br.allow():
-                self.counters[f"breaker_rejected:{rung}"] += 1
-                degraded.append(rung)
+                self.counters[f"breaker_rejected:{name}"] += 1
+                degraded.append(name)
                 continue
             attempts += 1
             try:
-                self._execute_rung(rung, sub, idx, out, plan)
+                self._execute_rung(rung, nd, sub, idx, out, plan)
                 if not terminal and not np.isfinite(out[idx]).all():
                     raise NonFiniteOutput(
-                        f"{rung} produced non-finite scores for validated "
+                        f"{name} produced non-finite scores for validated "
                         "inputs")
                 if br is not None:
                     br.record_success()
-                return attempts, degraded, rung
+                return attempts, degraded, rung, nd
             except Exception as exc:
                 if br is not None:
                     br.record_failure()
-                self.counters[f"errors:{rung}"] += 1
-                degraded.append(rung)
+                self.counters[f"errors:{name}"] += 1
+                degraded.append(name)
                 last_err = exc
                 if rung in PACKED_PATHS:
                     self.last_pack_stats = None
@@ -890,7 +977,14 @@ class ScoringEngine:
 
         `params` defaults to the engine's own; a training loop passes its
         evolving copy. Returns (loss, grads): a float32 scalar tensor and a
-        float32 tree like params, on the engine's device."""
+        float32 tree like params, on the engine's device. An engine of more
+        than one device raises `NotImplementedError`: sharded training is
+        not ported."""
+        if self.n_devices > 1:
+            raise NotImplementedError(
+                f"loss_and_grad on {self.n_devices} devices: sharded "
+                "training is not ported yet (ROADMAP Queue 1, item 6: "
+                "sharded training)")
         if accum_steps < 1 or accum_steps & (accum_steps - 1):
             raise ValueError(f"accum_steps must be a power of two, got "
                              f"{accum_steps}")
@@ -1186,11 +1280,11 @@ class ScoringEngine:
                 # The ladder returns with the scores on the host (each rung
                 # copies them out), so the wall covers the device work.
                 t0 = self._clock()
-                a, d, rung = self._run_score_ladder(
+                a, d, rung, nd = self._run_score_ladder(
                     start, [pairs[i] for i in idx], idx, out, plan)
                 self._record_trace("score", rung, len(idx), plan,
                                    self._clock() - t0, degraded=d,
-                                   attempts=a)
+                                   attempts=a, n_devices=nd)
                 attempts += a
                 degraded.extend(d)
             self.last_plan = replace(plan, degraded_from=tuple(degraded),

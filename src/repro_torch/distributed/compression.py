@@ -4,7 +4,7 @@ Block-wise int8 quantization with a shared absmax scale per tensor:
   q = round(g / s * 127),  s = absmax(g)
 The JAX package applies it to the gradients before the optimizer, where
 XLA's data-parallel all-reduce would then move int8 (+ one float32 scale)
-over the slowest links. The port has no multi-device path yet (ROADMAP
+over the slowest links. The port has no data-parallel training yet (ROADMAP
 Queue 1, item 6), so here it is the gradient transform alone: the tree
 enters the optimizer int8-roundtripped, bit for bit as the JAX package's
 (round half to even, float32 arithmetic). Error: at most half a

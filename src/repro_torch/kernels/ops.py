@@ -26,11 +26,24 @@ the CPU:
     the JAX package's ops module does.
 
 The CUDA kernels run one CTA per pair or tile and take any batch size, so
-the JAX wrappers' block policies (`megakernel_block_pairs`,
-`packed_tile_block`, `sparse_tile_block`, `quantize_tiles`, `_pad_batch`
-with `block_graphs` / `block_pairs`), which size Pallas grid blocks and
-XLA compile-cache shapes, have no counterpart here: batches go to the
-kernels unpadded and the [T, P] / [B] results equal the JAX wrappers'. The sharded wrappers are not ported yet.
+the JAX wrappers' padding (`megakernel_block_pairs`, `quantize_tiles`,
+`_pad_batch` with `block_graphs` / `block_pairs`), which sizes Pallas grid
+blocks and XLA compile-cache shapes, has no counterpart here: batches go
+to the kernels unpadded and the [T, P] / [B] results equal the JAX
+wrappers'. The JAX tile-block policies (`packed_tile_block`,
+`sparse_tile_block`) are kept as plain arithmetic, only as the numbers
+the sharded plan is held to; the CUDA kernels keep their own launch plans.
+
+Device-sharded scoring (DESIGN.md §16): `sharded_tile_plan` pads a call's
+T live tiles to a power of two with a whole number of tile-block programs
+a device, as the JAX package does, and `pair_score_packed_sharded` /
+`pair_score_sparse_sharded` score the tile span `[d·span, min((d+1)·span,
+T))` of mesh member d with the unchanged `packed_pair` / `sparse_pair`
+wrapper, launched on that member's stream (`distributed/sharding.py`), and
+gather the [T, P] scores in tile order. Pad tiles are never sent: a span
+of pad tiles only launches nothing (JAX runs them and drops their
+scores). The kernels score each tile alone, so a tile's scores do not
+depend on the span it lands in.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.fused_gcn import fused_gcn_att
 from repro_torch.kernels.fused_pair import fused_pair_score
+from repro_torch.kernels.grad import packed_arrays
 from repro_torch.kernels.packed_pair import packed_pair_score
 from repro_torch.kernels.retrieval import (blocked_topm, blocked_topm_ntn,
                                            collapse_query_ntn,
@@ -56,7 +70,10 @@ __all__ = ["flash_attention", "wkv6", "graph_embeddings_fused", "pair_scores_fus
            "simgnn_pair_score_kernel", "pair_score_megakernel",
            "pair_score_packed", "packed_node_budget", "pair_score_sparse",
            "packed_edge_budget", "blocked_topm", "blocked_topm_ntn",
-           "collapse_query_ntn", "retrieval_block_cols"]
+           "collapse_query_ntn", "retrieval_block_cols",
+           "packed_tile_block", "sparse_tile_block", "sharded_tile_block",
+           "sharded_tile_plan", "sharded_tile_target", "shard_spans",
+           "pair_score_packed_sharded", "pair_score_sparse_sharded"]
 
 
 def _args(params, arrays, device):
@@ -116,14 +133,35 @@ def packed_node_budget(max_nodes: int) -> int:
     return max(64, -(-max_nodes // 8) * 8)
 
 
+def _kernel_arrays(packed, sparse: bool) -> tuple:
+    """A PackedPairBatch's tensors in its kernel's order (`pair_mask`
+    last). A sparse batch packed without `edges` gets them here at the
+    default `packed_edge_budget`."""
+    if sparse and packed.edges is None:
+        from repro_torch.core.batching import packed_pair_edges
+
+        packed = packed._replace(edges=packed_pair_edges(
+            packed, packed_edge_budget(packed.node_budget)))
+    return packed_arrays(packed, sparse=sparse)
+
+
 def pair_score_packed(params, packed, *, device=None):
     """Score a `core.batching.PackedPairBatch` through the packed-dense
     kernel: [T, P] pair-slot scores, zero at pad slots (DESIGN.md §8)."""
-    params, arrays = _args(
-        params, (packed.adj1, packed.labels1, packed.mask1, packed.seg1,
-                 packed.adj2, packed.labels2, packed.mask2, packed.seg2,
-                 packed.pair_mask), device)
+    params, arrays = _args(params, _kernel_arrays(packed, False), device)
     return packed_pair_score(*arrays, *_weights(params))
+
+
+def packed_tile_block(node_budget: int) -> int:
+    """The JAX packed-dense megakernel's tiles a program (its VMEM policy:
+    16 tiles at NB 64, 8 at NB 128)."""
+    return max(1, min(16, 1024 // max(node_budget, 1)))
+
+
+def sparse_tile_block(node_budget: int) -> int:
+    """The JAX packed-sparse megakernel's tiles a program (twice
+    `packed_tile_block`'s: 32 at NB 64)."""
+    return max(1, min(32, 2048 // max(node_budget, 1)))
 
 
 def packed_edge_budget(node_budget: int, avg_degree: float | None = None) -> int:
@@ -144,18 +182,139 @@ def pair_score_sparse(params, packed, *, device=None):
     kernel (DESIGN.md §9): the same [T, P] contract as `pair_score_packed`.
     Expects `packed.edges` (pack with `with_edges=True`); when absent they
     are extracted here at the default `packed_edge_budget`."""
-    from repro_torch.core.batching import packed_pair_edges
-
-    edges = packed.edges
-    if edges is None:
-        edges = packed_pair_edges(packed,
-                                  packed_edge_budget(packed.node_budget))
-    e1, e2 = edges.edges1, edges.edges2
-    o1, o2 = edges.overflow1, edges.overflow2
-    params, arrays = _args(
-        params, (e1.senders, e1.weights, o1.senders, o1.receivers, o1.weights,
-                 packed.labels1, packed.mask1, packed.seg1,
-                 e2.senders, e2.weights, o2.senders, o2.receivers, o2.weights,
-                 packed.labels2, packed.mask2, packed.seg2, packed.pair_mask),
-        device)
+    params, arrays = _args(params, _kernel_arrays(packed, True), device)
     return sparse_pair_score(*arrays, *_weights(params))
+
+
+# ------------------------------------- device-sharded scoring (§16)
+#
+# The shape policy is the JAX package's, all powers of two (tile block,
+# padded tile count, device count), so every device's span is a whole
+# number of identical tile-block programs.
+
+
+def _pow2_floor(n: int) -> int:
+    p = 1
+    while p * 2 <= n:
+        p *= 2
+    return p
+
+
+def _pow2_ceil(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def sharded_tile_block(node_budget: int, *, sparse: bool = False) -> int:
+    """Tiles-a-program ceiling of a sharded call: the single-device policy
+    rounded down to a power of two."""
+    tb = (sparse_tile_block if sparse else packed_tile_block)(node_budget)
+    return _pow2_floor(tb)
+
+
+def sharded_tile_plan(t: int, node_budget: int, n_devices: int, *,
+                      sparse: bool = False) -> tuple[int, int]:
+    """(padded tile count, tile block) of a sharded call over `t` live
+    tiles: T pads to a power of two >= t with at least one program a
+    device, and the tile block shrinks below the policy when the mesh has
+    more devices than tiles to give them (20 tiles on 8 devices: 5 devices
+    of one 4-tile program, not one device of a 32-tile program)."""
+    tb = sharded_tile_block(node_budget, sparse=sparse)
+    target = _pow2_ceil(max(t, 1))
+    tb = min(tb, max(1, target // int(n_devices)))
+    return max(target, int(n_devices) * tb), tb
+
+
+def sharded_tile_target(t: int, tile_block: int, n_devices: int) -> int:
+    """Padded tile count of a sharded call: a power of two >= t, and at
+    least one tile-block program a device."""
+    return max(_pow2_ceil(max(t, 1)), int(n_devices) * tile_block)
+
+
+def shard_spans(t: int, target: int, n_devices: int) -> list:
+    """Live tile span `(lo, hi)` of each device: device d owns padded
+    tiles `[d·span, (d+1)·span)` with span = target / n_devices, clipped
+    to the `t` live ones (lo == hi: pad tiles only)."""
+    span = target // int(n_devices)
+    return [(min(d * span, t), min((d + 1) * span, t))
+            for d in range(int(n_devices))]
+
+
+def shard_params(params, mesh) -> dict:
+    """A float32 copy of `params` on each distinct device of `mesh` (the
+    kernels read float32 weights), keyed by device, made on the device's
+    current stream: the shards' streams wait on it before they launch.
+    Leaves already float32 there are the caller's own tensors."""
+    out = {}
+    for dev in mesh.devices:
+        if dev not in out:
+            out[dev] = params_to(params, dev, torch.float32)
+    return out
+
+
+def score_tiles_sharded(kernel, arrays, params_by_device, mesh,
+                        spans) -> torch.Tensor:
+    """Score tile span `spans[d]` of `arrays` (in `kernel`'s order) on mesh
+    member d and gather the [T, P] scores in tile order on the mesh's
+    first device. On the card each shard is copied to its device and
+    launched on its own stream, after that stream has waited for the
+    caller's; the caller's stream waits for every shard before the gather.
+    Each shard's inputs are marked used by its stream and its output by
+    the caller's, so the caching allocator does not hand that memory out
+    while the other stream may still read it. An empty span launches
+    nothing. A failing shard raises: no shard is retried here."""
+    parts = []
+    for d, (lo, hi) in enumerate(spans):
+        if lo >= hi:
+            continue
+        dev, stream = mesh.devices[d], mesh.streams[d]
+        weights = _weights(params_by_device[dev])
+        if stream is None:
+            parts.append((d, kernel(*(x[lo:hi].to(dev) for x in arrays),
+                                    *weights)))
+            continue
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            shard = [x[lo:hi].to(dev) for x in arrays]
+            for x in shard:       # inputs already on the card are views
+                x.record_stream(stream)
+            parts.append((d, kernel(*shard, *weights)))
+    first = mesh.devices[0]
+    out = []
+    for d, s in parts:
+        stream = mesh.streams[d]
+        if stream is not None:
+            caller = torch.cuda.current_stream(mesh.devices[d])
+            caller.wait_stream(stream)
+            s.record_stream(caller)
+        out.append(s.to(first))
+    return torch.cat(out)
+
+
+def score_packed_sharded(packed, params_by_device, mesh, *,
+                         sparse: bool) -> tuple[torch.Tensor, int]:
+    """A PackedPairBatch's [T, P] scores with its tiles split over `mesh`
+    by `sharded_tile_plan`, and the padded tile count of that plan."""
+    arrays = _kernel_arrays(packed, sparse)
+    t = arrays[0].shape[0]
+    target, _ = sharded_tile_plan(t, packed.node_budget, mesh.size,
+                                  sparse=sparse)
+    kernel = sparse_pair_score if sparse else packed_pair_score
+    return score_tiles_sharded(kernel, arrays, params_by_device, mesh,
+                               shard_spans(t, target, mesh.size)), target
+
+
+def pair_score_packed_sharded(params, packed, *, mesh) -> torch.Tensor:
+    """`pair_score_packed` with the tile axis split over `mesh` (a
+    `distributed.sharding.TileMesh`): the same [T, P] scores, on the mesh's
+    first device."""
+    return score_packed_sharded(packed, shard_params(params, mesh), mesh,
+                                sparse=False)[0]
+
+
+def pair_score_sparse_sharded(params, packed, *, mesh) -> torch.Tensor:
+    """`pair_score_sparse` with the tile axis split over `mesh`."""
+    return score_packed_sharded(packed, shard_params(params, mesh), mesh,
+                                sparse=True)[0]

@@ -23,9 +23,10 @@ batches of `--batch` sequences of `--seq-len` tokens (enc-dec: frames of
 gradients) and the same loop, checkpoints and `--simulate-failure`.
 
 It runs on `--device` (default: the card; without CUDA it raises unless
-`--device cpu` is given). A mesh (`--mesh single|multi`) and data-parallel
-SimGNN training (`--devices N`) are not ported yet and raise
-NotImplementedError (ROADMAP Queue 1, item 6: multi-device).
+`--device cpu` is given). Data-parallel SimGNN training (`--devices N`)
+and the LM mesh (`--mesh single|multi`) are not ported yet and raise
+NotImplementedError naming their parts of ROADMAP Queue 1, item 6
+(sharded training; the LM mesh).
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ def train_simgnn(args) -> TrainRun:
     if args.devices > 1:
         raise NotImplementedError(
             "data-parallel SimGNN training (--devices > 1) is not ported yet "
-            "(ROADMAP Queue 1, item 6: multi-device)")
+            "(ROADMAP Queue 1, item 6: sharded training)")
     device = resolve_device(args.device)
     params = init_simgnn_params(torch.Generator().manual_seed(args.seed),
                                 scfg, device=device)
@@ -144,7 +145,7 @@ def train_lm(args) -> TrainRun:
     if args.mesh != "none":
         raise NotImplementedError(
             f"--mesh {args.mesh} is not ported yet (ROADMAP Queue 1, item 6: "
-            "multi-device)")
+            "the LM mesh)")
     cfg = reduced_config(args.model) if args.reduced else get_config(
         args.model)
     device = resolve_device(args.device)

@@ -11,7 +11,7 @@ goes through one call of `kernels.moe_experts.moe_expert_ffn` (one kernel
 launch per MoE layer on the card, float32 inside); otherwise through
 einsums in the activations' dtype, as the JAX package's `else` branch. The
 JAX package's mesh constraints (`rt`) have no counterpart: the port has
-no mesh yet (ROADMAP Queue 1, multi-device).
+no LM mesh yet (ROADMAP Queue 1, item 6).
 """
 
 from __future__ import annotations

@@ -192,7 +192,7 @@ def simgnn_query_server(params, cfg, *, use_kernels: bool = False,
                         validation: str = "lenient",
                         clock: Callable[[], float] = time.perf_counter,
                         recorder=None, planner: str = "measured",
-                        device=None):
+                        runtime=None, device=None):
     """Returns score_fn(list[(g1, g2)]) -> np.ndarray of similarity scores,
     scored on `device` (None = the card).
 
@@ -205,8 +205,11 @@ def simgnn_query_server(params, cfg, *, use_kernels: bool = False,
     the embedding-cached path (forced, or warmed through
     `score_fn.engine.embed_graphs`), after which auto dispatch serves
     recurring graphs embedding-free. `validation`, `clock`, `recorder` (a
-    `core.profile.TraceRecorder` several servers may share) and `planner`
-    ("measured" or "threshold") are forwarded to the engine.
+    `core.profile.TraceRecorder` several servers may share), `planner`
+    ("measured" or "threshold") and `runtime` (a multi-device
+    `distributed.sharding.Runtime` lets the planner split packed calls'
+    tiles over its mesh; None keeps every path on one device) are
+    forwarded to the engine.
 
     The returned score_fn exposes `bucket_fns` (the engine's per-bucket
     callable cache), `last_pack_stats`, `node_budget`, `last_plan` and
@@ -220,7 +223,7 @@ def simgnn_query_server(params, cfg, *, use_kernels: bool = False,
     engine = ScoringEngine(params, cfg, path=path, node_budget=node_budget,
                            cache_size=cache_size, validation=validation,
                            clock=clock, recorder=recorder, planner=planner,
-                           device=device)
+                           runtime=runtime, device=device)
 
     def score(pairs):
         out = engine.score(pairs)

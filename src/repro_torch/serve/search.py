@@ -22,9 +22,12 @@ A failing prefilter degrades the query to the exact scan and is counted
 ScoringEngine` (`embed_graphs`, `prefilter_topm`,
 `pair_scores_from_embeddings`), so the device rule and the fault seam stay
 in one place. `recorder=` hands the engine a shared
-`core.profile.TraceRecorder`. Single device: the prefilter scans the
-corpus as one span. The JAX server's `runtime=` (the multi-device span
-split) and `embed_with_kernels=` are not ported.
+`core.profile.TraceRecorder`. With `runtime=` a multi-device
+`distributed.sharding.Runtime` (DESIGN.md §16), the prefilter scans the
+corpus in one span a mesh device (`_prefilter_spans`, whole column
+blocks), in order on the engine's device, and merges the spans'
+shortlists on the host; the results equal the one-span scan's bit for
+bit. The JAX server's `embed_with_kernels=` is not ported.
 """
 
 from __future__ import annotations
@@ -122,13 +125,16 @@ class SimilaritySearchServer:
                  shard_rows: int = DEFAULT_SHARD_ROWS,
                  recall_sample_every: int = 0,
                  clock: Callable[[], float] = time.perf_counter,
-                 recorder=None, device=None):
+                 recorder=None, runtime=None, device=None):
         #: injectable timing source for every SearchStats stage timer; the
         #: same clock feeds the engine (breaker cool-downs, trace records).
         self._clock = clock
+        #: a multi-device `runtime` splits the prefilter scan into one
+        #: corpus span a mesh device.
         self.engine = ScoringEngine(params, cfg, path="embedding_cache",
                                     cache_size=cache_size, clock=clock,
-                                    recorder=recorder, device=device)
+                                    recorder=recorder, runtime=runtime,
+                                    device=device)
         self.corpus: list[dict] = []
         self.corpus_emb = None
         self.stats = SearchStats()
@@ -351,6 +357,7 @@ class SimilaritySearchServer:
         self.stats.embed_seconds += t1 - t0
         calib = self._calibration()
         block = retrieval_block_cols(n, shard_rows=self.shard_rows)
+        spans = self._prefilter_spans(n, block)
         try:
             if calib["proxy"] == "linear":
                 qv = prefilter_query_vectors(
@@ -359,13 +366,12 @@ class SimilaritySearchServer:
             else:                                  # exact streamed NTN+FCN
                 qv = hq
                 ntn_ops = collapse_query_ntn(self.engine.params["ntn"], hq)
-            _, pidx = self.engine.prefilter_topm(
-                qv, self.corpus_dev, m, block_cols=block,
-                ntn_operands=ntn_ops)
+            _, pidx = self._span_topm(qv, ntn_ops, m, block, spans)
         except Exception:
-            # A failing prefilter must not fail the query: serve it through
-            # the exact full scan (query embeds are cached, so only the
-            # head re-runs) and count the degradation.
+            # A failing prefilter, a single dead span included, must not
+            # fail the query: serve it through the exact full scan (query
+            # embeds are cached, so only the head re-runs) and count the
+            # degradation.
             self.engine.counters["prefilter_degraded"] += nq
             self.stats.prefilter_degraded += nq
             return [self._exact_topk(q, k) for q in queries]
@@ -396,11 +402,47 @@ class SimilaritySearchServer:
             fit_idx=np.arange(nq), over_idx=np.empty(0, np.int64),
             stats=WorkloadStats(n_pairs=nq * m),
             reason=f"two-stage retrieval: {calib['proxy']} prefilter "
-                   f"top-{m} of {n} (1 span(s), block {block}), "
+                   f"top-{m} of {n} ({len(spans)} span(s), block {block}), "
                    "exact rerank",
-            prefilter_m=m)
+            prefilter_m=m, devices=len(spans))
         self._sample_recall(queries, k, results)
         return results
+
+    def _prefilter_spans(self, n: int, block: int) -> list[tuple[int, int]]:
+        """Contiguous corpus spans of the prefilter scan: one a device of
+        the engine's mesh, each a whole number of `block` columns, so each
+        span's blocks are the one-span scan's. Fewer blocks than devices
+        give fewer spans; a single-device engine scans one span."""
+        n_blocks = -(-n // block)
+        n_spans = max(1, min(int(self.engine.n_devices), n_blocks))
+        per = -(-n_blocks // n_spans) * block
+        return [(lo, min(lo + per, n)) for lo in range(0, n, per)]
+
+    def _span_topm(self, qv, ntn_ops, m: int, block: int,
+                   spans: list[tuple[int, int]]) -> tuple:
+        """The prefilter over each corpus span (top-min(m, span) there,
+        indices offset by the span's start), merged on the host by
+        (-score, ascending index): the scans' own order, so with the
+        spans' scores equal to the one-span scan's the merged shortlist is
+        that scan's, ties included. Counts `prefilter_span_scans` when
+        there is more than one span."""
+        parts = []
+        for lo, hi in spans:
+            s, i = self.engine.prefilter_topm(
+                qv, self.corpus_dev[lo:hi], min(m, hi - lo),
+                block_cols=block, ntn_operands=ntn_ops)
+            parts.append((s, i.astype(np.int64) + lo))
+        if len(parts) == 1:
+            return parts[0]
+        self.engine.counters["prefilter_span_scans"] += len(parts)
+        s = np.concatenate([p[0] for p in parts], axis=1)
+        i = np.concatenate([p[1] for p in parts], axis=1)
+        out_s = np.empty((s.shape[0], m), np.float32)
+        out_i = np.empty((s.shape[0], m), np.int64)
+        for q in range(s.shape[0]):
+            order = np.lexsort((i[q], -s[q]))[:m]
+            out_s[q], out_i[q] = s[q][order], i[q][order]
+        return out_s, out_i
 
     def _sample_recall(self, queries: list[dict], k: int,
                        results: list[tuple]) -> None:
@@ -495,7 +537,10 @@ class SimilaritySearchServer:
                     "block_cols": (retrieval_block_cols(
                         len(self.corpus), shard_rows=self.shard_rows)
                         if self.corpus else None),
-                    "spans": 1 if self.corpus else None}}
+                    "spans": (len(self._prefilter_spans(
+                        len(self.corpus), retrieval_block_cols(
+                            len(self.corpus), shard_rows=self.shard_rows)))
+                        if self.corpus else None)}}
 
     @property
     def hit_rate(self) -> float:

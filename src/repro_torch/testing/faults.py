@@ -20,10 +20,13 @@ Sites are the engine's execution points, named as in the JAX package:
     "profile"              — the engine's trace-record append: a failing
                              recorder never fails the scoring call, it
                              counts `profile_record_errors`
+    "sharded:packed_sparse" | "sharded:packed_dense"
+                           — a packed call scored over several mesh
+                             devices (one per call, all shards): a fault
+                             here collapses the call to the same path on
+                             one device (rung `path@Nd` -> `path`)
 
-The JAX package's multi-device sites (`sharded:<path>`,
-`sharded:train:<path>`) wait for the port's multi-device execution; the
-port's engine runs on one device and has no such site.
+The JAX package's `sharded:train:<path>` sites wait for sharded training.
 
 Modes:
 

@@ -1708,3 +1708,174 @@ def test_lm_kernel_gradients_match_plain_autograd(cuda, name):
     assert wrapper.launches == before + 1        # the backward is plain
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **tol)
+
+
+
+# ------------------------------- device-sharded serving (DESIGN.md §16)
+#
+# Logical devices over the one card, each shard on its own stream
+# (`distributed.sharding.force_logical_device_count(n, "cuda:0")`): the
+# sharded path launches the same kernels at the shards' shapes and must
+# give the unsharded bits.
+
+@pytest.fixture
+def logical(cuda):
+    from repro_torch.distributed import sharding
+
+    sharding.force_logical_device_count(8, "cuda:0")
+    try:
+        yield sharding
+    finally:
+        sharding.disarm_logical_devices()
+
+
+def test_tile_mesh_on_the_card_needs_armed_devices(cuda):
+    from repro_torch.distributed import sharding
+
+    sharding.disarm_logical_devices()
+    n = torch.cuda.device_count()
+    mesh = sharding.tile_mesh(None)
+    assert mesh.size == n and not mesh.logical
+    assert all(isinstance(s, torch.cuda.Stream) for s in mesh.streams)
+    with pytest.raises(ValueError, match=f"have {n}"):
+        sharding.tile_mesh(n + 1)
+
+
+#: spans (lo, hi) over a packed batch's T tiles: a shard of one tile at
+#: either end, spans of pad tiles only (lo == hi), four near-equal spans
+#: and single tiles.
+SHARD_SPLITS = {
+    "one_tile_last": lambda t: [(0, t - 1), (t - 1, t)],
+    "one_tile_first": lambda t: [(0, 1), (1, t)],
+    "pad_only_spans": lambda t: [(0, t // 2), (t // 2, t), (t, t), (t, t)],
+    "quarters": lambda t: [(min(t, d * -(-t // 4)),
+                            min(t, (d + 1) * -(-t // 4))) for d in range(4)],
+    "single_tiles": lambda t: [(d, d + 1) for d in range(4)] + [(4, t)],
+}
+
+
+@pytest.mark.parametrize("split", sorted(SHARD_SPLITS))
+@pytest.mark.parametrize("sparse", (True, False), ids=("sparse", "dense"))
+def test_sharded_tiles_bitwise_equal_to_unsharded(logical, split, sparse):
+    """`score_tiles_sharded` over logical devices of the card: the same
+    bits as one launch over all tiles, one launch a non-empty span and
+    none for a span of pad tiles only."""
+    from repro_torch.kernels import ops
+
+    sparse_args, dense_args, t = _packed(torch.device("cuda"), n_pairs=96)
+    arrays = sparse_args if sparse else dense_args
+    kern = sparse_pair_score if sparse else packed_pair_score
+    want = kern(*arrays, *_params())
+    spans = SHARD_SPLITS[split](t)
+    mesh = logical.tile_mesh(len(spans))
+    params = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG,
+                                device="cuda")
+    before = kern.launches
+    got = ops.score_tiles_sharded(kern, arrays, ops.shard_params(params, mesh),
+                                  mesh, spans)
+    torch.cuda.synchronize()
+    assert kern.launches - before == sum(hi > lo for lo, hi in spans)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_pairs", (5, 40, 256))
+@pytest.mark.parametrize("nd", (2, 4))
+@pytest.mark.parametrize("path", ("packed_sparse", "packed_dense"))
+def test_sharded_engine_bitwise_equal_to_unsharded(logical, path, nd,
+                                                   n_pairs):
+    """The engine on nd logical devices: the unsharded engine's bits, the
+    plan's device count (5 pairs plan one device), `last_pack_stats`
+    matching the plan, one launch a non-empty shard."""
+    from repro_torch.kernels import ops
+
+    params = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    pairs = query_pairs(13, n_pairs)
+    one = ScoringEngine(params, CONFIG, path=path)
+    eng = ScoringEngine(params, CONFIG, path=path,
+                        runtime=logical.tile_runtime(nd))
+    kern = sparse_pair_score if path == "packed_sparse" else \
+        packed_pair_score
+    want = one.score(pairs)
+    before = kern.launches
+    got = eng.score(pairs)
+    plan = eng.last_plan
+    assert plan.degraded_from == () and plan.attempts == 1
+    assert got.tobytes() == want.tobytes()
+    devices = 1 if n_pairs < 2 * 4 else nd
+    assert plan.devices == devices
+    if devices == 1:
+        assert kern.launches - before == 1
+        return
+    ps = eng.last_pack_stats
+    target, _ = ops.sharded_tile_plan(ps["tiles"], eng.node_budget, nd,
+                                      sparse=path == "packed_sparse")
+    spans = ops.shard_spans(ps["tiles"], target, nd)
+    assert ps["devices"] == nd and ps["tiles_padded"] == target
+    assert kern.launches - before == sum(hi > lo for lo, hi in spans)
+
+
+@pytest.mark.parametrize("mode", ("raise", "nan"))
+def test_dead_shard_on_the_card_serves_single_device(logical, mode):
+    params = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    pairs = query_pairs(13, 64)
+    want = ScoringEngine(params, CONFIG, path="packed_sparse").score(pairs)
+    eng = ScoringEngine(params, CONFIG, path="packed_sparse",
+                        runtime=logical.tile_runtime(2))
+    with faults.inject("sharded:packed_sparse", mode, times=1):
+        got = eng.score(pairs)
+    assert got.tobytes() == want.tobytes()
+    assert eng.last_plan.degraded_from == ("packed_sparse@2d",)
+    assert eng.health()["counters"] == {"errors:packed_sparse@2d": 1}
+    assert eng.score(pairs).tobytes() == want.tobytes()
+    assert eng.last_plan.degraded_from == ()
+
+
+def _tied_corpus(n=200, distinct=9):
+    """A corpus of few distinct graphs repeated in a cycle, so equal
+    embeddings (and equal scores) straddle every span boundary."""
+    rng = np.random.default_rng(21)
+    graphs = [random_graph(rng, int(rng.integers(6, 30)))
+              for _ in range(distinct)]
+    return [dict(graphs[i % distinct]) for i in range(n)]
+
+
+@pytest.mark.parametrize("proxy", ("linear", "ntn_exact"))
+@pytest.mark.parametrize("nd", (2, 4))
+def test_span_search_bitwise_equal_to_one_span(logical, nd, proxy):
+    """Spans of whole 32-row blocks over a 200-row corpus (at 4 devices
+    64, 64, 64 and 8 rows: a last span shorter than M = 16 that ends on a
+    partial block), ties across every span boundary: the merged shortlist,
+    and the two-stage results, equal the one-span server's bit for bit."""
+    params = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    corpus = _tied_corpus()
+    queries = [random_graph(np.random.default_rng(s), 12)
+               for s in range(5)] + corpus[:3]
+    servers = []
+    for runtime in (None, logical.tile_runtime(nd)):
+        srv = SimilaritySearchServer(params, CONFIG, shard_rows=32,
+                                     runtime=runtime)
+        srv.index(corpus)
+        srv._calib = dict(srv._calibration(), proxy=proxy)
+        servers.append(srv)
+    one, many = servers
+    spans = many._prefilter_spans(200, 32)
+    assert len(spans) == nd and many.health()["prefilter"]["spans"] == nd
+    hq = one.engine.embed_graphs(queries)
+    if proxy == "linear":
+        from repro_torch.kernels.retrieval import prefilter_query_vectors
+
+        qv, ntn_ops = prefilter_query_vectors(params["ntn"]["w"], hq,
+                                              one._calib), None
+    else:
+        qv, ntn_ops = hq, retrieval.collapse_query_ntn(params["ntn"], hq)
+    ws, wi = one._span_topm(qv, ntn_ops, 16, 32, [(0, 200)])
+    gs, gi = many._span_topm(qv, ntn_ops, 16, 32, spans)
+    assert np.array_equal(gi, wi) and gs.tobytes() == ws.tobytes()
+    want = one.search(queries, k=10, mode="two_stage", prefilter_m=16)
+    scans = many.engine.counters["prefilter_span_scans"]
+    got = many.search(queries, k=10, mode="two_stage", prefilter_m=16)
+    assert many.engine.counters["prefilter_span_scans"] - scans == nd
+    assert many.engine.last_plan.devices == nd
+    for (a, sa), (b, sb) in zip(got, want):
+        assert np.array_equal(a, b) and sa.tobytes() == sb.tobytes()
