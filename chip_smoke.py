@@ -64,8 +64,16 @@ unsharded server with one launch a non-empty shard, the collapse rung
 under a `raise` and a `nan` fault at `sharded:<path>`, and the
 span-split search server with both prefilter proxies bit-equal to one
 span (a dead span served by the exact scan); it prints request wall ms
-and device span at 1, 2 and 4 shards and each shard's kernel ms. Phases
-4-7 pin `planner="threshold"`. Every failed check exits non-zero.
+and device span at 1, 2 and 4 shards and each shard's kernel ms. Phase 23
+trains SimGNN-AIDS device-sharded over the same 2 and 4 devices (each
+span's forward and backward on its own stream, the grads summed on the
+first device): `loss_and_grad` on both packed paths against the
+unsharded card call, 20 train steps against the unsharded run, the
+collapse rung under a `raise` and a `nan` fault at
+`sharded:train:packed_sparse`, and the launcher at `--devices 2` killed
+and resumed at 2 and at 4 devices; it prints the step ms, the
+`loss_and_grad` ms and the idle share at 1, 2 and 4 devices. Phases 4-7
+pin `planner="threshold"`. Every failed check exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -279,6 +287,16 @@ LM_LAUNCH_STEPS, LM_LAUNCH_EVERY, LM_LAUNCH_FAIL_AT = 6, 2, 4
 #: AIDS and average-degree-8 streams in requests of BATCH pairs, and the
 #: span-split search server over the phase-6 corpus and queries.
 SHARD_COUNTS = (2, 4)
+#: phase 23: device-sharded SimGNN-AIDS training over SHARD_COUNTS devices
+#: on phase 19's batches (TRAIN_SEED, TRAIN_BATCH, TRAIN_STEPS): loss and
+#: every gradient leaf within SHARD_GRAD_ATOL of the unsharded card call
+#: (tests/test_sharded.py's gate), params after TRAIN_STEPS steps within
+#: TRAIN_PARAM_BOUND of the unsharded run; the launcher at
+#: SHARD_LAUNCH_DEVICES devices (phase 20's steps, checkpoints and kill)
+#: resumed at that count (bit-equal) and at SHARD_RESUME_DEVICES (within
+#: TRAIN_PARAM_BOUND).
+SHARD_GRAD_ATOL = 1e-6
+SHARD_LAUNCH_DEVICES, SHARD_RESUME_DEVICES = 2, 4
 #: the backward rules' `torch.autograd.Function`s whose forward inputs a
 #: card training step captures (both edge-list rules share one class, as
 #: both packed-CSR rules do)
@@ -763,6 +781,11 @@ def main() -> int:
         served[name] += n
         kernels[name]["sharded_phase_launches"] = n
     phase("22 device-sharded SimGNN serving")
+
+    # ---- phase 23: device-sharded SimGNN training ----------------------
+    report["sharded_train"] = sharded_train_phase(params, dev, smi,
+                                                  reset_counts, read_counts)
+    phase("23 device-sharded SimGNN training")
     report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
@@ -1065,6 +1088,280 @@ def sharded_phase(params, corpus, queries, reset_counts,
     rep["launches"] = served
     print(f"phase 22 launches: {served}")
     return rep, served
+
+
+def _profile_idle(fn) -> tuple[float, float, int]:
+    """One call of `fn` under `torch.profiler`: wall s, device busy s as
+    the union of every device activity's interval (the shards' streams
+    overlap, so the sum of activity times could exceed the wall) and the
+    count of device activities."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return wall, busy / 1e6, len(spans)
+
+
+def _launch_all(*runs) -> list:
+    """`python -m repro_torch.launch.train` with phase 20's steps and
+    checkpoints, one process for each `(ckpt_dir, *extra)` of `runs`, all
+    started together; waits for every one (and kills any left at the time
+    limit). Returns their CompletedProcess records."""
+    procs = []
+    try:
+        for ckpt_dir, *extra in runs:
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   "--steps", str(LAUNCH_STEPS), "--ckpt-every",
+                   str(LAUNCH_CKPT_EVERY), "--ckpt-dir", str(ckpt_dir),
+                   "--log-every", "1", *extra]
+            procs.append((cmd, subprocess.Popen(
+                cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+                env={**os.environ, "PYTHONPATH": str(ROOT / "src")})))
+        out = []
+        for cmd, proc in procs:
+            stdout, stderr = proc.communicate(timeout=300)
+            out.append(subprocess.CompletedProcess(cmd, proc.returncode,
+                                                   stdout, stderr))
+            print(f"  $ python -m repro_torch.launch.train "
+                  f"{' '.join(cmd[3:])}: exit {proc.returncode}; last "
+                  f"line: {(stdout.strip().splitlines() or [''])[-1]}")
+        return out
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def sharded_train_phase(params, dev, smi, reset_counts,
+                        read_counts) -> dict:
+    """Phase 23: device-sharded SimGNN-AIDS training at N in SHARD_COUNTS
+    devices (logical devices over cuda:0 on a one-card machine, printed),
+    on phase 19's batches (`pair_stream(TRAIN_SEED, TRAIN_BATCH)`).
+    (a) `loss_and_grad` forced onto `packed_sparse` and `packed_dense`
+    with `accum_steps` 1 and 4: loss and every gradient leaf within
+    SHARD_GRAD_ATOL of the unsharded card call, planned on N devices
+    without degradation, a repeat bit-equal. (b) TRAIN_STEPS steps of
+    `build_simgnn_train_step` on an auto engine: params within
+    TRAIN_PARAM_BOUND of the unsharded run's. (c) A `raise` and a `nan`
+    fault at `sharded:train:packed_sparse`: the call served on one device,
+    bit-equal to the unsharded call, with `packed_sparse@Nd` in
+    `degraded_from` and its error counted. (d) The launcher at
+    `--devices SHARD_LAUNCH_DEVICES` killed after step LAUNCH_FAIL_AT
+    (exit 42) and resumed from its checkpoint at that count (final params
+    and AdamW state bit-equal to an uninterrupted run) and at
+    SHARD_RESUME_DEVICES (params within TRAIN_PARAM_BOUND). No scoring
+    kernel may launch. Printed beside the card's name and power limit:
+    the step ms (median of steps 2.., CUDA events), its `loss_and_grad`
+    ms and the idle share of a profiled step at 1, 2 and 4 devices; no
+    speed is claimed, since logical devices share one card."""
+    import shutil
+
+    from repro_torch.ckpt import manager as ckpt
+    from repro_torch.configs.simgnn_aids import CONFIG as CFG
+    from repro_torch.core.engine import ScoringEngine
+    from repro_torch.data.graphs import pair_stream
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import train as launch
+    from repro_torch.params import tree_leaves
+    from repro_torch.testing import faults
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_simgnn_train_step
+
+    stream = pair_stream(TRAIN_SEED, TRAIN_BATCH, device="cpu")
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    pairs, target = batches[0]["pairs"], batches[0]["target"]
+    rep: dict = {"card": smi, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+                 "calls": {}, "steps_by_devices": {}, "collapse": {}}
+
+    def run_steps(engine) -> tuple:
+        """TRAIN_STEPS steps from `params`: (params, step ms,
+        loss_and_grad ms, profiled wall s, busy s, device activities)."""
+        events = []
+        real = engine.loss_and_grad
+
+        def timed(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = real(*args, **kw)
+            end.record()
+            events[-1]["fwd_bwd"] = (start, end)
+            return out
+        engine.loss_and_grad = timed
+        step = build_simgnn_train_step(engine)
+        p, st = engine.params, adamw_init(engine.params)
+        try:
+            for b in batches:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                events.append({})
+                start.record()
+                p, st, m = step(p, st, {"pairs": b["pairs"],
+                                        "target": b["target"]})
+                end.record()
+                events[-1]["step"] = (start, end)
+                assert "skipped" not in m and \
+                    engine.last_plan.degraded_from == (), engine.last_plan
+            torch.cuda.synchronize()
+        finally:
+            del engine.loss_and_grad
+        wall, busy, n_act = _profile_idle(lambda: step(
+            p, st, {"pairs": batches[-1]["pairs"],
+                    "target": batches[-1]["target"]}))
+        step_ms = [e["step"][0].elapsed_time(e["step"][1]) for e in events]
+        fb_ms = [e["fwd_bwd"][0].elapsed_time(e["fwd_bwd"][1])
+                 for e in events]
+        return p, step_ms, fb_ms, wall, busy, n_act
+
+    reset_counts()
+    one = {path: ScoringEngine(params, CFG, path=path, device=dev)
+           for path in ("packed_sparse", "packed_dense")}
+    want = {(path, acc): eng.loss_and_grad(pairs, target, accum_steps=acc)
+            for path, eng in one.items() for acc in (1, 4)}
+    auto_one = ScoringEngine(params, CFG, device=dev)
+    base = run_steps(auto_one)
+    assert auto_one.last_plan.path == "packed_sparse", auto_one.last_plan
+    by_n = {1: base}
+    ref = auto_one.loss_and_grad(pairs, target)
+    for n in SHARD_COUNTS:
+        rt, kind = _shard_runtime(n)
+        print(f"phase 23: {n} devices: " + (
+            f"the first {n} cards" if kind == "cards" else
+            f"{n} logical devices over cuda:0, a stream each"))
+        # (a) loss_and_grad on both packed paths
+        for path in ("packed_sparse", "packed_dense"):
+            eng = ScoringEngine(params, CFG, path=path, device=dev,
+                                runtime=rt)
+            for acc in (1, 4):
+                loss, grads = eng.loss_and_grad(pairs, target,
+                                                accum_steps=acc)
+                plan, ps = eng.last_plan, eng.last_pack_stats
+                again = eng.loss_and_grad(pairs, target, accum_steps=acc)
+                wl, wg = want[(path, acc)]
+                err = max(abs(float(loss) - float(wl)), _tree_err(grads, wg))
+                same = _bit_equal((loss, grads), again)
+                assert plan.devices == n and plan.degraded_from == () and \
+                    plan.attempts == 1 and ps["devices"] == n, (plan, ps)
+                assert err <= SHARD_GRAD_ATOL and same, (path, n, acc, err,
+                                                         same)
+                assert all(g.is_cuda for g in tree_leaves(grads))
+                rep["calls"][f"{path}/{n}/{acc}"] = {
+                    "err": err, "repeat_bit_equal": same,
+                    "tiles": ps["tiles"], "tiles_padded": ps["tiles_padded"]}
+                print(f"  loss_and_grad {path} on {n} devices, accum_steps "
+                      f"{acc}: loss {float(loss):.8f}; largest difference "
+                      f"from the unsharded card call {err:.3e} (bound "
+                      f"{SHARD_GRAD_ATOL:g}); repeat bit-equal {same}; "
+                      f"{ps['tiles']} tiles padded to {ps['tiles_padded']}")
+            del eng
+        # (b) TRAIN_STEPS steps on an auto engine
+        auto = ScoringEngine(params, CFG, device=dev, runtime=rt)
+        by_n[n] = run_steps(auto)
+        assert auto.last_plan.path == "packed_sparse" and \
+            auto.last_plan.devices == n, auto.last_plan
+        perr = _tree_err(by_n[n][0], base[0])
+        print(f"  {TRAIN_STEPS} train steps on {n} devices: params against "
+              f"the unsharded run's, largest difference {perr:.3e} (bound "
+              f"{TRAIN_PARAM_BOUND:g})")
+        assert perr <= TRAIN_PARAM_BOUND, perr
+        rep["steps_by_devices"][n] = {"param_err": perr}
+        # (c) the collapse rung
+        for mode in ("raise", "nan"):
+            errors = auto.counters[f"errors:train:packed_sparse@{n}d"]
+            with faults.inject("sharded:train:packed_sparse", mode,
+                               times=1) as fp:
+                loss, grads = auto.loss_and_grad(pairs, target)
+            plan = auto.last_plan
+            same = _bit_equal((loss, grads), ref)
+            assert fp.triggered == 1 and same, (mode, n)
+            assert plan.degraded_from == (f"packed_sparse@{n}d",) and \
+                plan.attempts == 2 and plan.devices == n, plan
+            assert auto.counters[f"errors:train:packed_sparse@{n}d"] == \
+                errors + 1, dict(auto.counters)
+            rep["collapse"][f"{mode}/{n}"] = {
+                "degraded_from": list(plan.degraded_from),
+                "counters": dict(auto.counters)}
+            print(f"  collapse rung, {mode} at sharded:train:packed_sparse "
+                  f"on {n} devices: served on one device bit-equal to the "
+                  f"unsharded call; degraded_from {plan.degraded_from}")
+        del auto
+    sharding.disarm_logical_devices()
+    # (d) the launcher at SHARD_LAUNCH_DEVICES devices
+    work = ROOT / "build" / "sharded_train_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    nd, md = str(SHARD_LAUNCH_DEVICES), str(SHARD_RESUME_DEVICES)
+    try:
+        killed, = _launch_all((work / "killed", "--devices", nd,
+                               "--simulate-failure", str(LAUNCH_FAIL_AT)))
+        assert killed.returncode == 42, killed.stdout + killed.stderr
+        assert f"[train] {nd} devices: " in killed.stdout, killed.stdout
+        last = LAUNCH_FAIL_AT // LAUNCH_CKPT_EVERY * LAUNCH_CKPT_EVERY
+        for tag in ("at_same", "at_more"):
+            shutil.copytree(work / "killed", work / tag)
+        same_n, more_n = _launch_all((work / "at_same", "--devices", nd),
+                                     (work / "at_more", "--devices", md))
+        for proc in (same_n, more_n):
+            assert proc.returncode == 0, proc.stdout + proc.stderr
+            assert f"[loop] resumed from step {last}" in proc.stdout, \
+                proc.stdout
+        straight = launch.main(["--steps", str(LAUNCH_STEPS),
+                                "--ckpt-every", str(LAUNCH_CKPT_EVERY),
+                                "--ckpt-dir", str(work / "straight"),
+                                "--log-every", "1", "--devices", nd])
+        like = (straight.params, straight.opt_state)
+        got = ckpt.restore(str(work / "at_same"), LAUNCH_STEPS, like)
+        same = _bit_equal(got, like)
+        more = ckpt.restore(str(work / "at_more"), LAUNCH_STEPS, like)
+        merr = _tree_err(more[0], straight.params)
+        print(f"launcher at --devices {nd}: killed at step {LAUNCH_FAIL_AT} "
+              f"(exit 42), resumed from step {last} at {nd} devices: final "
+              f"params and AdamW state bit-equal to the uninterrupted run: "
+              f"{same}; resumed at {md} devices: params within {merr:.3e} "
+              f"(bound {TRAIN_PARAM_BOUND:g})")
+        assert same and merr <= TRAIN_PARAM_BOUND, (same, merr)
+        rep["launcher"] = {"bit_equal": same, "resume_at_more_err": merr,
+                           "step_ms": [1e3 * r["sec_per_step"]
+                                       for r in straight.history]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts = read_counts()
+    print(f"phase 23 launches of the scoring kernels: {counts}")
+    assert not any(counts.values()), counts
+    # the times, each beside the card
+    for n, (_, step_ms, fb_ms, wall, busy, n_act) in sorted(by_n.items()):
+        row = {"step_ms": step_ms, "loss_and_grad_ms": fb_ms,
+               "step_ms_median": statistics.median(step_ms[1:]),
+               "loss_and_grad_ms_median": statistics.median(fb_ms[1:]),
+               "profiled_wall_s": wall, "device_busy_s": busy,
+               "idle_share": 1 - busy / wall, "device_activities": n_act}
+        rep["steps_by_devices"].setdefault(n, {}).update(row)
+        print(f"  train step of {TRAIN_BATCH} pairs on {n} device(s) "
+              f"[{smi}]: {row['step_ms_median']:.3f} ms (median of steps "
+              f"2..{TRAIN_STEPS}, CUDA events), of which loss_and_grad "
+              f"{row['loss_and_grad_ms_median']:.3f} ms; profiled step "
+              f"wall {1e3 * wall:.3f} ms, device busy {1e3 * busy:.3f} ms "
+              f"(union over streams; idle share {row['idle_share']:.4f}), "
+              f"{n_act} device activities")
+    return rep
 
 
 def record(name, worst, ms, ms_source, call_ms, plain_ms, label, flops,
@@ -3799,20 +4096,6 @@ def train_phase(params, dev, reset_counts, read_counts) -> dict:
     return report
 
 
-def _launch(ckpt_dir: Path, *extra: str) -> subprocess.CompletedProcess:
-    """`python -m repro_torch.launch.train` in a process of its own."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps",
-           str(LAUNCH_STEPS), "--ckpt-every", str(LAUNCH_CKPT_EVERY),
-           "--ckpt-dir", str(ckpt_dir), "--log-every", "1", *extra]
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=300, env={**os.environ,
-                                            "PYTHONPATH": str(ROOT / "src")})
-    print(f"  $ python -m repro_torch.launch.train {' '.join(cmd[3:])}: "
-          f"exit {proc.returncode}; last line: "
-          f"{(proc.stdout.strip().splitlines() or [''])[-1]}")
-    return proc
-
-
 def _bit_equal(a, b) -> bool:
     from repro_torch.params import tree_leaves
 
@@ -3856,13 +4139,13 @@ def launcher_phase(dev, reset_counts, read_counts) -> dict:
     report: dict = {"steps": LAUNCH_STEPS, "ckpt_every": LAUNCH_CKPT_EVERY,
                     "fail_at": LAUNCH_FAIL_AT}
     try:
-        killed = _launch(work / "killed", "--simulate-failure",
-                         str(LAUNCH_FAIL_AT))
+        killed, = _launch_all((work / "killed", "--simulate-failure",
+                               str(LAUNCH_FAIL_AT)))
         assert killed.returncode == 42, killed.stdout + killed.stderr
         last = LAUNCH_FAIL_AT // LAUNCH_CKPT_EVERY * LAUNCH_CKPT_EVERY
         left = sorted(p.name for p in (work / "killed").iterdir())
         assert left == [f"step_{last:09d}"], left
-        resumed = _launch(work / "killed")
+        resumed, = _launch_all((work / "killed",))
         assert resumed.returncode == 0, resumed.stdout + resumed.stderr
         assert f"[loop] resumed from step {last}" in resumed.stdout, \
             resumed.stdout

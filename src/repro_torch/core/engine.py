@@ -52,13 +52,15 @@ Device-sharded scoring (DESIGN.md §16): with `runtime=` a
 call's tiles to `devices` of them (halved while a device would get fewer
 than `MIN_PACK_PAIRS` pairs) and `score()` packs on the host and scores
 each device's tile span there (`kernels.ops.score_tiles_sharded`), through
-the fault site `sharded:<path>`. A failing shard collapses the call to the
-same path on one device before the ladder crosses paths: the rungs are
-`path@Nd`, `path`, then `DEGRADE_LADDER`; counters, breakers and
-`degraded_from` name a sharded rung `path@Nd`, as do the trace records'
-`n_devices` and the planner's cost keys (`profile.cost_key`). Training
-stays single-device: `loss_and_grad` on an engine of more than one device
-raises `NotImplementedError`.
+the fault site `sharded:<path>`. `loss_and_grad()` shards the same way:
+each device runs the chunk loop over its span and the devices' losses and
+grads are summed on the first device (`kernels.ops.grad_tiles_sharded`),
+through the fault site `sharded:train:<path>`. A failing shard collapses
+the call to the same path on one device before the ladder crosses paths:
+the rungs are `path@Nd`, `path`, then `DEGRADE_LADDER` (or
+`TRAIN_DEGRADE_LADDER`); counters, breakers and `degraded_from` name a
+sharded rung `path@Nd`, as do the trace records' `n_devices` and the
+planner's cost keys (`profile.cost_key`).
 
 The device decides what runs, never a flag: on the card the embed stage
 (`embed_graphs`), the head (`pair_scores_from_embeddings`) and the
@@ -133,14 +135,15 @@ def _rung_of(name: str) -> tuple[str, int]:
 
 
 def degrade_rungs(start: str, *, on_card: bool, degrade: bool = True,
-                  devices: int = 1) -> tuple[str, ...]:
+                  devices: int = 1,
+                  ladder: dict = DEGRADE_LADDER) -> tuple[str, ...]:
     """The rung names one work item may run on, `start` first. A start
     sharded over `devices` > 1 is followed by the same path on one device
     (a dead shard costs the mesh, never the batch), then the single-device
-    ladder. On the card every rung but the reference launches a kernel, so
-    the reference is left out: a run whose kernels all fail raises instead
-    of quietly serving plain PyTorch on the card."""
-    steps = DEGRADE_LADDER.get(start, ()) if degrade else ()
+    `ladder`. On the card every scoring rung but the reference launches a
+    kernel, so `on_card` leaves the reference out: a run whose kernels all
+    fail raises instead of quietly serving plain PyTorch on the card."""
+    steps = ladder.get(start, ()) if degrade else ()
     if on_card:
         steps = tuple(r for r in steps if r != "reference")
     if devices > 1 and degrade:
@@ -293,9 +296,10 @@ class ScoringEngine:
             raise ValueError(
                 f"runtime mesh on {runtime.mesh.kind} devices, engine on "
                 f"{self.device.type}")
-        #: float32 params on each device of the mesh, made at the first
-        #: sharded call (`kernels.ops.shard_params`).
-        self._shard_params: dict | None = None
+        #: (key, float32 params on each device of the mesh, the leaves
+        #: they were made from) for sharded scoring
+        #: (`kernels.ops.shard_params`); rebuilt when `params` changes.
+        self._shard_params: tuple | None = None
         self.cfg = cfg
         self.path = path
         self.node_budget = (packed_node_budget(cfg.max_nodes)
@@ -320,7 +324,7 @@ class ScoringEngine:
         self.breakers: dict[tuple, CircuitBreaker] = {}
         self.counters: Counter = Counter()
         #: value-and-grad executors, one per (train path, chunk tiles,
-        #: gradient-function kind).
+        #: device count, gradient-function kind).
         self._train_fns: dict[tuple, Callable] = {}
         #: the swappable gradient-function object (`train/sgf.py`).
         if grad_fn is None:
@@ -446,7 +450,8 @@ class ScoringEngine:
         any candidate below `PLANNER_MIN_SUPPORT`: partial support falls
         back whole). Candidates: the bucketed and both packed scoring paths
         (plus the embedding-cached path when this call hashed keys), or
-        `TRAIN_PATHS` under train, keyed `train:<path>`."""
+        `TRAIN_PATHS` under train, keyed `train:<path>` (with the device
+        count, as scoring's keys)."""
         if self.planner != "measured":
             return None
         model = self._cost_model()
@@ -456,7 +461,8 @@ class ScoringEngine:
         # (`profile.cost_key`): a sharded wall never predicts a
         # single-device call, nor the other way round.
         if train:
-            cand = {p: f"train:{p}" for p in TRAIN_PATHS}
+            cand = {p: cost_key(f"train:{p}", self._plan_devices(p, stats))
+                    for p in TRAIN_PATHS}
         else:
             cand = {p: cost_key(p, self._plan_devices(p, stats))
                     for p in ("bucketed_mega", "packed_dense",
@@ -656,11 +662,9 @@ class ScoringEngine:
                                           device=self.device))
         else:
             mesh = self.runtime.mesh
-            if self._shard_params is None:
-                self._shard_params = ops.shard_params(self.params, mesh)
             s, target = _call(f"sharded:{path}",
                               lambda: ops.score_packed_sharded(
-                                  packed, self._shard_params,
+                                  packed, self._mesh_params(mesh),
                                   mesh.first(devices), sparse=sparse))
             t = packed.mask1.shape[0]
             pstats = dict(pstats, devices=devices, tiles=t,
@@ -669,6 +673,22 @@ class ScoringEngine:
                               ops.shard_spans(t, target, devices)])
         self.last_pack_stats = pstats
         out[idx] = unpack_pair_scores(s, packed, len(pairs))
+
+    def _mesh_params(self, mesh) -> dict:
+        """`self.params` as float32 on each device of `mesh`, made once per
+        params tree: keyed by the identity and version of every leaf (the
+        weight images' rule), so replacing or updating `params` in place
+        rebuilds them. The entry holds the leaves, so no key's ids can be
+        reused."""
+        from repro_torch.kernels import ops
+
+        leaves = tree_leaves(self.params)
+        key = (tuple(str(d) for d in mesh.devices),) + tuple(
+            (id(t), t._version) for t in leaves)
+        if self._shard_params is None or self._shard_params[0] != key:
+            self._shard_params = (key, ops.shard_params(self.params, mesh),
+                                  leaves)
+        return self._shard_params[1]
 
     def _pack_sparse(self, pairs, slots: int, avg_degree: float,
                      device=None):
@@ -796,16 +816,22 @@ class ScoringEngine:
         if self._on_card():
             torch.cuda.synchronize(self.device)
 
-    def _train_fn(self, path: str, chunk_tiles: int) -> Callable:
-        """One value-and-grad executor per (train path, chunk tiles,
-        gradient-function kind), cached on the engine. It maps (params,
-        targets, *arrays) -> (sum of squared errors, grads like params),
-        looping over `chunk_tiles`-tile chunks of the packed batch with the
-        grads summed in the loop (cache blocking and accumulation
+    def _train_fn(self, path: str, chunk_tiles: int,
+                  devices: int = 1) -> Callable:
+        """One value-and-grad executor per (train path, chunk tiles, device
+        count, gradient-function kind), cached on the engine. It maps
+        (params, targets, *arrays) -> (sum of squared errors, grads like
+        params), looping over `chunk_tiles`-tile chunks of the packed batch
+        with the grads summed in the loop (cache blocking and accumulation
         microbatching in one mechanism: the batch is packed once and only
         the slice moves). The loss -> (value, grads) transform is the
-        engine's `grad_fn` object, applied per chunk."""
-        key = (path, chunk_tiles, self.grad_fn.cache_key)
+        engine's `grad_fn` object, applied per chunk. With `devices > 1`
+        each of the first `devices` mesh devices runs the chunk loop over
+        its span of the tile axis and the devices' losses and grads are
+        summed on the first one (`kernels.ops.grad_tiles_sharded`), outside
+        the grad object: per-chunk transforms (clipping) act before the
+        cross-device sum, as the JAX engine's `psum` over its scan."""
+        key = (path, chunk_tiles, devices, self.grad_fn.cache_key)
         if key not in self._train_fns:
             if path == "reference":
                 from repro_torch.core.simgnn import pair_score_from_labels
@@ -841,30 +867,45 @@ class ScoringEngine:
                                        *(x[sl] for x in arrays))
                         acc = (acc[0] + s, _tree_add(acc[1], g))
                     return acc
+                if devices > 1:
+                    from repro_torch.kernels import ops
+
+                    mesh = self.runtime.mesh.first(devices)
+                    scan = fn
+
+                    def fn(params, tgt, *arrays):
+                        return ops.grad_tiles_sharded(scan, params, tgt,
+                                                      arrays, mesh)
             self._train_fns[key] = fn
         return self._train_fns[key]
 
     def _packed_sse(self, params, fit_pairs, fit_targets: np.ndarray,
                     plan: ScorePlan, accum_steps: int,
-                    path: str | None = None):
+                    path: str | None = None, devices: int = 1):
         """Sum of squared errors and grads of the packed fit split: pack
         once, scatter the targets to the [T, P] pair slots, pad the tile
         axis to a chunk multiple (pad tiles are all zero: exact-zero
         scores, targets and grads) and run the chunk loop under the fault
-        site `train:<path>`."""
+        site `train:<path>`. With `devices > 1` the batch is packed on the
+        host, T pads to a multiple of `devices` chunks, each device loops
+        over its span (a span of pad tiles only runs nothing) and
+        `last_pack_stats` adds `devices`, `tiles` and `tiles_padded`, under
+        the fault site `sharded:train:<path>`."""
         from repro_torch.core.batching import next_pow2, pack_pairs
         from repro_torch.kernels import grad as kgrad
 
         path = plan.path if path is None else path
         sparse = path == "packed_sparse"
         slots = max(8, self.node_budget // 4)
+        # a sharded call packs on the host: each shard copies its own span
+        where = self.device if devices == 1 else torch.device("cpu")
         if sparse:
             packed, pstats = self._pack_sparse(fit_pairs, slots,
-                                               plan.stats.avg_degree)
+                                               plan.stats.avg_degree,
+                                               device=where)
         else:
             packed, pstats = pack_pairs(fit_pairs, self.node_budget,
-                                        slots_per_tile=slots,
-                                        device=self.device)
+                                        slots_per_tile=slots, device=where)
         self.last_pack_stats = pstats
 
         pair_mask = packed.pair_mask.cpu().numpy()
@@ -875,12 +916,14 @@ class ScoringEngine:
 
         # A chunk small enough that accum_steps chunks exist and that
         # padding never exceeds the batch itself; T pads to a chunk
-        # multiple (less than one chunk of pad tiles).
+        # multiple (less than one chunk of pad tiles), or to a multiple of
+        # `devices` chunks, so that every device loops over whole chunks
+        # of its span.
         t = pair_mask.shape[0]
         chunk_tiles = min(self.TRAIN_TILE_CHUNK, next_pow2(t, floor=1))
         while chunk_tiles > 1 and (-(-t // chunk_tiles)) < accum_steps:
             chunk_tiles //= 2
-        pad = (-t) % chunk_tiles
+        pad = (-t) % (chunk_tiles * devices)
 
         def pad_tiles(x):
             if not pad:
@@ -889,9 +932,13 @@ class ScoringEngine:
 
         arrays = tuple(pad_tiles(x)
                        for x in kgrad.packed_arrays(packed, sparse=sparse))
-        fn = self._train_fn(path, chunk_tiles)
-        tgt_t = pad_tiles(torch.from_numpy(tgt).to(self.device))
-        return _call(f"train:{path}", lambda: fn(params, tgt_t, *arrays))
+        if devices > 1:
+            self.last_pack_stats = dict(pstats, devices=devices, tiles=t,
+                                        tiles_padded=t + pad)
+        fn = self._train_fn(path, chunk_tiles, devices)
+        tgt_t = pad_tiles(torch.from_numpy(tgt).to(where))
+        site = f"sharded:train:{path}" if devices > 1 else f"train:{path}"
+        return _call(site, lambda: fn(params, tgt_t, *arrays))
 
     def _reference_sse(self, params, pairs, targets: np.ndarray):
         """SSE and grads of the plain reference executor (the train-mode
@@ -916,45 +963,50 @@ class ScoringEngine:
 
     def _run_train_ladder(self, start: str, params, sub, tgt: np.ndarray,
                           plan: ScorePlan, accum_steps: int) -> tuple:
-        """Training twin of `_run_score_ladder`: walk
-        `TRAIN_DEGRADE_LADDER` (reference kept on the card too: no train
-        rung launches a kernel), breaker-gated per (train:path, shape
-        class). Non-terminal rungs that emit a non-finite loss or grads for
-        finite targets fail like crashes; the reference serves whatever it
-        computes. Returns (sse, grads, attempts, degraded, the rung that
-        served)."""
-        rungs = (start,) + (TRAIN_DEGRADE_LADDER.get(start, ())
-                            if self.degrade else ())
+        """Training twin of `_run_score_ladder`: walk `degrade_rungs` over
+        `TRAIN_DEGRADE_LADDER` (the reference kept on the card too: no
+        train rung launches a kernel), breaker-gated per (train:rung,
+        shape class); a sharded start collapses to its one-device twin
+        before crossing paths. Non-terminal rungs that emit a non-finite
+        loss or grads for finite targets fail like crashes; the reference
+        serves whatever it computes. Returns (sse, grads, attempts,
+        degraded, the path that served, the devices it served on)."""
+        rungs = degrade_rungs(
+            start, on_card=False, degrade=self.degrade,
+            devices=plan.devices if start == plan.path else 1,
+            ladder=TRAIN_DEGRADE_LADDER)
         sc = self._shape_class(plan.stats)
         degraded: list[str] = []
         attempts = 0
         last_err: Exception | None = None
-        for rung in rungs:
+        for name in rungs:
+            rung, nd = _rung_of(name)
             terminal = rung == "reference"
-            br = None if terminal else self._breaker(f"train:{rung}", sc)
+            br = None if terminal else self._breaker(f"train:{name}", sc)
             if br is not None and not br.allow():
-                self.counters[f"breaker_rejected:train:{rung}"] += 1
-                degraded.append(rung)
+                self.counters[f"breaker_rejected:train:{name}"] += 1
+                degraded.append(name)
                 continue
             attempts += 1
             try:
                 if rung in PACKED_PATHS:
                     s, g = self._packed_sse(params, sub, tgt, plan,
-                                            accum_steps, path=rung)
+                                            accum_steps, path=rung,
+                                            devices=nd)
                 else:
                     s, g = self._reference_sse(params, sub, tgt)
                 if not terminal and not tree_all_finite(s, g):
                     raise NonFiniteOutput(
-                        f"train:{rung} produced non-finite loss/grads for "
+                        f"train:{name} produced non-finite loss/grads for "
                         "finite targets")
                 if br is not None:
                     br.record_success()
-                return s, g, attempts, degraded, rung
+                return s, g, attempts, degraded, rung, nd
             except Exception as exc:
                 if br is not None:
                     br.record_failure()
-                self.counters[f"errors:train:{rung}"] += 1
-                degraded.append(rung)
+                self.counters[f"errors:train:{name}"] += 1
+                degraded.append(name)
                 last_err = exc
                 if rung in PACKED_PATHS:
                     self.last_pack_stats = None
@@ -972,19 +1024,15 @@ class ScoringEngine:
         guarantees at least that many chunks. Non-finite targets are
         dropped before planning (counted in `nonfinite_targets`), invalid
         graphs are quarantined, and each work item walks
-        `TRAIN_DEGRADE_LADDER` and lands a `train:<rung>` trace record. The
-        loss is normalised by the pairs actually scored.
+        `TRAIN_DEGRADE_LADDER` and lands a `train:<rung>` trace record with
+        the devices it ran on. The loss is normalised by the pairs actually
+        scored. On an engine with a runtime of N devices the packed split
+        runs tile-sharded over the plan's `devices` (`_train_fn`).
 
         `params` defaults to the engine's own; a training loop passes its
-        evolving copy. Returns (loss, grads): a float32 scalar tensor and a
-        float32 tree like params, on the engine's device. An engine of more
-        than one device raises `NotImplementedError`: sharded training is
-        not ported."""
-        if self.n_devices > 1:
-            raise NotImplementedError(
-                f"loss_and_grad on {self.n_devices} devices: sharded "
-                "training is not ported yet (ROADMAP Queue 1, item 6: "
-                "sharded training)")
+        evolving copy, which every call reads (sharded calls too). Returns
+        (loss, grads): a float32 scalar tensor and a float32 tree like
+        params, on the engine's device."""
         if accum_steps < 1 or accum_steps & (accum_steps - 1):
             raise ValueError(f"accum_steps must be a power of two, got "
                              f"{accum_steps}")
@@ -1025,12 +1073,13 @@ class ScoringEngine:
             if not len(idx):
                 continue
             t0 = self._clock()
-            s, g, a, d, rung = self._run_train_ladder(
+            s, g, a, d, rung, nd = self._run_train_ladder(
                 start, params, [pairs[i] for i in idx], targets[idx],
                 plan, accum_steps)
             self._sync()
             self._record_trace("train", f"train:{rung}", len(idx), plan,
-                               self._clock() - t0, degraded=d, attempts=a)
+                               self._clock() - t0, degraded=d, attempts=a,
+                               n_devices=nd)
             sse = sse + s
             grads = _tree_add(grads, g)
             attempts += a

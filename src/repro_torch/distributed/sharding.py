@@ -14,7 +14,8 @@ devices (`--xla_force_host_platform_device_count`). The port's counterpart,
 named physical device: `"cpu"` in the tests, `"cuda:0"` on a one-card
 machine, where each logical device is its own CUDA stream on that card and
 the sharded path runs real kernel launches. It is never armed implicitly;
-`disarm_logical_devices()` undoes it. With nothing armed a mesh holds
+`disarm_logical_devices()` undoes it, and `logical_devices(n, device)`
+arms it for a `with` block only. With nothing armed a mesh holds
 physical devices only: the CPU is one device, and a machine with N cards
 has N.
 
@@ -26,6 +27,7 @@ JAX `Runtime`'s LM fields are not ported yet.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
@@ -59,6 +61,19 @@ def disarm_logical_devices() -> None:
     """Drop the armed logical devices: meshes take physical devices only."""
     global _LOGICAL
     _LOGICAL = None
+
+
+@contextmanager
+def logical_devices(n: int, device="cpu"):
+    """`force_logical_device_count(n, device)` for the `with` block; the
+    arming before it (or none) comes back after it. Meshes built inside
+    keep their members."""
+    global _LOGICAL
+    before = _LOGICAL
+    try:
+        yield force_logical_device_count(n, device)
+    finally:
+        _LOGICAL = before
 
 
 def _device_pool(kind: str) -> tuple[list[torch.device], bool]:

@@ -293,6 +293,69 @@ def score_tiles_sharded(kernel, arrays, params_by_device, mesh,
     return torch.cat(out)
 
 
+def grad_tiles_sharded(fn, params, tgt, arrays, mesh) -> tuple:
+    """The training twin of `score_tiles_sharded`: (loss, grads) of
+    `fn(params, tgt, *arrays)` with the padded tile axis split evenly over
+    `mesh` (device d owns tiles [d·span, (d+1)·span), span = T / size),
+    each device running `fn` on its span and the devices' losses and grad
+    trees added on the mesh's first device in device order: the port's
+    `psum`, deterministic, so two identical calls give identical bits.
+
+    Every call reads the `params` it is given: a device that holds them
+    reads the caller's tensors, another card gets a float32 copy and sends
+    its grads back. On the card each span is copied to its device and its
+    forward and backward run on its own stream (autograd runs each
+    backward op on its forward op's stream), after that stream has waited
+    for the caller's; inputs and params are marked used by the span's
+    stream, results by the caller's, whose stream waits for every span
+    before the sum. A span whose pair mask (the last array) holds no pair
+    is pad tiles only and runs nothing: its loss and grads are exact
+    zeros. A failing span raises: none is retried here."""
+    from repro_torch.params import params_to, tree_leaves, tree_map
+
+    n = mesh.size
+    span = tgt.shape[0] // n
+    first = mesh.devices[0]
+    own = {t.device for t in tree_leaves(params)}
+    parts = []
+    for d in range(n):
+        sl = slice(d * span, (d + 1) * span)
+        if not bool(arrays[-1][sl].any()):
+            continue
+        dev, stream = mesh.devices[d], mesh.streams[d]
+        p = params if own == {dev} else params_to(params, dev, torch.float32)
+        if stream is None:
+            parts.append((d, fn(p, tgt[sl].to(dev),
+                                *(x[sl].to(dev) for x in arrays))))
+            continue
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            shard = [x[sl].to(dev) for x in (tgt, *arrays)]
+            for x in shard + tree_leaves(p):
+                x.record_stream(stream)
+            parts.append((d, fn(p, *shard)))
+    total = None
+    for d, (s, g) in parts:
+        stream = mesh.streams[d]
+        if stream is not None:
+            caller = torch.cuda.current_stream(mesh.devices[d])
+            caller.wait_stream(stream)
+            for x in [s] + tree_leaves(g):
+                x.record_stream(caller)
+        s, g = s.to(first), params_to(g, first)
+        if total is None:
+            total = (s, g)
+        else:
+            it = iter(tree_leaves(g))
+            total = (total[0] + s,
+                     tree_map(lambda x: x + next(it), total[1]))
+    if total is None:
+        total = (torch.zeros((), dtype=torch.float32, device=first),
+                 tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                device=first), params))
+    return total
+
+
 def score_packed_sharded(packed, params_by_device, mesh, *,
                          sparse: bool) -> tuple[torch.Tensor, int]:
     """A PackedPairBatch's [T, P] scores with its tiles split over `mesh`

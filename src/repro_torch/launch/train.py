@@ -23,10 +23,14 @@ batches of `--batch` sequences of `--seq-len` tokens (enc-dec: frames of
 gradients) and the same loop, checkpoints and `--simulate-failure`.
 
 It runs on `--device` (default: the card; without CUDA it raises unless
-`--device cpu` is given). Data-parallel SimGNN training (`--devices N`)
-and the LM mesh (`--mesh single|multi`) are not ported yet and raise
-NotImplementedError naming their parts of ROADMAP Queue 1, item 6
-(sharded training; the LM mesh).
+`--device cpu` is given). `--devices N` (SimGNN) shards each batch's
+packed tiles over N devices (`ScoringEngine(runtime=tile_runtime(N))`,
+DESIGN.md §16): with `--device cpu` N logical CPU devices, on the card
+the first N cards, or N logical devices over the one card where the
+machine has fewer (it prints which). Params stay whole on the first
+device, so a run saved at N devices resumes at M. The LM mesh (`--mesh
+single|multi`) is not ported yet and raises NotImplementedError naming
+its part of ROADMAP Queue 1, item 6 (the LM mesh).
 """
 
 from __future__ import annotations
@@ -69,6 +73,23 @@ def _failing_after(step_fn, args):
     return run_step, current
 
 
+def _tile_runtime(n: int, device: torch.device):
+    """The tile runtime of `--devices n` (data-parallel packed training,
+    DESIGN.md §16): the first n cards where the machine has them, else n
+    logical devices over the one `device` (each its own CUDA stream on
+    the card), armed only while the mesh is built."""
+    from repro_torch.distributed import sharding
+
+    if device.type == "cuda" and torch.cuda.device_count() >= n:
+        print(f"[train] {n} devices: the first {n} cards")
+        return sharding.tile_runtime(n, device)
+    with sharding.logical_devices(n, device):
+        runtime = sharding.tile_runtime(n, device)
+    print(f"[train] {n} devices: {n} logical devices over "
+          f"{runtime.mesh.devices[0]}")
+    return runtime
+
+
 def train_simgnn(args) -> TrainRun:
     from repro_torch.configs.simgnn_aids import CONFIG as scfg
     from repro_torch.core.engine import ScoringEngine
@@ -78,18 +99,16 @@ def train_simgnn(args) -> TrainRun:
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.step import build_simgnn_train_step
 
-    if args.devices > 1:
-        raise NotImplementedError(
-            "data-parallel SimGNN training (--devices > 1) is not ported yet "
-            "(ROADMAP Queue 1, item 6: sharded training)")
     device = resolve_device(args.device)
+    runtime = _tile_runtime(args.devices, device) if args.devices > 1 \
+        else None
     params = init_simgnn_params(torch.Generator().manual_seed(args.seed),
                                 scfg, device=device)
     opt_state = adamw_init(params)
     # The engine dispatches the forward AND backward passes (DESIGN.md
     # §11): it measures each batch and picks the executor; the step itself
     # contains no path selection.
-    engine = ScoringEngine(params, scfg, device=device)
+    engine = ScoringEngine(params, scfg, device=device, runtime=runtime)
     step_fn = build_simgnn_train_step(engine, peak_lr=args.lr)
     # The stream's padded tensors are not used (the engine packs the raw
     # pairs itself), so they stay on the host.
@@ -197,6 +216,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default="none",
                     choices=["none", "single", "multi"])
     ap.add_argument("--compress-grads", action="store_true")
+    # simgnn only: shard packed training over N devices (logical ones
+    # where the machine has fewer)
     ap.add_argument("--devices", type=int, default=1)
     ap.add_argument("--simulate-failure", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10,

@@ -25,8 +25,11 @@ Sites are the engine's execution points, named as in the JAX package:
                              devices (one per call, all shards): a fault
                              here collapses the call to the same path on
                              one device (rung `path@Nd` -> `path`)
-
-The JAX package's `sharded:train:<path>` sites wait for sharded training.
+    "sharded:train:packed_sparse" | "sharded:train:packed_dense"
+                           — a loss_and_grad call run over several mesh
+                             devices (one per call, all spans): a fault
+                             here collapses the call to the same path on
+                             one device (rung `path@Nd` -> `path`)
 
 Modes:
 

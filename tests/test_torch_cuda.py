@@ -1879,3 +1879,63 @@ def test_span_search_bitwise_equal_to_one_span(logical, nd, proxy):
     assert many.engine.last_plan.devices == nd
     for (a, sa), (b, sb) in zip(got, want):
         assert np.array_equal(a, b) and sa.tobytes() == sb.tobytes()
+
+
+# ------------------------------ device-sharded training (DESIGN.md §16)
+#
+# `loss_and_grad` with the tile axis over logical devices of the card: each
+# span's forward and backward on its own stream, the losses and grads
+# summed on the first device.
+
+def _tree_bits(a, b) -> bool:
+    from repro_torch.params import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b)))
+
+
+@pytest.mark.parametrize("accum", (1, 4))
+@pytest.mark.parametrize("path", ("packed_sparse", "packed_dense"))
+def test_sharded_loss_and_grad_on_the_card(logical, path, accum):
+    """2 logical devices: loss and every gradient leaf within 1e-6 of the
+    one-device call on the card, two calls bit-equal, the grads on the
+    card and no scoring kernel launched."""
+    from repro_torch.params import tree_leaves
+
+    params = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    pairs, target = _train_batch(9, 64)
+    one = ScoringEngine(params, CONFIG, path=path)
+    eng = ScoringEngine(params, CONFIG, path=path,
+                        runtime=logical.tile_runtime(2))
+    launched = sparse_pair_score.launches + packed_pair_score.launches
+    wl, wg = one.loss_and_grad(pairs, target, accum_steps=accum)
+    runs = [eng.loss_and_grad(pairs, target, accum_steps=accum)
+            for _ in range(2)]
+    plan = eng.last_plan
+    assert plan.devices == 2 and plan.degraded_from == ()
+    assert eng.last_pack_stats["devices"] == 2
+    (gl, gg), (al, ag) = runs
+    assert torch.equal(gl, al) and _tree_bits(gg, ag)
+    assert abs(float(gl) - float(wl)) <= 1e-6
+    for a, b in zip(tree_leaves(gg), tree_leaves(wg)):
+        assert a.is_cuda and float((a - b).abs().max()) <= 1e-6
+    assert sparse_pair_score.launches + packed_pair_score.launches == \
+        launched
+
+
+@pytest.mark.parametrize("mode", ("raise", "nan"))
+def test_dead_shard_in_training_on_the_card_collapses(logical, mode):
+    params = init_simgnn_params(torch.Generator().manual_seed(0), CONFIG)
+    pairs, target = _train_batch(9, 64)
+    wl, wg = ScoringEngine(params, CONFIG, path="packed_sparse"
+                           ).loss_and_grad(pairs, target)
+    eng = ScoringEngine(params, CONFIG, path="packed_sparse",
+                        runtime=logical.tile_runtime(2))
+    with faults.inject("sharded:train:packed_sparse", mode, times=1):
+        gl, gg = eng.loss_and_grad(pairs, target)
+    assert torch.equal(gl, wl) and _tree_bits(gg, wg)
+    assert eng.last_plan.degraded_from == ("packed_sparse@2d",)
+    assert eng.health()["counters"] == {
+        "errors:train:packed_sparse@2d": 1}
+    eng.loss_and_grad(pairs, target)
+    assert eng.last_plan.degraded_from == () and eng.last_plan.devices == 2

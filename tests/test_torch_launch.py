@@ -8,8 +8,9 @@ the CPU, at 8-pair batches of SimGNN-AIDS width.
   * a corrupt newest checkpoint is walked past and counted
     (`ckpt_walkback_skipped`);
   * without CUDA the launcher raises unless `--device cpu` is given, and
-    the modes not ported (`--devices > 1`, an LM on `--mesh single`)
-    raise NotImplementedError naming their ROADMAP item.
+    the mode not ported (an LM on `--mesh single`) raises
+    NotImplementedError naming its ROADMAP item (`--devices N` is held in
+    tests/test_torch_sharded_train.py).
 """
 
 import os
@@ -102,8 +103,7 @@ def test_launcher_needs_the_card_unless_told_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", (
-    (["--devices", "2"], "item 6"),
-    (["--model", "gemma2-9b", "--mesh", "single"], "item 6")))
+    (["--model", "gemma2-9b", "--mesh", "single"], "item 6"),))
 def test_modes_not_ported_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["--device", "cpu", "--steps", "1", *argv])

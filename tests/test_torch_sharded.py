@@ -515,14 +515,6 @@ def test_tile_mesh_raises_beyond_the_devices_unless_armed():
     assert sharding.Runtime().n_devices == 1
 
 
-def test_loss_and_grad_raises_on_several_devices(cpu_devices):
-    eng = ScoringEngine(port_params(), CFG, path="packed_sparse",
-                        device="cpu", runtime=sharding.tile_runtime(2, "cpu"))
-    pairs = _pairs("mixed")
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        eng.loss_and_grad(pairs, np.zeros(len(pairs), np.float32))
-
-
 def test_engine_rejects_a_mesh_of_another_kind(cpu_devices):
     class Mesh:
         kind, size = "cuda", 2
