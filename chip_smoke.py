@@ -72,8 +72,20 @@ unsharded card call, 20 train steps against the unsharded run, the
 collapse rung under a `raise` and a `nan` fault at
 `sharded:train:packed_sparse`, and the launcher at `--devices 2` killed
 and resumed at 2 and at 4 devices; it prints the step ms, the
-`loss_and_grad` ms and the idle share at 1, 2 and 4 devices. Phases 4-7
-pin `planner="threshold"`. Every failed check exits non-zero.
+`loss_and_grad` ms and the idle share at 1, 2 and 4 devices. Phase 24
+trains on the LM mesh (`build_train_step(cfg, rt)` on `make_test_mesh`
+meshes of logical devices over cuda:0; params and AdamW state stored as
+per-device blocks, one data-parallel replica a batch row on its stream):
+seamless-m4t-large-v2 at full width and depth in bf16 on (2, 2), (1, 4)
+and (2, 1) beside the unsharded step (losses within 2e-2 relative, (1, 4)
+bit-equal; step ms, peak memory and idle share printed), reduced float32
+granite (`moe_experts`, and `flash_attn` at 2048 tokens), rwkv6 (`wkv6`)
+and the Jamba hybrid (`mamba_scan`) on (2, 2) against the same steps on
+logical CPU devices, a `--mesh 2x2` launcher run killed and resumed
+(bit-equal) whose last checkpoint is restored onto (4, 1), (1, 1) and no
+mesh and resharded live onto (1, 4), the launcher at `--mesh single`
+(256 logical devices) and the `elastic_restart` example. Phases 4-7 pin
+`planner="threshold"`. Every failed check exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -297,6 +309,38 @@ SHARD_COUNTS = (2, 4)
 #: TRAIN_PARAM_BOUND).
 SHARD_GRAD_ATOL = 1e-6
 SHARD_LAUNCH_DEVICES, SHARD_RESUME_DEVICES = 2, 4
+#: phase 24: the LM mesh. (a) seamless at full width and depth (bf16) on
+#: MESH_SHAPES meshes of logical devices over cuda:0, MESH_STEPS steps of
+#: phase 21 (b)'s batches, beside the unsharded step: losses within
+#: MESH_LOSS_RTOL relative, one-replica meshes bit-equal, and every mesh's
+#: grad norms, final params and first moments within MESH_LIMITS of the
+#: unsharded run's; a dropped-replica control (the unsharded step on the
+#: first replica's rows alone) must exceed each of MESH_LIMITS. (b) MESH_CASES
+#: (arch, config changes, batch, tokens, the kernels its forward
+#: launches), reduced float32 on (2, 2), MESH_STEPS steps against the same
+#: on logical CPU devices: params and moments within STEP_PARAM_BOUND.
+#: (c) the launcher at `--mesh 2x2` (phase 21's LM launcher run) killed
+#: and resumed, its last checkpoint restored onto MESH_RESTORE_SHAPES and
+#: resharded live onto (1, 4). (d) the launcher at `--mesh single` for
+#: MESH_SINGLE_STEPS steps of MESH_SINGLE_BATCH sequences and the
+#: elastic_restart example.
+MESH_SHAPES = ((2, 2), (1, 4), (2, 1))
+MESH_STEPS = 3
+MESH_LOSS_RTOL = 2e-2
+#: distances to the unsharded run (`_mesh_distances`): grad norms (largest
+#: relative error over the steps), final params (L2 distance over the
+#: unsharded run's L2 update from init) and first moments (relative L2).
+#: Each limit is about the geometric mean of two readings on an H100
+#: (PERF.md §6): the sound meshes' largest, 1.6e-4 / 0.12 / 1.3e-2, and
+#: the dropped-replica control's, 0.41 / 0.87 / 0.59. The loss cannot
+#: tell them apart (7.8e-5 and 1.0e-2, both under MESH_LOSS_RTOL).
+MESH_LIMITS = {"grad_norm": 8e-3, "params": 0.33, "moment": 8.6e-2}
+MESH_CASES = (("granite-moe-3b-a800m", {"moe_use_kernel": True}, 2, 2048,
+               ("moe_experts", "flash_attn")),
+              ("rwkv6-7b", {}, 4, 64, ("wkv6",)),
+              (JAMBA_ARCH, {}, 4, 64, ("mamba_scan",)))
+MESH_RESTORE_SHAPES = ((4, 1), (1, 1), None)
+MESH_SINGLE_STEPS, MESH_SINGLE_BATCH = 3, 16
 #: the backward rules' `torch.autograd.Function`s whose forward inputs a
 #: card training step captures (both edge-list rules share one class, as
 #: both packed-CSR rules do)
@@ -786,6 +830,15 @@ def main() -> int:
     report["sharded_train"] = sharded_train_phase(params, dev, smi,
                                                   reset_counts, read_counts)
     phase("23 device-sharded SimGNN training")
+
+    # ---- phase 24: the LM mesh and elastic resharding ------------------
+    torch.cuda.empty_cache()
+    report["lm_mesh"], counts = lm_mesh_phase(dev, smi, reset_counts,
+                                              read_counts)
+    for name, n in counts.items():
+        served[name] += n
+        kernels[name]["lm_mesh_phase_launches"] = n
+    phase("24 the LM mesh and elastic resharding")
     report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
@@ -1090,17 +1143,21 @@ def sharded_phase(params, corpus, queries, reset_counts,
     return rep, served
 
 
-def _profile_idle(fn) -> tuple[float, float, int]:
+def _profile_idle(fn, host: bool = True) -> tuple[float, float, int]:
     """One call of `fn` under `torch.profiler`: wall s, device busy s as
     the union of every device activity's interval (the shards' streams
     overlap, so the sum of activity times could exceed the wall) and the
-    count of device activities."""
+    count of device activities. `host=False` traces the device only (a
+    step of tens of thousands of launches is read back in seconds, not
+    minutes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1362,6 +1419,334 @@ def sharded_train_phase(params, dev, smi, reset_counts,
               f"(union over streams; idle share {row['idle_share']:.4f}), "
               f"{n_act} device activities")
     return rep
+
+
+# ------------------------------------------- phase 24: the LM mesh
+
+
+def _mesh_runtime(shape, device):
+    """`launch.mesh.mesh_runtime` of a (data, model) shape over `device`
+    (None: no mesh); logical devices on a one-card machine."""
+    from repro_torch.launch.mesh import mesh_runtime
+
+    spec = "none" if shape is None else "x".join(map(str, shape))
+    return mesh_runtime(spec, torch.device(device))[0]
+
+
+def _placed(params, rt):
+    from repro_torch.distributed import placement, sharding
+
+    if rt.mesh is None:
+        return params
+    return placement.shard_tree(params, sharding.param_shardings(rt, params))
+
+
+def _whole(tree) -> list:
+    from repro_torch.distributed import placement
+    from repro_torch.params import tree_leaves
+
+    return [placement.gather(x) for x in tree_leaves(tree)]
+
+
+def _same(a: list, b: list) -> bool:
+    """Leaf lists bit-equal (compared on the first list's devices)."""
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+        for x, y in zip(a, b))
+
+
+def _l2(leaves) -> float:
+    return float(torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                                for x in leaves)))
+
+
+def _mesh_distances(run: dict, ref: dict, init: list) -> dict:
+    """A run's distances to the unsharded run `ref` (MESH_LIMITS' keys):
+    grad norms, final params against the unsharded update, first
+    moments."""
+    gn = max(abs(a - b) / b for a, b in zip(run["grad_norm"],
+                                           ref["grad_norm"]))
+    params = _l2(a.float() - b.float() for a, b in zip(
+        run["params"], ref["params"])) / _l2(
+        a.float() - b.float() for a, b in zip(ref["params"], init))
+    moment = _l2(a - b for a, b in zip(run["m"], ref["m"])) / _l2(ref["m"])
+    return {"grad_norm": gn, "params": params, "moment": moment}
+
+
+def _mesh_seamless(dev, smi) -> dict:
+    """24 (a): seamless at full width and depth, MESH_STEPS steps of
+    phase 21 (b)'s batches unsharded, on each of MESH_SHAPES, and the
+    dropped-replica control."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.models.init import init_params
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_train_step
+
+    cfg = get_config(SEAMLESS_ARCH)
+    init = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    batches = [_batch_on(batch_for_step(cfg, s,
+                                        global_batch=ENCDEC_TRAIN_BATCH,
+                                        seq_len=ENCDEC_FRAMES), dev)
+               for s in range(MESH_STEPS)]
+    rows = ENCDEC_TRAIN_BATCH // 2          # one replica's rows at data 2
+    dropped = [{k: v[:rows] for k, v in b.items()} for b in batches]
+    runs, kept, same, ref = {}, {}, {}, None
+    #: the run each mesh's final params and losses must equal bit for bit
+    twin = {"1x4": "none", "2x1": "2x2"}
+    for shape in (None,) + MESH_SHAPES + ("dropped",):
+        control = shape == "dropped"
+        rt = _mesh_runtime(None if control else shape, "cuda:0")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        params = _placed(init, rt)
+        opt_state = adamw_init(params, cfg.opt_state_dtype)
+        step = build_train_step(cfg, rt)
+        step_ms, losses, norms = [], [], []
+        for batch in dropped if control else batches:
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            assert np.isfinite(losses[-1]), (shape, losses)
+        peak = torch.cuda.max_memory_allocated()
+        name = ("dropped" if control else "none" if shape is None
+                else "x".join(map(str, shape)))
+        if not control:
+            wall, busy, n_launch = _profile_idle(
+                lambda: step(params, opt_state, batches[-1]), host=False)
+        out = {"params": _whole(params), "m": _whole(opt_state.m),
+               "grad_norm": norms}
+        del params, opt_state
+        run = {"step_ms": step_ms, "losses": losses, "grad_norms": norms}
+        if ref is None:
+            ref = out
+        else:
+            run["distances"] = _mesh_distances(out, ref, _whole(init))
+        if name in twin:
+            same[name] = (losses == runs[twin[name]]["losses"]
+                          and _same(out["params"], kept.pop(twin[name])))
+        elif name in twin.values():
+            kept[name] = out["params"]
+        del out
+        runs[name] = run
+        torch.cuda.empty_cache()
+        if control:
+            continue
+        run.update({"peak_bytes": peak, "resident_bytes_before": base,
+                    "profiled_wall_s": wall, "device_busy_s": busy,
+                    "idle_share": 1 - busy / wall,
+                    "device_activities": n_launch})
+        print(f"seamless (a) on {name} [{smi}]: {MESH_STEPS} steps of "
+              f"[{ENCDEC_TRAIN_BATCH}, {ENCDEC_FRAMES}] frames, bf16: "
+              f"{statistics.median(step_ms[1:]):.3f} ms a step (median of "
+              f"steps 2-{MESH_STEPS}; first {step_ms[0]:.3f}); peak memory "
+              f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB over "
+              f"the {base / 2**30:.2f} GiB resident before); profiled step "
+              f"wall {1e3 * wall:.3f} ms, busy {1e3 * busy:.3f} ms (union "
+              f"over streams), idle share {1 - busy / wall:.4f}, {n_launch} "
+              f"device activities; losses {[round(x, 5) for x in losses]}")
+    want = runs["none"]["losses"]
+    for name, run in runs.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], want))
+        run["loss_rel_err"] = rel
+    same14, same21 = same["1x4"], same["2x1"]
+    print(f"  (1, 4) bit-equal to unsharded: {same14}; (2, 1) bit-equal to "
+          f"(2, 2): {same21}")
+    for name, run in runs.items():
+        if name != "none":
+            print(f"  {name} against unsharded: loss rel err "
+                  f"{run['loss_rel_err']:.3e} (limit {MESH_LOSS_RTOL:g}), "
+                  + ", ".join(f"{k} {v:.3e} (limit {MESH_LIMITS[k]:g})"
+                              for k, v in run["distances"].items()))
+    for name, run in runs.items():
+        if name == "dropped":
+            assert all(run["distances"][k] > lim
+                       for k, lim in MESH_LIMITS.items()), run["distances"]
+        elif name != "none":
+            assert run["loss_rel_err"] <= MESH_LOSS_RTOL, (name, run)
+            assert all(run["distances"][k] <= lim
+                       for k, lim in MESH_LIMITS.items()), (name, run)
+    assert same14 and same21
+    return {"runs": runs, "bit_equal_1x4": same14, "bit_equal_2x1": same21,
+            "limits": MESH_LIMITS}
+
+
+def _mesh_families(dev, reset_counts, read_counts) -> tuple[dict, dict]:
+    """24 (b): MESH_CASES on (2, 2) over logical devices of the card
+    against the same steps on logical CPU devices; the kernel launches of
+    the card runs."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_train_step
+
+    rep, launches = {}, {}
+    for arch, kw, batch, tokens, names in MESH_CASES:
+        cfg = reduced_config(arch).with_(**kw)
+        host = init_params(torch.Generator().manual_seed(11), cfg,
+                           device="cpu")
+        out = {}
+        for device in ("cuda:0", "cpu"):
+            rt = _mesh_runtime((2, 2), device)
+            params = _placed(params_to(host, device), rt)
+            opt_state = adamw_init(params)
+            step = build_train_step(cfg, rt)
+            if device != "cpu":
+                reset_counts()
+            losses = []
+            for s in range(MESH_STEPS):
+                params, opt_state, m = step(params, opt_state, batch_for_step(
+                    cfg, s, global_batch=batch, seq_len=tokens))
+                losses.append(float(m["loss"]))
+            if device != "cpu":
+                torch.cuda.synchronize()
+                counts = read_counts()
+            out[device] = (_whole((params, opt_state.m, opt_state.v)),
+                           losses)
+        err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(out["cuda:0"][0], out["cpu"][0]))
+        loss_err = max(abs(a - b) for a, b in zip(out["cuda:0"][1],
+                                                  out["cpu"][1]))
+        ran = {k: v for k, v in counts.items() if v}
+        print(f"families (b): reduced {arch} float32 on (2, 2), "
+              f"{MESH_STEPS} steps of [{batch}, {tokens}] tokens: params and "
+              f"moments within {err:.3e} of the CPU mesh run (bound "
+              f"{STEP_PARAM_BOUND:g}), losses within {loss_err:.3e}; kernel "
+              f"launches {ran}")
+        assert err <= STEP_PARAM_BOUND and loss_err <= STEP_PARAM_BOUND, \
+            (arch, err, loss_err)
+        for name in names:
+            assert counts[name] > 0, (arch, name)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        rep[arch] = {"param_err": err, "loss_err": loss_err,
+                     "launches": ran}
+    return rep, launches
+
+
+def _mesh_elastic(dev) -> dict:
+    """24 (c): the LM launcher at `--mesh 2x2` killed after step
+    LM_LAUNCH_FAIL_AT (exit 42) and resumed in a second process, held
+    bit-equal to an uninterrupted run in this process; its last
+    checkpoint restored onto MESH_RESTORE_SHAPES and the live tree
+    resharded from (2, 2) onto (1, 4), each bit-equal after gathering."""
+    import shutil
+
+    from repro_torch.ckpt import manager as ckpt
+    from repro_torch.ckpt.reshard import (reshard_live, restore_on_mesh,
+                                          train_state_shardings)
+    from repro_torch.launch import train as launch
+    from repro_torch.params import tree_leaves
+
+    work = ROOT / "build" / "lm_mesh_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        killed = _launch_lm(work / "killed", "--mesh", "2x2",
+                            "--simulate-failure", str(LM_LAUNCH_FAIL_AT))
+        assert killed.returncode == 42, killed.stdout + killed.stderr
+        assert "4 logical devices over cuda:0" in killed.stdout
+        resumed = _launch_lm(work / "killed", "--mesh", "2x2")
+        assert resumed.returncode == 0, resumed.stdout + resumed.stderr
+        assert f"[loop] resumed from step {LM_LAUNCH_FAIL_AT}" in \
+            resumed.stdout, resumed.stdout
+        straight = launch.main(
+            ["--model", LM_LAUNCH_ARCH, "--reduced", "--steps",
+             str(LM_LAUNCH_STEPS), "--ckpt-every", str(LM_LAUNCH_EVERY),
+             "--log-every", "1", "--mesh", "2x2", "--ckpt-dir",
+             str(work / "straight")])
+        like = (straight.params, straight.opt_state)
+        want = _whole(like)
+        final = ckpt.restore(str(work / "killed"), LM_LAUNCH_STEPS, like)
+        same = _same(_whole(final), want)
+        restored = {}
+        for shape in MESH_RESTORE_SHAPES:
+            tree = restore_on_mesh(str(work / "killed"), LM_LAUNCH_STEPS,
+                                   like, train_state_shardings(
+                                       _mesh_runtime(shape, "cuda:0"),
+                                       straight.params))
+            name = "none" if shape is None else "x".join(map(str, shape))
+            restored[name] = _same(_whole(tree), want)
+            assert all(x.is_cuda for x in _whole(tree))
+        moved = reshard_live(like, train_state_shardings(
+            _mesh_runtime((1, 4), "cuda:0"), straight.params))
+        live = _same(_whole(moved), want) and {
+            x.sharding.mesh.axis_sizes for x in tree_leaves(moved[0])} == {
+            (1, 4)}
+        step_ms = [1e3 * r["sec_per_step"] for r in straight.history]
+        print(f"elastic (c): reduced {LM_LAUNCH_ARCH} at --mesh 2x2, killed "
+              f"after step {LM_LAUNCH_FAIL_AT} (exit 42) and resumed: final "
+              f"params and AdamW state bit-equal to the uninterrupted run: "
+              f"{same}; its last checkpoint restored bit-equal onto "
+              f"{restored}; resharded live (2, 2) -> (1, 4) bit-equal: "
+              f"{live}; a step {statistics.median(step_ms[1:]):.3f} ms "
+              f"(median of steps 1-{LM_LAUNCH_STEPS - 1}, loop timing)")
+        assert same and all(restored.values()) and live
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"bit_equal": same, "restored": restored, "reshard_live": live,
+            "step_ms": step_ms}
+
+
+def _mesh_launcher_and_example(dev) -> dict:
+    """24 (d): the launcher at `--mesh single` (256 logical devices over
+    cuda:0) and the elastic_restart example on (2, 2) restored onto
+    (4, 1)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.examples import elastic_restart
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--model",
+           LM_LAUNCH_ARCH, "--reduced", "--mesh", "single", "--steps",
+           str(MESH_SINGLE_STEPS), "--batch", str(MESH_SINGLE_BATCH),
+           "--log-every", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env={**os.environ,
+                                            "PYTHONPATH": str(ROOT / "src")})
+    single_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    print(f"  $ python -m repro_torch.launch.train {' '.join(cmd[3:])}: "
+          f"exit {proc.returncode} in {single_s:.1f} s; "
+          + " | ".join(lines[:1] + lines[-2:]))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "256 logical devices over cuda:0" in proc.stdout
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        elastic_restart.main(["--mesh", "2x2", "--restore-mesh", "4x1"])
+    out = buf.getvalue()
+    print("  elastic_restart --mesh 2x2 --restore-mesh 4x1: " + " | ".join(
+        ln for ln in out.splitlines() if not ln.startswith("[loop] strag")))
+    assert "resumed and reached step 10" in out
+    assert "restored step 10; max param diff after round trip: 0.0e+00" \
+        in out
+    return {"single_s": single_s, "single_stdout": lines[-4:],
+            "example": out.splitlines()}
+
+
+def lm_mesh_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
+    """Phase 24: the LM mesh over logical devices of the card (a)-(d)
+    above; each part prints its seconds. Returns (report, the kernel
+    launches of (b), the path's run of the LM kernels)."""
+    rep, clock = {"card": smi}, PhaseClock()
+    rep["seamless"] = _mesh_seamless(dev, smi)
+    clock("24 (a) seamless on the mesh")
+    rep["families"], launches = _mesh_families(dev, reset_counts,
+                                               read_counts)
+    clock("24 (b) reduced families on (2, 2) against the CPU")
+    rep["elastic"] = _mesh_elastic(dev)
+    clock("24 (c) elastic restart and resharding")
+    rep["launcher"] = _mesh_launcher_and_example(dev)
+    clock("24 (d) --mesh single and the elastic_restart example")
+    rep["seconds"] = clock.seconds
+    return rep, launches
 
 
 def record(name, worst, ms, ms_source, call_ms, plain_ms, label, flops,
@@ -2278,7 +2663,10 @@ def _profile_busy(fn, symbol=MOE_KERNELS):
     stream, so activities do not overlap), the s of the kernels whose
     names contain `symbol` (a string or a tuple), the number of kernel
     launches the host made, and the five device activities that took
-    longest (name, s, count)."""
+    longest (name, s, count). Only the device's rows are summed: an
+    operator's row also carries the device time of the kernels it
+    launched, which the kernels' own rows hold already."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2293,6 +2681,8 @@ def _profile_busy(fn, symbol=MOE_KERNELS):
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type != DeviceType.CUDA:
+            us = 0.0
         busy += us
         if any(s in ev.key for s in (
                 (symbol,) if isinstance(symbol, str) else symbol)):

@@ -28,8 +28,12 @@ bfloat16 leaves are written as the JAX manager writes them, 2-byte void
 entries with "bfloat16" in the manifest's `dtypes`, and read back through
 an int16 view into `torch.bfloat16`.
 
-Checkpoints are single-device: `restore` takes no `shardings`, and elastic
-resharding (`ckpt/reshard.py`) is not ported (ROADMAP Queue 1, item 6).
+Sharded trees. A leaf stored as per-device blocks on an LM mesh
+(`distributed.placement.ShardedTensor`) is gathered into the whole leaf
+before it is written, so the manifest and npz equal an unsharded save's,
+as the JAX manager stores full leaves. `restore(..., shardings=)` lays the
+leaves out onto the given shardings, which is also the elastic-resharding
+entry point (`ckpt/reshard.py`: save on mesh A, restore on mesh B).
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ import torch
 
 from repro_torch.ckpt import msgpack_codec
 from repro_torch.core.store import StoreError, atomic_write_bytes, checksum
+from repro_torch.distributed.placement import (ShardedTensor, shard,
+                                               tree_shardings)
+from repro_torch.params import tree_leaves, tree_map
 
 #: Bump when the manifest schema or arrays encoding changes; restore
 #: refuses other versions (the §13 stale-manifest contract).
@@ -116,7 +123,9 @@ def _unflatten(like, leaves):
 def _host(leaf) -> tuple[np.ndarray, str]:
     """A host numpy copy of a leaf and its dtype name as the JAX manager
     records it; bf16 tensors become 2-byte void entries named
-    "bfloat16"."""
+    "bfloat16". A sharded leaf is gathered whole."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -212,6 +221,8 @@ def save_async(directory: str, step: int, tree: Any, *,
     keys, vals = _flatten_with_paths(tree)
 
     def snap(v):
+        if isinstance(v, ShardedTensor):
+            return v.gather("cpu")
         if isinstance(v, torch.Tensor):
             return v.detach().to("cpu", copy=True)
         return np.array(v)
@@ -313,11 +324,17 @@ def latest_valid_step(directory: str
 
 
 def restore(directory: str, step: int, like: Any, *,
-            verify: bool = True) -> Any:
-    """Restore into the structure of `like`, a tree of tensors (or numpy
-    arrays): each tensor leaf comes back on the device and in the dtype of
-    `like`'s leaf (a CUDA `like` restores onto the card), each other leaf
-    as a CPU tensor of the stored dtype.
+            shardings: Any = None, verify: bool = True) -> Any:
+    """Restore into the structure of `like`, a tree of tensors, sharded
+    leaves (or numpy arrays): each tensor leaf comes back in the dtype of
+    `like`'s leaf and placed as it is (on its device, a CUDA `like`
+    restoring onto the card; a sharded leaf in blocks of its sharding),
+    each other leaf as a CPU tensor of the stored dtype.
+
+    `shardings` (a tree like `like` of `NamedSharding`s or None) places
+    the leaves instead: a leaf with a sharding is laid out on it, a leaf
+    with None comes back whole on its `like` leaf's device. This is the
+    elastic-resharding entry point (save on mesh A, restore on mesh B).
 
     `verify=True` (default) checks format version + checksums first and
     raises `CheckpointCorrupt` instead of deserializing damaged bytes.
@@ -336,18 +353,27 @@ def restore(directory: str, step: int, like: Any, *,
                 for k in z.files:
                     arrays[int(k)] = z[k]
 
-    keys, like_leaves = _flatten_with_paths(like)
+    keys, _ = _flatten_with_paths(like)
     if keys != manifest["keys"]:
         missing = set(manifest["keys"]) ^ set(keys)
         raise ValueError(f"checkpoint/model structure mismatch: "
                          f"{sorted(missing)[:5]} ...")
-    leaves = []
-    for i, ref in enumerate(like_leaves):
-        t = _to_tensor(arrays[i], manifest["dtypes"][i])
-        if isinstance(ref, torch.Tensor):
-            t = t.to(device=ref.device, dtype=ref.dtype)
-        leaves.append(t)
-    return _unflatten(like, leaves)
+    stored = _unflatten(like, [_to_tensor(arrays[i], manifest["dtypes"][i])
+                               for i in range(len(keys))])
+    refs = iter(tree_leaves(like))
+    targets = iter(tree_leaves(tree_shardings(like) if shardings is None
+                               else shardings))
+
+    def place(t):
+        ref, target = next(refs), next(targets)
+        placed = isinstance(ref, (torch.Tensor, ShardedTensor))
+        if target is not None:
+            return shard(t, target, dtype=ref.dtype if placed else None)
+        if placed:
+            return t.to(device=ref.device, dtype=ref.dtype)
+        return t
+
+    return tree_map(place, stored)
 
 
 def _gc(directory: str, keep: int):

@@ -1,1 +1,2 @@
-"""Distributed helpers of the port (only gradient compression so far)."""
+"""Distributed helpers of the port: gradient compression, the tile and LM
+meshes (`sharding`) and tensors laid out on an LM mesh (`placement`)."""

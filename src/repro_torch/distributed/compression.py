@@ -4,10 +4,12 @@ Block-wise int8 quantization with a shared absmax scale per tensor:
   q = round(g / s * 127),  s = absmax(g)
 The JAX package applies it to the gradients before the optimizer, where
 XLA's data-parallel all-reduce would then move int8 (+ one float32 scale)
-over the slowest links. The port has no data-parallel training yet (ROADMAP
-Queue 1, item 6), so here it is the gradient transform alone: the tree
-enters the optimizer int8-roundtripped, bit for bit as the JAX package's
-(round half to even, float32 arithmetic). Error: at most half a
+over the slowest links. The port's data-parallel mesh step (`train/
+step.py`) sums the replicas' whole gradients on one device and compresses
+the sum, as the JAX step compresses its global gradients, so here it is
+the gradient transform alone: the tree enters the optimizer
+int8-roundtripped, bit for bit as the JAX package's (round half to even,
+float32 arithmetic). Error: at most half a
 quantization step, absmax/254, per element.
 """
 

@@ -1,5 +1,6 @@
-"""The tile mesh of device-sharded SimGNN serving — port of the tile part
-of `repro.distributed.sharding` (DESIGN.md §16).
+"""Sharding — port of `repro.distributed.sharding`: the tile mesh of
+device-sharded SimGNN serving and training (DESIGN.md §16), and the LM
+mesh's named axes and param rules (DESIGN.md §6).
 
 A `TileMesh` is an ordered list of devices over one axis, `TILE_AXIS`: the
 leading [T, ...] axis of packed pair tiles and the prefilter's corpus
@@ -8,27 +9,50 @@ stream its shard launches on (None on the CPU). `tile_mesh(n)` takes the
 first n devices of the engine's kind and raises, as the JAX helper does,
 when there are fewer.
 
-Logical devices. The JAX package runs the tile mesh on simulated host
-devices (`--xla_force_host_platform_device_count`). The port's counterpart,
-`force_logical_device_count(n, device)`, arms n logical devices over one
-named physical device: `"cpu"` in the tests, `"cuda:0"` on a one-card
-machine, where each logical device is its own CUDA stream on that card and
-the sharded path runs real kernel launches. It is never armed implicitly;
-`disarm_logical_devices()` undoes it, and `logical_devices(n, device)`
-arms it for a `with` block only. With nothing armed a mesh holds
-physical devices only: the CPU is one device, and a machine with N cards
-has N.
+An `LMMesh` names its axes (`("data", "model")`, or `("pod", "data",
+"model")` across pods) and holds its devices row-major, each with a
+stream. Axis roles, as in the JAX package:
+  pod    — data parallelism across pods;
+  data   — data parallelism for the batch and storage sharding (FSDP) of
+           the params and their optimizer state;
+  model  — in the JAX package tensor parallelism; here storage sharding
+           only (the port's compute over `model` is not written yet).
+`_PARAM_RULES` / `param_spec` give each param path its `P` spec (the JAX
+package's rules, right-aligned to the leaf's rank, so the stacked group
+axis is replicated); `param_shardings` turns them into `NamedSharding`s,
+which `distributed.placement` uses to store a leaf as per-device blocks.
+An uneven split raises ValueError: every config of the repo divides
+evenly on its meshes, so the port need not invent a padded layout.
+`resolve_spec` is the JAX `constrain`'s divisibility guard, the spec a
+batch-sharded activation would take. Nothing in the port constrains
+activations: a data-parallel replica already holds only its rows.
 
-`Runtime` carries the mesh into `ScoringEngine(runtime=...)` and the
-search server. The LM mesh's rules (`_PARAM_RULES`, `param_spec`,
-`param_shardings`, `constrain`, `batch_sharding`, `replicated`) and the
-JAX `Runtime`'s LM fields are not ported yet.
+Logical devices. The JAX package runs its meshes on simulated host
+devices (`--xla_force_host_platform_device_count`). The port's
+counterpart, `force_logical_device_count(n, device)`, arms n logical
+devices over one named physical device: `"cpu"` in the tests, `"cuda:0"`
+on a one-card machine, where each logical device is its own CUDA stream
+on that card and the sharded paths run real kernel launches. It is never
+armed implicitly; `disarm_logical_devices()` undoes it, and
+`logical_devices(n, device)` arms it for a `with` block only. With
+nothing armed a mesh holds physical devices only: the CPU is one device,
+and a machine with N cards has N.
+
+`StreamFan` is how every sharded path runs work on the members' streams:
+each member's stream waits for the caller's before its work, and the
+caller's stream waits for all of them once every member is launched.
+
+`Runtime` carries either mesh: a tile mesh into `ScoringEngine(runtime=
+...)` and the search server, an LM mesh (with its `batch_axes`) into
+`train.step.build_train_step`.
 """
 
 from __future__ import annotations
 
+import math
+import re
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -128,15 +152,282 @@ def tile_mesh(n_devices: int | None = None, device=None) -> TileMesh:
     return TileMesh(devices, streams, logical)
 
 
+class StreamFan:
+    """Work fanned out over mesh members' streams and joined on the
+    callers' streams.
+
+    `with fan.member(stream) as (reads, out):` runs its block on `stream`
+    (None: on the caller's stream, as on the CPU) after that stream has
+    waited for the caller's. The block adds to `reads` the tensors made
+    on the caller's stream that it reads (recorded on `stream` when the
+    block ends) and to `out` what it makes for the caller. `join()` makes
+    each caller's stream wait for every member's stream and records each
+    `out` tensor on the caller's stream, so the caching allocator does not
+    hand memory out while another stream may still use it. The caller
+    waits only in `join`, after every member has been launched, so the
+    members' work overlaps on the device."""
+
+    def __init__(self):
+        self._launched: list = []
+
+    @contextmanager
+    def member(self, stream):
+        reads: list = []
+        out: list = []
+        if stream is None:
+            yield reads, out
+            return
+        caller = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            yield reads, out
+        for t in reads:
+            t.record_stream(stream)
+        self._launched.append((caller, stream, out))
+
+    def join(self) -> None:
+        for caller, stream, out in self._launched:
+            caller.wait_stream(stream)
+            for t in out:
+                t.record_stream(caller)
+        self._launched.clear()
+
+
+# ------------------------------------------------------------ the LM mesh
+
+class P(tuple):
+    """A PartitionSpec: one entry per dim, each None (replicated), an axis
+    name, or a tuple of axis names (the dim split over their product,
+    row-major). A one-name tuple is stored as the name, as JAX's spec
+    compares it; a P equals the tuple of its entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+# (regex over '/'-joined path, base spec for the *unstacked* param): the
+# JAX package's rules, rule for rule.
+_PARAM_RULES: list[tuple[str, tuple]] = [
+    (r"embed/table$",        ("model", "data")),   # [V, D] vocab-TP, D-FSDP
+    (r"lm_head/w$",          ("data", "model")),   # [D, V]
+    (r"(wq|wk|wv)$",         ("data", "model")),   # [D, H*hd]
+    (r"(wq_b|wk_b|wv_b)$",   ("model",)),          # qkv bias [H*hd]
+    (r"wo$",                 ("model", "data")),   # [H*hd, D]
+    (r"mlp/w_in$",           ("data", "model")),   # [D, 2F] (fused gate+up)
+    (r"mlp/w_out$",          ("model", "data")),   # [F, D]
+    (r"moe/router$",         (None, None)),        # [D, E] small, replicated
+    (r"moe/w_in$",           (None, "data", "model")),   # [E, D, 2F]
+    (r"moe/w_out$",          (None, "model", "data")),   # [E, F, D]
+    (r"mamba/in_proj$",      ("data", "model")),   # [D, 2*Din]
+    (r"mamba/conv_w$",       ("model", None)),     # [Din, k]
+    (r"mamba/conv_b$",       ("model",)),
+    (r"mamba/x_proj$",       ("model", None)),     # [Din, R+2N]
+    (r"mamba/dt_proj$",      (None, "model")),     # [R, Din]
+    (r"mamba/dt_bias$",      ("model",)),
+    (r"mamba/a_log$",        ("model", None)),     # [Din, N]
+    (r"mamba/d$",            ("model",)),
+    (r"mamba/out_proj$",     ("model", "data")),   # [Din, D]
+    (r"rwkv/(wr|wk|wv|wg)$", ("data", "model")),
+    (r"rwkv/wo$",            ("model", "data")),
+    (r"rwkv/(w0|u)$",        ("model", None)),     # [H, K]
+    (r"rwkv/(lora_a\w*)$",   (None, None)),        # tiny LoRAs, replicated
+    (r"rwkv/(lora_b\w*)$",   (None, None)),
+    (r"rwkv/(mix_\w+)$",     (None,)),
+    (r"cmix/w_in$",          ("data", "model")),
+    (r"cmix/w_out$",         ("model", "data")),
+    (r"cmix/wr$",            ("data", "model")),
+    (r"norm|scale|ln",       (None,)),             # norms replicated
+]
+
+
+def param_spec(path: str, ndim: int) -> P:
+    """The spec of a param path, right-aligned to rank (the first matching
+    rule; replicated when none matches)."""
+    for pat, base in _PARAM_RULES:
+        if re.search(pat, path):
+            spec = tuple(base)
+            if len(spec) > ndim:                # e.g. bias folded smaller
+                spec = spec[-ndim:]
+            return P(*((None,) * (ndim - len(spec)) + spec))
+    return P(*((None,) * ndim))                 # default: replicated
+
+
+def _path_str(path) -> str:
+    """A key path (dict keys, list indices) as the JAX package joins it."""
+    return "/".join(str(p) for p in path)
+
+
+def map_with_path(fn, tree, path=()):
+    """`fn(path_str, leaf)` over a nested dict / list / tuple tree (named
+    tuples by field name), keeping its structure; the paths are the JAX
+    package's `_path_str` of the same leaves."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_with_path(fn, v, path + (n,))
+                            for n, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(_path_str(path), tree)
+
+
+@dataclass(frozen=True)
+class LMMesh:
+    """A mesh of named axes: `devices[i]` and `streams[i]` are the member
+    at row-major position i of `axis_sizes` (streams None on the CPU).
+    `logical` is True when the members are logical devices over one
+    physical device."""
+    axis_names: tuple
+    axis_sizes: tuple
+    devices: tuple
+    streams: tuple
+    logical: bool = False
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as JAX's `Mesh.shape`."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def coords(self, i: int) -> dict:
+        """{axis name: coordinate} of row-major position i."""
+        out = {}
+        for name, n in reversed(list(zip(self.axis_names, self.axis_sizes))):
+            out[name] = i % n
+            i //= n
+        return {name: out[name] for name in self.axis_names}
+
+    def position(self, coords: dict) -> int:
+        """The row-major position of {axis name: coordinate} (0 for an
+        axis not named)."""
+        i = 0
+        for name, n in zip(self.axis_names, self.axis_sizes):
+            i = i * n + coords.get(name, 0)
+        return i
+
+
+def lm_mesh(axis_sizes, axis_names, device=None) -> LMMesh:
+    """An `LMMesh` of `axis_sizes` over the first prod(axis_sizes) devices
+    of `device`'s kind (None = the card): physical devices, or the armed
+    logical devices (`force_logical_device_count`). Raises when fewer
+    exist."""
+    sizes, names = tuple(int(n) for n in axis_sizes), tuple(axis_names)
+    if len(sizes) != len(names) or len(set(names)) != len(names):
+        raise ValueError(f"mesh axes {names} do not fit shape {sizes}")
+    kind = resolve_device(device).type
+    pool, logical = _device_pool(kind)
+    n = math.prod(sizes)
+    if not 1 <= n <= len(pool):
+        raise ValueError(
+            f"lm_mesh: a {sizes} mesh needs {n} devices, have {len(pool)} "
+            "(use force_logical_device_count() to arm logical devices)")
+    devices = tuple(pool[:n])
+    streams = tuple(torch.cuda.Stream(device=d) if d.type == "cuda"
+                    else None for d in devices)
+    return LMMesh(names, sizes, devices, streams, logical)
+
+
+def _axes(entry) -> tuple:
+    return () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A layout of a tensor over an `LMMesh`: dim k is split over the
+    axes of `spec[k]` (their product, row-major), the other axes hold
+    copies."""
+    mesh: LMMesh
+    spec: P
+    #: indices by shape (a layout is asked for its blocks at every step)
+    _memo: dict = field(default_factory=dict, compare=False, repr=False)
+
+    def _parts(self, shape) -> list[int]:
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        if len(spec) != len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than "
+                             f"shape {tuple(shape)} has dims")
+        parts = []
+        for dim, entry in zip(shape, spec):
+            k = math.prod(self.mesh.shape[a] for a in _axes(entry))
+            if dim % k:
+                raise ValueError(
+                    f"dim {dim} of shape {tuple(shape)} does not split "
+                    f"evenly over {entry!r} ({k} parts) of spec "
+                    f"{self.spec}")
+            parts.append(k)
+        return parts
+
+    def shard_shape(self, shape) -> tuple:
+        """The shape of one block; ValueError on an uneven split."""
+        return tuple(d // k for d, k in zip(shape, self._parts(shape)))
+
+    def indices(self, shape) -> list[tuple]:
+        """Each mesh position's block, as a tuple of slices of `shape`
+        (JAX's `devices_indices_map` in the mesh's row-major order)."""
+        shape = tuple(shape)
+        if shape not in self._memo:
+            self._memo[shape] = self._indices(shape)
+        return self._memo[shape]
+
+    def distinct(self, shape) -> list[int]:
+        """The first mesh position holding each distinct block."""
+        key = ("distinct", tuple(shape))
+        if key not in self._memo:
+            seen, first = set(), []
+            for i, sl in enumerate(self.indices(shape)):
+                k = tuple(s.indices(d)[:2] for s, d in zip(sl, shape))
+                if k not in seen:
+                    seen.add(k)
+                    first.append(i)
+            self._memo[key] = first
+        return self._memo[key]
+
+    def _indices(self, shape) -> list[tuple]:
+        block = self.shard_shape(shape)
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        out = []
+        for i in range(self.mesh.size):
+            c = self.mesh.coords(i)
+            sl = []
+            for size, entry in zip(block, spec):
+                axes = _axes(entry)
+                if not axes:
+                    sl.append(slice(None))
+                    continue
+                k = 0
+                for a in axes:
+                    k = k * self.mesh.shape[a] + c[a]
+                sl.append(slice(k * size, (k + 1) * size))
+            out.append(tuple(sl))
+        return out
+
+
 @dataclass
 class Runtime:
-    """The mesh threaded into `ScoringEngine(runtime=...)` and the search
-    server; `mesh=None` keeps every path single-device."""
-    mesh: TileMesh | None = None
+    """Mesh + axis roles threaded through the engine, the search server
+    and the LM train step; `mesh=None` keeps every path single-device.
+    `batch_axes` is read with an `LMMesh` only."""
+    mesh: TileMesh | LMMesh | None = None
+    batch_axes: tuple = ("data",)            # ('pod','data') when multi-pod
 
     @property
     def n_devices(self) -> int:
         return self.mesh.size if self.mesh is not None else 1
+
+    @property
+    def lm_mesh(self) -> LMMesh | None:
+        """The mesh when it is an LM mesh, else None."""
+        return self.mesh if isinstance(self.mesh, LMMesh) else None
 
 
 def tile_runtime(n_devices: int | None = None, device=None) -> Runtime:
@@ -144,6 +435,40 @@ def tile_runtime(n_devices: int | None = None, device=None) -> Runtime:
     return Runtime(mesh=tile_mesh(n_devices, device))
 
 
-def make_runtime(mesh: TileMesh | None) -> Runtime:
-    """Runtime over `mesh` (None: single-device)."""
-    return Runtime(mesh=mesh)
+def make_runtime(mesh: TileMesh | LMMesh | None, **kw) -> Runtime:
+    """Runtime over `mesh` (None: single-device); a mesh with a "pod"
+    axis takes its batch over ("pod", "data")."""
+    if isinstance(mesh, LMMesh) and "pod" in mesh.axis_names:
+        kw.setdefault("batch_axes", ("pod", "data"))
+    return Runtime(mesh=mesh, **kw)
+
+
+def param_shardings(rt: Runtime, params):
+    """A tree like `params` of `NamedSharding`s by `param_spec` (None
+    off-mesh). A leaf whose dims do not split evenly raises ValueError."""
+    mesh = rt.lm_mesh
+
+    def leaf(path, x):
+        if mesh is None:
+            return None
+        s = NamedSharding(mesh, param_spec(path, x.ndim))
+        s.shard_shape(tuple(x.shape))
+        return s
+
+    return map_with_path(leaf, params)
+
+
+def resolve_spec(rt: Runtime, shape, *spec) -> P:
+    """The spec the JAX `constrain` gives a tensor of `shape` on `rt`'s
+    LM mesh: 'dp' expands to the batch axes, and an entry whose mesh size
+    does not divide its dim (or exceeds it) is dropped, as the JAX guard
+    drops it."""
+    resolved = []
+    for dim, s in zip(shape, spec):
+        axes = rt.batch_axes if s == "dp" else s
+        if axes is None:
+            resolved.append(None)
+            continue
+        size = math.prod(rt.mesh.shape[a] for a in _axes(axes))
+        resolved.append(axes if (dim % size == 0 and dim >= size) else None)
+    return P(*resolved)

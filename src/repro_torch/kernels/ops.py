@@ -53,6 +53,7 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import StreamFan
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.fused_gcn import fused_gcn_att
 from repro_torch.kernels.fused_pair import fused_pair_score
@@ -259,38 +260,25 @@ def score_tiles_sharded(kernel, arrays, params_by_device, mesh,
     """Score tile span `spans[d]` of `arrays` (in `kernel`'s order) on mesh
     member d and gather the [T, P] scores in tile order on the mesh's
     first device. On the card each shard is copied to its device and
-    launched on its own stream, after that stream has waited for the
-    caller's; the caller's stream waits for every shard before the gather.
-    Each shard's inputs are marked used by its stream and its output by
-    the caller's, so the caching allocator does not hand that memory out
-    while the other stream may still read it. An empty span launches
-    nothing. A failing shard raises: no shard is retried here."""
-    parts = []
+    launched on its own stream through a `StreamFan`: the stream waits for
+    the caller's first, the shard's inputs are marked used by it and its
+    output by the caller's stream, which waits for every shard once all
+    are launched, before the gather. An empty span launches nothing. A
+    failing shard raises: no shard is retried here."""
+    fan, parts = StreamFan(), []
     for d, (lo, hi) in enumerate(spans):
         if lo >= hi:
             continue
-        dev, stream = mesh.devices[d], mesh.streams[d]
+        dev = mesh.devices[d]
         weights = _weights(params_by_device[dev])
-        if stream is None:
-            parts.append((d, kernel(*(x[lo:hi].to(dev) for x in arrays),
-                                    *weights)))
-            continue
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        with fan.member(mesh.streams[d]) as (reads, out):
             shard = [x[lo:hi].to(dev) for x in arrays]
-            for x in shard:       # inputs already on the card are views
-                x.record_stream(stream)
-            parts.append((d, kernel(*shard, *weights)))
+            reads.extend(shard)   # inputs already on the card are views
+            parts.append(kernel(*shard, *weights))
+            out.append(parts[-1])
+    fan.join()
     first = mesh.devices[0]
-    out = []
-    for d, s in parts:
-        stream = mesh.streams[d]
-        if stream is not None:
-            caller = torch.cuda.current_stream(mesh.devices[d])
-            caller.wait_stream(stream)
-            s.record_stream(caller)
-        out.append(s.to(first))
-    return torch.cat(out)
+    return torch.cat([s.to(first) for s in parts])
 
 
 def grad_tiles_sharded(fn, params, tgt, arrays, mesh) -> tuple:
@@ -305,9 +293,9 @@ def grad_tiles_sharded(fn, params, tgt, arrays, mesh) -> tuple:
     reads the caller's tensors, another card gets a float32 copy and sends
     its grads back. On the card each span is copied to its device and its
     forward and backward run on its own stream (autograd runs each
-    backward op on its forward op's stream), after that stream has waited
-    for the caller's; inputs and params are marked used by the span's
-    stream, results by the caller's, whose stream waits for every span
+    backward op on its forward op's stream) through a `StreamFan`: inputs
+    and params are marked used by the span's stream, results by the
+    caller's, whose stream waits for every span once all are launched,
     before the sum. A span whose pair mask (the last array) holds no pair
     is pad tiles only and runs nothing: its loss and grads are exact
     zeros. A failing span raises: none is retried here."""
@@ -317,31 +305,22 @@ def grad_tiles_sharded(fn, params, tgt, arrays, mesh) -> tuple:
     span = tgt.shape[0] // n
     first = mesh.devices[0]
     own = {t.device for t in tree_leaves(params)}
-    parts = []
+    fan, parts = StreamFan(), []
     for d in range(n):
         sl = slice(d * span, (d + 1) * span)
         if not bool(arrays[-1][sl].any()):
             continue
-        dev, stream = mesh.devices[d], mesh.streams[d]
+        dev = mesh.devices[d]
         p = params if own == {dev} else params_to(params, dev, torch.float32)
-        if stream is None:
-            parts.append((d, fn(p, tgt[sl].to(dev),
-                                *(x[sl].to(dev) for x in arrays))))
-            continue
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        with fan.member(mesh.streams[d]) as (reads, out):
             shard = [x[sl].to(dev) for x in (tgt, *arrays)]
-            for x in shard + tree_leaves(p):
-                x.record_stream(stream)
-            parts.append((d, fn(p, *shard)))
+            reads.extend(shard + tree_leaves(p))
+            s, g = fn(p, *shard)
+            out.extend([s] + tree_leaves(g))
+            parts.append((s, g))
+    fan.join()
     total = None
-    for d, (s, g) in parts:
-        stream = mesh.streams[d]
-        if stream is not None:
-            caller = torch.cuda.current_stream(mesh.devices[d])
-            caller.wait_stream(stream)
-            for x in [s] + tree_leaves(g):
-                x.record_stream(caller)
+    for s, g in parts:
         s, g = s.to(first), params_to(g, first)
         if total is None:
             total = (s, g)

@@ -28,9 +28,17 @@ packed tiles over N devices (`ScoringEngine(runtime=tile_runtime(N))`,
 DESIGN.md §16): with `--device cpu` N logical CPU devices, on the card
 the first N cards, or N logical devices over the one card where the
 machine has fewer (it prints which). Params stay whole on the first
-device, so a run saved at N devices resumes at M. The LM mesh (`--mesh
-single|multi`) is not ported yet and raises NotImplementedError naming
-its part of ROADMAP Queue 1, item 6 (the LM mesh).
+device, so a run saved at N devices resumes at M.
+
+`--mesh single|multi` (LM) trains on the production mesh (`launch/mesh`:
+(16, 16) over ("data", "model"), or (2, 16, 16) with "pod" in front),
+`--mesh DxM` on a (D, M) test mesh: params and AdamW state stored as
+per-device blocks by the param rules, the step data-parallel over the
+batch axes (`train/step.py`). Where the machine has fewer cards than the
+mesh has devices (256 for single, 512 for multi) it uses that many
+logical devices over the one `--device` (it prints which).
+Checkpoints hold whole leaves, so a run saved on one mesh resumes on
+another or on none.
 """
 
 from __future__ import annotations
@@ -88,6 +96,17 @@ def _tile_runtime(n: int, device: torch.device):
     print(f"[train] {n} devices: {n} logical devices over "
           f"{runtime.mesh.devices[0]}")
     return runtime
+
+
+def _mesh_arg(value: str) -> str:
+    """`--mesh`: none, single, multi or DxM (two positive integers)."""
+    if value in ("none", "single", "multi"):
+        return value
+    parts = value.split("x")
+    if len(parts) == 2 and all(p.isdigit() and int(p) > 0 for p in parts):
+        return value
+    raise argparse.ArgumentTypeError(
+        f"--mesh takes none, single, multi or DxM, not {value!r}")
 
 
 def train_simgnn(args) -> TrainRun:
@@ -156,22 +175,27 @@ def train_simgnn(args) -> TrainRun:
 def train_lm(args) -> TrainRun:
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data.tokens import batch_for_step
+    from repro_torch.distributed.placement import shard_tree
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.launch.mesh import mesh_runtime
     from repro_torch.models.init import init_params
     from repro_torch.train import loop
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.step import build_train_step
 
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} is not ported yet (ROADMAP Queue 1, item 6: "
-            "the LM mesh)")
     cfg = reduced_config(args.model) if args.reduced else get_config(
         args.model)
     device = resolve_device(args.device)
+    rt = None
+    if args.mesh != "none":
+        rt, where = mesh_runtime(args.mesh, device)
+        print(f"[train] {where}")
     params = init_params(torch.Generator().manual_seed(args.seed), cfg,
                          device=device)
+    if rt is not None:
+        params = shard_tree(params, param_shardings(rt, params))
     opt_state = adamw_init(params, cfg.opt_state_dtype)
-    step_fn = build_train_step(cfg, peak_lr=args.lr,
+    step_fn = build_train_step(cfg, rt, peak_lr=args.lr,
                                compress_grads=args.compress_grads)
     run_step, current = _failing_after(step_fn, args)
 
@@ -213,8 +237,9 @@ def main(argv=None):
     # starts from step 0 (fresh run into a reused directory).
     ap.add_argument("--resume", default="auto", choices=["auto", "none"])
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--mesh", default="none",
-                    choices=["none", "single", "multi"])
+    # LM only: the production mesh (single, multi) or a DxM test mesh
+    # (logical devices where the machine has fewer cards)
+    ap.add_argument("--mesh", default="none", type=_mesh_arg)
     ap.add_argument("--compress-grads", action="store_true")
     # simgnn only: shard packed training over N devices (logical ones
     # where the machine has fewer)

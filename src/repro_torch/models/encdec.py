@@ -18,6 +18,7 @@ import torch
 from repro_torch.models import layers, lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import torch_dtype
+from repro_torch.models.moe import AUX_WEIGHT
 
 
 def encode(params, cfg: ModelConfig, frames: torch.Tensor, *,
@@ -42,12 +43,14 @@ def forward_encdec(params, cfg: ModelConfig, frames: torch.Tensor,
     return lm.logits_from_hidden(params, cfg, x), aux
 
 
-def encdec_loss(params, cfg: ModelConfig, batch, *, remat: bool = True):
+def encdec_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
+                aux_weight: float = AUX_WEIGHT):
     """Next-token cross-entropy of the decoder (+ aux). batch: {"frames"
     [B,S_enc,D], "tokens" [B,S_dec]}."""
     logits, aux = forward_encdec(params, cfg, batch["frames"],
                                  batch["tokens"], remat=remat)
-    return lm.next_token_nll(logits[:, :-1], batch["tokens"]) + 0.01 * aux
+    return lm.next_token_nll(logits[:, :-1], batch["tokens"]) \
+        + aux_weight * aux
 
 
 def prefill_encdec(params, cfg: ModelConfig, frames: torch.Tensor,

@@ -41,12 +41,15 @@ class _Draw:
     def __init__(self, gen: torch.Generator, device: torch.device):
         seed = int(torch.randint(2**62, (1,), generator=gen,
                                  device=gen.device))
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.gen = (None if device.type == "meta" else
+                    torch.Generator(device=device).manual_seed(seed))
         self.device = device
 
     def dense(self, shape, dtype, scale=0.02, stack: int | None = None):
         full = (stack,) + tuple(shape) if stack is not None else tuple(shape)
         out = torch.empty(full, dtype=dtype, device=self.device)
+        if self.gen is None:                    # "meta": shapes only
+            return out
         for sl in (range(stack) if stack is not None else (None,)):
             u = torch.empty(shape, dtype=torch.float32, device=self.device)
             u.uniform_(_LO, _HI, generator=self.gen)
@@ -196,7 +199,9 @@ def _sorted(tree):
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
     """Full parameter tree, group-stacked leaves on axis 0, drawn on
-    `device` (None = the card; raises without CUDA unless "cpu")."""
+    `device` (None = the card; raises without CUDA unless "cpu").
+    `device="meta"` gives the tree's shapes and dtypes without data (the
+    counterpart of `jax.eval_shape`), for any config's full size."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     draw = _Draw(gen, dev)

@@ -26,7 +26,7 @@ from repro_torch.models import layers, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import torch_dtype
 from repro_torch.models.mamba import mamba_block
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import AUX_WEIGHT, moe_ffn
 from repro_torch.params import tree_leaves, tree_map
 
 _ATTN = ("attn", "attn_local")
@@ -310,7 +310,7 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor):
 
 
 def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
-            aux_weight: float = 0.01):
+            aux_weight: float = AUX_WEIGHT):
     """Next-token cross-entropy (+ MoE aux). batch: {"tokens" [B,S],
     optional "embeds" [B,P,D]} — targets are tokens shifted by one; with
     embeds the logits from position P on predict them."""

@@ -10,11 +10,22 @@ With `cfg.moe_use_kernel` the expert FFN of the whole batch, [B, E, C, D],
 goes through one call of `kernels.moe_experts.moe_expert_ffn` (one kernel
 launch per MoE layer on the card, float32 inside); otherwise through
 einsums in the activations' dtype, as the JAX package's `else` branch. The
-JAX package's mesh constraints (`rt`) have no counterpart: the port has
-no LM mesh yet (ROADMAP Queue 1, item 6).
+JAX package's mesh constraints (`rt`) only lay tensors out; the port's
+data-parallel mesh step (`train/step.py`) runs each replica on its own
+rows, so routing needs none of them.
+
+The load-balancing aux loss is a product of two batch means, so it does
+not split over data-parallel replicas. Inside `route_stats()` every
+`route` call also records its layer's routed fractions (detached: they
+are one-hot of an argmax) and mean router probabilities, in call order;
+the mesh step averages them over replicas and forms the aux term once
+(`aux_from_stats`), as the JAX package's step on a mesh computes it over
+the whole batch.
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -36,6 +47,42 @@ def top_k_lowest_first(logits: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k].to(torch.int32)
 
 
+#: the aux loss's weight in `lm.lm_loss` and `encdec.encdec_loss` (and in
+#: the mesh step, which forms the aux term itself)
+AUX_WEIGHT = 0.01
+
+#: the list `route_stats()` collects into, or None
+_STATS: list | None = None
+
+
+@contextmanager
+def route_stats():
+    """Collect (frac [E], mean_prob [E]) of every `route` call of the
+    `with` block, in call order, into the list it yields."""
+    global _STATS
+    before, _STATS = _STATS, []
+    try:
+        yield _STATS
+    finally:
+        _STATS = before
+
+
+def aux_from_stats(per_replica: list) -> torch.Tensor:
+    """The aux loss of the whole batch from each replica's `route_stats`
+    lists (equal-sized replicas, at least one routed layer): per layer
+    n_e * sum(mean frac * mean prob), summed over layers in order."""
+    n = len(per_replica)
+    terms = []
+    for layer in zip(*per_replica):
+        frac = sum(f for f, _ in layer) / n
+        prob = sum(p for _, p in layer) / n
+        terms.append(frac.shape[-1] * torch.sum(frac * prob))
+    aux = terms[0]
+    for term in terms[1:]:
+        aux = aux + term
+    return aux
+
+
 def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
     """x [B,S,D] -> (weights [B,S,k], experts [B,S,k] int32, aux_loss)."""
     logits = torch.einsum("bsd,de->bse", x.float(), router_w.float())
@@ -46,7 +93,10 @@ def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
     probs = torch.softmax(logits, dim=-1)
     frac = torch.nn.functional.one_hot(experts[..., 0].long(), n_e).float() \
         .mean(dim=(0, 1))
-    aux = n_e * torch.sum(frac * probs.mean(dim=(0, 1)))
+    mean_prob = probs.mean(dim=(0, 1))
+    if _STATS is not None:
+        _STATS.append((frac.detach(), mean_prob))
+    aux = n_e * torch.sum(frac * mean_prob)
     return weights, experts, aux
 
 

@@ -66,8 +66,10 @@ def run(step_fn, params, opt_state, batch_fn, *, n_steps: int,
     passes format-version + checksum verification wins, and torn,
     bit-flipped or missing newer ones are walked past (reported through
     `on_resume(step, skipped)`) — the loop never deserializes a checkpoint
-    it cannot verify. Restored leaves land on the devices and dtypes of
-    the current `params` and `opt_state`.
+    it cannot verify. Restored leaves land on the devices, shardings and
+    dtypes of the current `params` and `opt_state`: a run on an LM mesh
+    (leaves stored as per-device blocks) resumes onto its own layout,
+    whatever mesh wrote the checkpoint.
     """
     monitor = monitor or StragglerMonitor()
     start = 0

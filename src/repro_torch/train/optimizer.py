@@ -4,6 +4,13 @@
 Moments are stored in a configurable dtype (float32 by default); all
 arithmetic is float32 whatever the storage dtype, and params update in
 their own dtype. Trees are the nested dicts / lists of `repro_torch.params`.
+
+A param stored as per-device blocks (`distributed.placement.
+ShardedTensor`, on an LM mesh) gets moments with the same blocks, and
+`adamw_update` updates it block by block on each block's device, the
+gradient laid out the same way (`train.step.constrain_grads`). The update
+is elementwise, so each block's bits are those of the whole update.
+`global_norm` and `clip_by_global_norm` take whole gradients.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.placement import ShardedTensor
 from repro_torch.params import tree_leaves, tree_map
 
 
@@ -28,6 +36,10 @@ def adamw_init(params, state_dtype: str = "float32") -> AdamWState:
     device = leaves[0].device if leaves else "cpu"
 
     def zeros(p):
+        if isinstance(p, ShardedTensor):
+            return p.with_blocks(torch.zeros(b.shape, dtype=dt,
+                                             device=b.device)
+                                 for b in p.blocks)
         return torch.zeros(p.shape, dtype=dt, device=p.device)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       m=tree_map(zeros, params), v=tree_map(zeros, params))
@@ -57,6 +69,11 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
+def _on(x, device):
+    """A scalar tensor on a block's device (floats pass)."""
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
 def adamw_update(grads, state: AdamWState, params, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1):
@@ -70,16 +87,21 @@ def adamw_update(grads, state: AdamWState, params, *, lr,
                                        device=t.device), t)
 
     def upd(p, g, m, v):
+        if isinstance(p, ShardedTensor):
+            outs = [upd(*blocks) for blocks in zip(p.blocks, g.blocks,
+                                                   m.blocks, v.blocks)]
+            return tuple(x.with_blocks(o[k] for o in outs)
+                         for k, x in enumerate((p, m, v)))
         g32 = g.float()
         m32 = b1 * m.float() + (1 - b1) * g32
         v32 = b2 * v.float() + (1 - b2) * g32 * g32
-        mh = m32 / bc1
-        vh = v32 / bc2
+        mh = m32 / _on(bc1, p.device)
+        vh = v32 / _on(bc2, p.device)
         delta = mh / (torch.sqrt(vh) + eps)
         # decoupled weight decay on matrices only (ndim >= 2)
         if p.dim() >= 2:
             delta = delta + weight_decay * p.float()
-        new_p = (p.float() - lr * delta).to(p.dtype)
+        new_p = (p.float() - _on(lr, p.device) * delta).to(p.dtype)
         return new_p, m32.to(m.dtype), v32.to(v.dtype)
 
     triples = [upd(p, g, m, v) for p, g, m, v in zip(

@@ -11,6 +11,27 @@ forward pass; their backward is autograd of their plain versions
 (`kernels.grad.kernel_with_plain_backward`). Gradient accumulation runs
 `accum_steps` microbatches along the batch leaves' leading axis.
 
+On an LM mesh (`build_train_step(cfg, rt)` with `rt.mesh` an
+`LMMesh`) the step is data-parallel over `rt.batch_axes`. Params and
+their AdamW moments are stored as per-device blocks
+(`distributed.placement`, laid out by `param_shardings`). One replica
+runs per coordinate of the batch axes, on that row's first device and
+its stream (a `StreamFan`: the caller's stream waits for the replicas
+once all are launched, so their work overlaps on the device): it gathers whole params from the blocks, runs the unchanged
+loss on its rows of the batch and gives whole gradients. The gradients
+are summed over replicas in replica order on the mesh's first device,
+then go through int8 compression (if asked), the global norm and
+clipping whole, as in the JAX step, and are scattered into the params'
+blocks (`constrain_grads`); AdamW updates each block on its device.
+The MoE aux loss couples the whole batch, so for MoE models every
+replica's routing statistics are collected (`moe.route_stats`) and the
+aux term is formed once over all of them before one backward through
+every replica's graph; other models run each replica's backward as soon
+as its forward ends. A batch that the replicas cannot split evenly (B %
+n_dp, or B < n_dp) runs as one replica, as the JAX guard drops the axis.
+The `model` axis shards storage only: tensor-parallel compute over it is
+not written yet.
+
 No path selection happens in the SimGNN step: packing, bucketing and the
 choice of executor live in the engine, for training as for serving
 (DESIGN.md §11).
@@ -18,12 +39,15 @@ choice of executor live in the engine, for training as for serving
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import torch
 
+from repro_torch.distributed import placement
 from repro_torch.distributed.compression import int8_compress_tree
-from repro_torch.models import encdec, lm
+from repro_torch.distributed.sharding import LMMesh, Runtime, StreamFan
+from repro_torch.models import encdec, lm, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.params import tree_leaves, tree_map
 from repro_torch.train import optimizer as opt
@@ -58,17 +82,25 @@ def value_and_grad(params, cfg: ModelConfig, batch, *,
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
-def build_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
-                     max_grad_norm: float = 1.0, accum_steps: int = 1,
-                     compress_grads: bool = False):
+def build_train_step(cfg: ModelConfig, rt: Runtime | None = None, *,
+                     peak_lr: float = 3e-4, max_grad_norm: float = 1.0,
+                     accum_steps: int = 1, compress_grads: bool = False):
     """Returns step_fn(params, opt_state, batch) -> (params, opt_state,
     metrics {"loss", "grad_norm", "lr", "step"}). Batch leaves (numpy
     arrays or tensors; moved to the params' device) carry a leading
     accumulation axis when accum_steps > 1; the microbatches' losses and
     float32 gradients are summed in order and divided by accum_steps.
-    Nothing is updated in place. The JAX step's `constrain_grads` (pin
-    each gradient to its parameter's sharding) acts only on a mesh; the
-    port has none, as the JAX package with `rt.mesh is None`."""
+    Nothing is updated in place. With `rt` on an `LMMesh` the step is the
+    data-parallel mesh step of the module docstring; without one it is
+    the single-device step, as the JAX package's with `rt.mesh is None`."""
+    mesh = rt.lm_mesh if rt is not None else None
+
+    def grads_of(params, batch):
+        if mesh is None:
+            return value_and_grad(params, cfg, batch)
+        return _data_parallel_value_and_grad(params, cfg, batch, mesh,
+                                             rt.batch_axes)
+
     def step_fn(params, opt_state, batch):
         device = tree_leaves(params)[0].device
         batch = _on(batch, device)
@@ -78,19 +110,21 @@ def build_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                                                    dtype=torch.float32,
                                                    device=device), params)
             for i in range(accum_steps):
-                mb_loss, mb_grads = value_and_grad(
-                    params, cfg, {k: v[i] for k, v in batch.items()})
+                mb_loss, mb_grads = grads_of(
+                    params, {k: v[i] for k, v in batch.items()})
                 loss = loss + mb_loss
                 grads = _add_trees(grads, mb_grads)
             loss = loss / accum_steps
             grads = tree_map(lambda g: g / accum_steps, grads)
         else:
-            loss, grads = value_and_grad(params, cfg, batch)
+            loss, grads = grads_of(params, batch)
 
         with torch.no_grad():
             if compress_grads:
                 grads = int8_compress_tree(grads)
             grads, grad_norm = opt.clip_by_global_norm(grads, max_grad_norm)
+            if mesh is not None:
+                grads = constrain_grads(grads, params)
             lr = opt.cosine_schedule(opt_state.step, peak_lr=peak_lr)
             params, opt_state = opt.adamw_update(grads, opt_state, params,
                                                  lr=lr)
@@ -99,6 +133,93 @@ def build_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
         return params, opt_state, metrics
 
     return step_fn
+
+
+def constrain_grads(grads, params):
+    """Whole gradients laid out as their params are (the JAX step's
+    `constrain_grads`): a sharded param's gradient is cut into the same
+    blocks, a whole param's stays whole."""
+    return placement.shard_tree(grads, placement.tree_shardings(params))
+
+
+def replica_positions(mesh: LMMesh, batch_axes) -> list[int]:
+    """The mesh position of each data-parallel replica: the first device
+    of each coordinate of `batch_axes`, row-major (the order in which
+    the batch dim is split over those axes)."""
+    ranges = [range(mesh.shape[a]) for a in batch_axes]
+    return [mesh.position(dict(zip(batch_axes, c)))
+            for c in itertools.product(*ranges)]
+
+
+def _data_parallel_value_and_grad(params, cfg: ModelConfig, batch,
+                                  mesh: LMMesh, batch_axes):
+    """(loss, whole grads on the mesh's first device) of the batch split
+    row-wise over the replicas of `batch_axes` (module docstring)."""
+    first = mesh.devices[0]
+    positions = replica_positions(mesh, batch_axes)
+    n = len(positions)
+    b = next(iter(batch.values())).shape[0]
+    if n == 1 or b % n or b < n:
+        positions, n = positions[:1], 1
+    blocks = [blk for x in tree_leaves(params)
+              if isinstance(x, placement.ShardedTensor) for blk in x.blocks]
+    rows = b // n
+    is_moe = n > 1 and any(cfg.layer_is_moe())
+    losses, grads, graphs, stats = [], [], [], []
+    fan = StreamFan()
+    for r, pos in enumerate(positions):
+        dev = mesh.devices[pos]
+        part = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+        with fan.member(mesh.streams[pos]) as (reads, out):
+            reads.extend(blocks + list(batch.values()))
+            part = _on(part, dev)
+            whole = placement.gather_tree(params, dev)
+            if not is_moe:
+                loss, g = value_and_grad(whole, cfg, part)
+                grads.append(tree_leaves(g))
+                out.extend(grads[-1])
+            else:
+                leaves = [t.requires_grad_(True) for t in tree_leaves(whole)]
+                with moe.route_stats() as seen:
+                    loss = loss_for(cfg)(whole, cfg, part, aux_weight=0.0)
+                graphs.append(leaves)
+                stats.append(seen)
+                out.extend(t for pair in seen for t in pair)
+            losses.append(loss)
+            out.append(loss)
+    fan.join()
+    total = losses[0].to(first)
+    for loss in losses[1:]:
+        total = total + loss.to(first)
+    if n > 1:
+        total = total / n
+    scale = n                  # each replica's grads are of its own mean
+    if is_moe:
+        aux = moe.aux_from_stats([[(f.to(first), p.to(first)) for f, p in s]
+                                  for s in stats])
+        total = total + moe.AUX_WEIGHT * aux
+        flat = [t for leaves in graphs for t in leaves]
+        g = torch.autograd.grad(total, flat, allow_unused=True)
+        g = [torch.zeros_like(p) if x is None else x for p, x in zip(flat, g)]
+        k = len(graphs[0])
+        grads = [g[r * k:(r + 1) * k] for r in range(n)]
+        total, scale = total.detach(), 1
+    summed = [_mean_over_replicas([g[i] for g in grads], first, scale)
+              for i in range(len(grads[0]))]
+    it = iter(summed)
+    return total, tree_map(lambda _: next(it), params)
+
+
+def _mean_over_replicas(parts, device, scale: int) -> torch.Tensor:
+    """The replicas' gradients of one leaf summed in replica order on
+    `device` and divided by `scale`, in float32, back in the leaf's
+    dtype; one replica's come back as they are."""
+    if len(parts) == 1:
+        return parts[0].to(device)
+    acc = parts[0].to(device, torch.float32, copy=True)
+    for p in parts[1:]:
+        acc += p.to(device, torch.float32)
+    return (acc / scale).to(parts[0].dtype)
 
 
 def _add_trees(a, b):

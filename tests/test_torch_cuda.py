@@ -1939,3 +1939,77 @@ def test_dead_shard_in_training_on_the_card_collapses(logical, mode):
         "errors:train:packed_sparse@2d": 1}
     eng.loss_and_grad(pairs, target)
     assert eng.last_plan.degraded_from == () and eng.last_plan.devices == 2
+
+
+# ------------------------------------------ the LM mesh (DESIGN.md §6)
+#
+# The data-parallel mesh step (`train/step.py`) over logical devices of the
+# card: params and AdamW moments stored as per-device blocks, one replica
+# a batch row on its first device's stream, the LM kernels launched in
+# each replica's forward.
+
+#: (arch, config changes, the kernel the family's forward launches)
+MESH_FAMILIES = (("granite-moe-3b-a800m", {"moe_use_kernel": True},
+                  "moe_experts"),
+                 ("rwkv6-7b", {}, "wkv6"),
+                 ("jamba-1.5-large-398b", {}, "mamba_scan"))
+MESH_WRAPPERS = {"moe_experts": moe_expert_ffn, "wkv6": wkv6_state,
+                 "mamba_scan": mamba_selective_scan_state}
+
+
+def _lm_mesh_run(arch, kw, shape, device, steps=3):
+    """`steps` mesh steps of reduced float32 `arch` on a `shape` mesh over
+    `device` (logical devices on a one-card machine; batch 4 x 64 tokens,
+    2 replicas at data 2): the final params and AdamW moments gathered
+    onto the CPU, and the losses."""
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.distributed import placement, sharding
+    from repro_torch.launch.mesh import mesh_runtime
+    from repro_torch.params import tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_train_step
+
+    cfg = reduced_config(arch).with_(**kw)
+    host = init_lm_params(torch.Generator().manual_seed(11), cfg,
+                          device="cpu")
+    rt, _ = mesh_runtime("x".join(map(str, shape)), torch.device(device))
+    params = placement.shard_tree(params_to(host, device),
+                                  sharding.param_shardings(rt, host))
+    opt = adamw_init(params)
+    step = build_train_step(cfg, rt)
+    losses = []
+    for s in range(steps):
+        batch = batch_for_step(cfg, s, global_batch=4, seq_len=64)
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    return [placement.gather(x).cpu()
+            for x in tree_leaves((params, opt.m, opt.v))], losses
+
+
+@pytest.mark.parametrize("arch,kw,kernel", MESH_FAMILIES,
+                         ids=[f[0] for f in MESH_FAMILIES])
+def test_lm_mesh_step_on_the_card_matches_the_cpu(cuda, arch, kw, kernel):
+    """(2, 2): params and moments within 1e-5 of the same steps on logical
+    CPU devices, the family's kernel launched in the replicas' forward."""
+    wrapper = MESH_WRAPPERS[kernel]
+    before = wrapper.launches
+    card, card_losses = _lm_mesh_run(arch, kw, (2, 2), "cuda:0")
+    assert wrapper.launches > before
+    host, host_losses = _lm_mesh_run(arch, kw, (2, 2), "cpu")
+    for a, b in zip(card, host):
+        assert float((a - b).abs().max()) <= 1e-5
+    np.testing.assert_allclose(card_losses, host_losses, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,kw,kernel", MESH_FAMILIES,
+                         ids=[f[0] for f in MESH_FAMILIES])
+def test_lm_mesh_step_on_the_card_is_bit_equal_across_runs_and_model(
+        cuda, arch, kw, kernel):
+    """Two (2, 2) runs bit-equal; (2, 1) and (2, 4), which differ only in
+    `model`, bit-equal to them."""
+    first = _lm_mesh_run(arch, kw, (2, 2), "cuda:0")
+    for shape in ((2, 2), (2, 1), (2, 4)):
+        leaves, losses = _lm_mesh_run(arch, kw, shape, "cuda:0")
+        assert losses == first[1], shape
+        assert all(torch.equal(a, b) for a, b in zip(leaves, first[0])), \
+            shape

@@ -9,7 +9,11 @@ JAX example's params converted into the port's.
     mode (the reference path and the engine's auto dispatch), the same
     top-k results in the exact and two-stage modes, and an index saved by
     the port loading in the JAX example (and back);
-  * serve_lm: the same greedy tokens on the JAX example's prompt.
+  * serve_lm: the same greedy tokens on the JAX example's prompt;
+  * elastic_restart: the same printed lines (steps reached, restored
+    step, round-trip difference), unsharded and on a (2, 2) mesh restored
+    onto (4, 1), and the checkpoint of step 10 within 1e-5 of the JAX
+    example's.
 
 Each port example raises without CUDA unless `--device cpu` is given.
 """
@@ -34,8 +38,11 @@ from repro.data.graphs import pair_stream as jax_pair_stream
 from repro.kernels.ops import simgnn_pair_score_kernel as jax_kernel_score
 from repro.models.init import init_params as jax_init_params
 from repro_torch.configs.simgnn_aids import CONFIG as CFG
-from repro_torch.examples import quickstart, serve_lm, simgnn_search
-from repro_torch.params import params_from_numpy
+from repro_torch.ckpt import manager as ckpt
+from repro_torch.distributed.placement import gather
+from repro_torch.examples import (elastic_restart, quickstart, serve_lm,
+                                  simgnn_search)
+from repro_torch.params import params_from_numpy, tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 #: scores of one batch against the JAX package's (the f32 parity bound)
@@ -172,8 +179,48 @@ def test_serve_lm_matches_jax(arch, monkeypatch, capsys):
     assert (got["margins"] >= 0).all()
 
 
-@pytest.mark.parametrize("module", (quickstart, simgnn_search, serve_lm),
-                         ids=("quickstart", "simgnn_search", "serve_lm"))
+def _steady(out: str) -> list[str]:
+    """The printed lines without the loop's straggler notes (wall-clock
+    dependent)."""
+    return [ln for ln in out.splitlines()
+            if not ln.startswith("[loop] straggler")]
+
+
+@functools.lru_cache(maxsize=None)
+def _elastic_params():
+    return jax.tree.map(np.asarray, jax_init_params(
+        jax.random.PRNGKey(0), jax_reduced_config("gemma2-9b")))
+
+
+@pytest.mark.parametrize("mesh,restore", (("none", "none"), ("2x2", "4x1")))
+def test_elastic_restart_matches_jax(mesh, restore, tmp_path, monkeypatch,
+                                     capsys):
+    mod = _jax_example("elastic_restart")
+    monkeypatch.setattr(mod, "CKPT", str(tmp_path / "jax"))
+    jout = _run_jax_example("elastic_restart", [], monkeypatch, capsys)
+    monkeypatch.setattr(elastic_restart, "init_params",
+                        lambda gen, cfg, device=None:
+                        params_from_numpy(_elastic_params(), device))
+    (p2, o2), (p3, _), _ = elastic_restart.main(
+        ["--ckpt-dir", str(tmp_path / "port"), "--mesh", mesh,
+         "--restore-mesh", restore, "--device", "cpu"])
+    tout = capsys.readouterr().out
+    assert _steady(tout) == _steady(jout)
+    assert "restored step 10; max param diff after round trip: 0.0e+00" \
+        in tout
+    want = ckpt.restore(str(tmp_path / "jax"), 10, (p2, o2))
+    for a, b in zip(tree_leaves(want), tree_leaves((p2, o2))):
+        np.testing.assert_allclose(gather(b).numpy(), gather(a).numpy(),
+                                   rtol=0, atol=1e-5)
+    if restore != "none":
+        assert {x.sharding.mesh.axis_sizes for x in tree_leaves(p3)} == \
+            {(4, 1)}
+
+
+@pytest.mark.parametrize("module", (quickstart, simgnn_search, serve_lm,
+                                    elastic_restart),
+                         ids=("quickstart", "simgnn_search", "serve_lm",
+                              "elastic_restart"))
 def test_examples_need_the_card_unless_told_cpu(module):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default would run")

@@ -7,10 +7,13 @@ the CPU, at 8-pair batches of SimGNN-AIDS width.
     N, and the resumed run ends bit-identical to an uninterrupted one;
   * a corrupt newest checkpoint is walked past and counted
     (`ckpt_walkback_skipped`);
-  * without CUDA the launcher raises unless `--device cpu` is given, and
-    the mode not ported (an LM on `--mesh single`) raises
-    NotImplementedError naming its ROADMAP item (`--devices N` is held in
-    tests/test_torch_sharded_train.py).
+  * without CUDA the launcher raises unless `--device cpu` is given;
+  * an LM on `--mesh single` and `--mesh multi` (the production meshes,
+    256 and 512 logical CPU devices) trains, its losses, gradient norms
+    and learning rates within 1e-5 of the unsharded launcher's
+    (`--devices N` is held in tests/test_torch_sharded_train.py, the LM
+    mesh's step and checkpoints in tests/test_torch_lm_mesh.py and
+    tests/test_torch_reshard.py).
 """
 
 import os
@@ -102,8 +105,22 @@ def test_launcher_needs_the_card_unless_told_cpu(tmp_path):
     assert not tmp_path.joinpath("run").exists()
 
 
-@pytest.mark.parametrize("argv,item", (
-    (["--model", "gemma2-9b", "--mesh", "single"], "item 6"),))
-def test_modes_not_ported_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--device", "cpu", "--steps", "1", *argv])
+@pytest.mark.parametrize("mesh,batch", (("single", 16), ("multi", 32)))
+def test_modes_not_ported_raise(mesh, batch, capsys):
+    """Once raising NotImplementedError, `--mesh single|multi` now trains
+    (every batch replica one sequence): on the CPU over as many logical
+    devices as the production mesh has, which it prints, with the
+    unsharded launcher's losses, gradient norms and learning rates."""
+    argv = ["--model", "qwen1.5-4b", "--reduced", "--steps", "2", "--batch",
+            str(batch), "--seq-len", "16", "--log-every", "1", "--lr",
+            "1e-2", "--device", "cpu"]
+    want = main(argv)
+    got = main([*argv, "--mesh", mesh])
+    n = 256 if mesh == "single" else 512
+    assert f"{n} logical devices over cpu" in capsys.readouterr().out
+    assert len(got.history) == len(want.history) == 2
+    for g, w in zip(got.history, want.history):
+        for key in ("loss", "grad_norm", "lr"):
+            assert abs(g[key] - w[key]) <= 1e-5, (key, g[key], w[key])
+    leaf = got.params["embed"]["table"]
+    assert leaf.sharding.mesh.size == n and len(leaf.blocks) == n
