@@ -84,8 +84,23 @@ and the Jamba hybrid (`mamba_scan`) on (2, 2) against the same steps on
 logical CPU devices, a `--mesh 2x2` launcher run killed and resumed
 (bit-equal) whose last checkpoint is restored onto (4, 1), (1, 1) and no
 mesh and resharded live onto (1, 4), the launcher at `--mesh single`
-(256 logical devices) and the `elastic_restart` example. Phases 4-7 pin
-`planner="threshold"`. Every failed check exits non-zero.
+(256 logical devices) and the `elastic_restart` example. Phase 25
+pipelines granite-moe-3b-a800m at full width and depth in bf16 with GPipe
+(`distributed/pipeline.gpipe`): its 32 layer groups in 4 stages of 8 on a
+("stage",) mesh of 4 logical devices over cuda:0 (the first 4 cards where
+the machine has them; printed), each stage on its own stream running its
+groups with remat, 4 x 2048 tokens embedded outside the pipeline in 4
+microbatches (`moe_experts` and `flash_attn` in every stage), the loss on
+the caller's device: y bit-equal to the stages applied microbatch by
+microbatch on one stream (`distributed/pipeline.sequential`), every
+gradient bit-equal to that run's and the stage params' and x's within
+`PIPE_LIMITS` of it, a dropped-microbatch control beyond them; the last
+layer's `moe_experts` and `flash_attn` arguments captured in the
+pipelined run and each kernel held there against its plain version; the
+value-and-grad ms, idle share (busy as the union over streams), peak
+memory and the kernels with the most device time of both runs printed;
+and a 4-stage reduced float32 granite against logical CPU devices.
+Phases 4-7 pin `planner="threshold"`. Every failed check exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -341,6 +356,33 @@ MESH_CASES = (("granite-moe-3b-a800m", {"moe_use_kernel": True}, 2, 2048,
               (JAMBA_ARCH, {}, 4, 64, ("mamba_scan",)))
 MESH_RESTORE_SHAPES = ((4, 1), (1, 1), None)
 MESH_SINGLE_STEPS, MESH_SINGLE_BATCH = 3, 16
+#: phase 25: GPipe (`distributed/pipeline.py`). (a) granite (LM_ARCH) at
+#: full width and depth in bf16 with `moe_use_kernel`: its layer groups in
+#: PIPE_STAGES stages on a ("stage",) mesh (the first PIPE_STAGES cards,
+#: or logical devices over cuda:0), stage params stored as blocks laid out
+#: by P("stage"); PIPE_BATCH x PIPE_TOKENS tokens of `batch_for_step`
+#: (seed 17) embedded outside the pipeline, PIPE_MICRO microbatches, each
+#: stage running its groups with remat; the loss `next_token_nll` of
+#: `logits_from_hidden` on the caller's device. Gates: y and every
+#: gradient bit-equal to the stages applied microbatch by microbatch on
+#: one stream; the stage params' and x's gradients within PIPE_LIMITS
+#: (relative L2) of that run, and the dropped-microbatch control (the last
+#: microbatch left out of the loss) beyond each limit; the last layer's
+#: `moe_experts` (bf16 wgmma) and `flash_attn` arguments from the
+#: pipelined run held kernel against plain (`_pipe_held`). (b) LM_ARCH
+#: reduced to PIPE_STAGES layer groups in float32, y and every gradient
+#: leaf within PIPE_F32_BOUND (of the CPU tensor's largest |value|) of the
+#: same call on logical CPU devices.
+PIPE_STAGES, PIPE_BATCH, PIPE_TOKENS, PIPE_MICRO = 4, 4, 2048, 4
+#: relative L2 distances to the stages in order (`_pipe_distances`). The
+#: first readings on an H100 (PERF.md §6, GPipe) were 0.0 for both (the
+#: gradients bit-equal) and 0.185 (params) / 0.590 (x) for the control;
+#: each limit is the geometric mean of the control's reading and bf16's
+#: unit roundoff 2**-9, the scale of a bf16 sum taken in another order.
+PIPE_LIMITS = {"params": 1.9e-2, "x": 3.4e-2}
+#: device activity names printed with the most summed time
+PIPE_TOP = 6
+PIPE_F32_BOUND = 1e-6
 #: the backward rules' `torch.autograd.Function`s whose forward inputs a
 #: card training step captures (both edge-list rules share one class, as
 #: both packed-CSR rules do)
@@ -839,6 +881,15 @@ def main() -> int:
         served[name] += n
         kernels[name]["lm_mesh_phase_launches"] = n
     phase("24 the LM mesh and elastic resharding")
+
+    # ---- phase 25: GPipe pipeline parallelism --------------------------
+    torch.cuda.empty_cache()
+    report["pipeline"], counts = pipeline_phase(dev, smi, reset_counts,
+                                                read_counts)
+    for name, n in counts.items():
+        served[name] += n
+        kernels[name]["pipeline_phase_launches"] = n
+    phase("25 GPipe pipeline parallelism")
     report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
@@ -1143,13 +1194,15 @@ def sharded_phase(params, corpus, queries, reset_counts,
     return rep, served
 
 
-def _profile_idle(fn, host: bool = True) -> tuple[float, float, int]:
+def _profile_idle(fn, host: bool = True,
+                  by_name: dict | None = None) -> tuple[float, float, int]:
     """One call of `fn` under `torch.profiler`: wall s, device busy s as
     the union of every device activity's interval (the shards' streams
     overlap, so the sum of activity times could exceed the wall) and the
     count of device activities. `host=False` traces the device only (a
     step of tens of thousands of launches is read back in seconds, not
-    minutes)."""
+    minutes). `by_name`, where given, receives each device activity
+    name's summed ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1162,8 +1215,12 @@ def _profile_idle(fn, host: bool = True) -> tuple[float, float, int]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    if by_name is not None:
+        for e in device:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
     busy, end = 0.0, None
     for lo, hi in spans:
         if end is None or lo > end:
@@ -1748,6 +1805,276 @@ def lm_mesh_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
     rep["seconds"] = clock.seconds
     return rep, launches
 
+
+
+# ------------------------------------------------ phase 25: GPipe
+
+
+def _pipe_mesh(n: int, kind: str = "cuda"):
+    """A ("stage",) mesh of `n` members and which devices it took: on the
+    card the first n cards where the machine has them, else n logical
+    devices over cuda:0; on the CPU n logical CPU devices."""
+    from repro_torch.distributed import sharding
+
+    if kind == "cuda" and torch.cuda.device_count() >= n:
+        return (sharding.lm_mesh((n,), ("stage",), "cuda"),
+                f"the first {n} cards")
+    over = "cuda:0" if kind == "cuda" else "cpu"
+    with sharding.logical_devices(n, over):
+        return (sharding.lm_mesh((n,), ("stage",), over),
+                f"{n} logical devices over {over}")
+
+
+def _pipe_blocks(groups, mesh, n: int):
+    """Group stacks [G, ...] as [n, G / n, ...] ShardedTensors laid out by
+    P("stage") (stage s's groups on member s), each block a leaf that
+    requires grad."""
+    from repro_torch.distributed import placement, sharding
+    from repro_torch.params import tree_map
+
+    spec = sharding.NamedSharding(mesh, sharding.P("stage"))
+
+    def leaf(t):
+        st = placement.shard(t.detach().reshape(n, t.shape[0] // n,
+                                                *t.shape[1:]), spec)
+        for b in st.blocks:
+            b.requires_grad_()
+        return st
+
+    return tree_map(leaf, groups)
+
+
+def _pipe_stage_fn(cfg, remat: bool):
+    """A stage: its layer groups in order (`lm._run_groups`)."""
+    from repro_torch.models import lm
+
+    return lambda p, x: lm._run_groups({"groups": p}, cfg, x,
+                                       positions=lm._positions(x),
+                                       remat=remat)[0]
+
+
+def _pipe_value_and_grad(run, stacked, x, loss_fn):
+    """(y, loss, grads of every block then of x), synchronized."""
+    from repro_torch.params import tree_leaves
+
+    leaves = [b for st in tree_leaves(stacked) for b in st.blocks]
+    y = run(stacked, x)
+    loss = loss_fn(y)
+    grads = torch.autograd.grad(loss, leaves + [x])
+    torch.cuda.synchronize()
+    return y.detach(), float(loss.detach()), [g.detach() for g in grads]
+
+
+def _pipe_distances(grads, ref) -> dict:
+    """Relative L2 distances of the stage params' grads (together) and of
+    x's grad to `ref`'s (PIPE_LIMITS' keys)."""
+    return {"params": _l2(a - b for a, b in zip(grads[:-1], ref[:-1]))
+            / _l2(ref[:-1]),
+            "x": _l2([grads[-1] - ref[-1]]) / _l2(ref[-1:])}
+
+
+def _pipe_granite(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
+    """25 (a): granite pipelined at full width and depth against the
+    stages in order; the main path's kernel launches (its first
+    pipelined value-and-grad)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.distributed.pipeline import gpipe, sequential
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain)
+    from repro_torch.kernels.moe_experts import (moe_expert_ffn,
+                                                 moe_expert_ffn_plain)
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.init import init_params
+
+    cfg = get_config(LM_ARCH).with_(moe_use_kernel=True)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    mesh, where = _pipe_mesh(PIPE_STAGES)
+    stacked = _pipe_blocks(params.pop("groups"), mesh, PIPE_STAGES)
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(batch_for_step(
+        cfg, 0, global_batch=PIPE_BATCH, seq_len=PIPE_TOKENS)[
+            "tokens"]).to(dev)
+    with torch.no_grad():
+        x = lm.embed_tokens(params, cfg, tokens)
+    x.requires_grad_()
+    rows = PIPE_BATCH // PIPE_MICRO
+
+    def loss_fn(y, keep=PIPE_BATCH):
+        logits = lm.logits_from_hidden(params, cfg, y[:keep])
+        return lm.next_token_nll(logits[:, :-1], tokens[:keep])
+
+    fn = _pipe_stage_fn(cfg, remat=True)
+    runs = {"pipelined": gpipe(fn, mesh, n_microbatches=PIPE_MICRO),
+            "sequential": sequential(fn, mesh, n_microbatches=PIPE_MICRO)}
+    print(f"gpipe (a) [{smi}]: {LM_ARCH} bf16, {cfg.n_groups} layer groups "
+          f"in {PIPE_STAGES} stages over {where}, [{PIPE_BATCH}, "
+          f"{PIPE_TOKENS}] tokens in {PIPE_MICRO} microbatches, remat")
+    # each kernel's last forward call (one a layer and microbatch, before
+    # the remat recompute): the last stage's last layer on the last
+    # microbatch
+    keep = {name: {"calls": {cfg.n_layers * PIPE_MICRO - 1}, "args": []}
+            for name in ("moe_experts", "flash_attn")}
+    restores = [_capture(moe_mod, "moe_expert_ffn", keep["moe_experts"]),
+                _capture(layers_mod, "flash_attention", keep["flash_attn"])]
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        y, loss, grads = _pipe_value_and_grad(runs["pipelined"], stacked, x,
+                                              loss_fn)
+        counts = read_counts()
+    finally:
+        for restore in restores:
+            restore()
+    held = _pipe_held(keep, moe_expert_ffn, moe_expert_ffn_plain,
+                      flash_attention, flash_attention_plain, smi)
+    ref_y, ref_loss, ref = _pipe_value_and_grad(runs["sequential"], stacked,
+                                                x, loss_fn)
+    same_y = torch.equal(y, ref_y)
+    same_grads = all(torch.equal(a, b) for a, b in zip(grads, ref))
+    dist = _pipe_distances(grads, ref)
+    finite = bool(np.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    del y, ref_y, grads
+    _, dropped_loss, dropped = _pipe_value_and_grad(
+        runs["sequential"], stacked, x,
+        lambda y: loss_fn(y, PIPE_BATCH - rows))
+    control = _pipe_distances(dropped, ref)
+    del dropped, ref
+    torch.cuda.empty_cache()
+    rep = {"mesh": where, "loss": loss, "sequential_loss": ref_loss,
+           "dropped_loss": dropped_loss, "forward_bit_equal": same_y,
+           "grads_bit_equal": same_grads, "held_at_path_shapes": held,
+           "distances": dist, "control": control, "limits": PIPE_LIMITS,
+           "launches": {k: v for k, v in counts.items() if v}}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _pipe_value_and_grad(run, stacked, x, loss_fn)
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        by_name: dict = {}
+        wall, busy, n_act = _profile_idle(
+            lambda run=run: _pipe_value_and_grad(run, stacked, x, loss_fn),
+            host=False, by_name=by_name)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PIPE_TOP]
+        rep[name] = {"value_and_grad_ms": ms, "peak_bytes": peak,
+                     "resident_bytes_before": base, "profiled_wall_s": wall,
+                     "device_busy_s": busy, "idle_share": 1 - busy / wall,
+                     "device_activities": n_act, "top_device_ms": top}
+        print(f"  {name} [{smi}]: value and grad {ms:.3f} ms (warm, host "
+              f"clock to a synchronize); peak memory {peak / 2**30:.2f} GiB "
+              f"({(peak - base) / 2**30:.2f} GiB over the "
+              f"{base / 2**30:.2f} GiB resident before); profiled wall "
+              f"{1e3 * wall:.3f} ms, busy {1e3 * busy:.3f} ms (union over "
+              f"streams), idle share {1 - busy / wall:.4f}, {n_act} device "
+              f"activities; the most device time by name: " + "; ".join(
+                  f"{k[:60]} {v:.1f} ms" for k, v in top))
+    print(f"  forward bit-equal to the stages in order: {same_y}; every "
+          f"gradient bit-equal: {same_grads}; loss "
+          f"{loss:.6f} (in order {ref_loss:.6f}); grads against the stages "
+          f"in order: " + ", ".join(
+              f"{k} {v:.3e} (limit {PIPE_LIMITS[k]:g})"
+              for k, v in dist.items())
+          + "; the last microbatch dropped (loss "
+          f"{dropped_loss:.6f}): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in control.items())
+          + f"; launches {rep['launches']}")
+    assert finite and same_y and same_grads, rep
+    assert all(dist[k] <= lim for k, lim in PIPE_LIMITS.items()), rep
+    assert all(control[k] > lim for k, lim in PIPE_LIMITS.items()), rep
+    for name in ("moe_experts", "flash_attn"):
+        assert counts[name] > 0, (name, counts)
+    return rep, rep["launches"]
+
+
+def _pipe_held(keep, moe, moe_plain, flash, flash_plain, smi) -> dict:
+    """25 (a): the `moe_experts` and `flash_attn` arguments captured in
+    the pipelined run, each kernel's output held against its plain
+    version's: `moe_expert_ffn` within one bf16 ulp + BODY_TOL
+    (`_bf16_excess`), `flash_attention` through float64 under FLASH_TOL
+    (`_held_f64`). Returns each kernel's shapes and distances."""
+    out = {}
+    with torch.no_grad():
+        (x, w_in, w_out), _ = keep["moe_experts"]["args"][0]
+        x, w_in, w_out = (t.detach() for t in (x, w_in, w_out))
+        got, want = moe(x, w_in, w_out), moe_plain(x, w_in, w_out)
+        excess = _bf16_excess(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        b, e, c, d = x.shape
+        print(f"  moe_experts [{smi}] [pipelined granite, last layer, B {b} "
+              f"E {e} C {c} D {d} F {w_out.shape[1]}, {x.dtype}]: max abs "
+              f"err {err:.3e}, excess over one bf16 ulp + f32 bound "
+              f"{excess:.3e}")
+        assert torch.isfinite(got.float()).all() and excess <= 0, excess
+        out["moe_experts"] = {"shape": [b, e, c, d, w_out.shape[1]],
+                              "max_abs_err": err, "bf16_excess": excess}
+        del x, w_in, w_out, got, want
+        (q, k, v), kw = keep["flash_attn"]["args"][0]
+        q, k, v = (t.detach() for t in (q, k, v))
+        b, t, h, d = q.shape
+        out["flash_attn"] = dict(
+            shape=[b, t, h, k.shape[2], d],
+            **_held_f64("flash_attn", f"pipelined granite, last layer, B {b} "
+                        f"T {t} H {h} KV {k.shape[2]} D {d}, {q.dtype}",
+                        flash(q, k, v, **kw), flash_plain(q, k, v, **kw),
+                        _flash_f64(q, k, v, **kw), FLASH_TOL))
+    torch.cuda.synchronize()
+    return out
+
+
+def _pipe_reduced(dev) -> dict:
+    """25 (b): LM_ARCH reduced to PIPE_STAGES layer groups in
+    float32, pipelined over logical devices of the card against the same
+    call on logical CPU devices."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.distributed.pipeline import gpipe
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to
+
+    cfg = reduced_config(LM_ARCH)
+    cfg = cfg.with_(n_layers=PIPE_STAGES * cfg.group_size)
+    host = init_params(torch.Generator().manual_seed(11), cfg, device="cpu")
+    x_host = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (PIPE_MICRO, 64, cfg.d_model)).astype(np.float32))
+    out = {}
+    for kind in ("cuda", "cpu"):
+        mesh, _ = _pipe_mesh(PIPE_STAGES, kind)
+        device = mesh.devices[0]
+        stacked = _pipe_blocks(params_to(host, device)["groups"], mesh,
+                               PIPE_STAGES)
+        x = x_host.to(device).requires_grad_()
+        y, _, grads = _pipe_value_and_grad(
+            gpipe(_pipe_stage_fn(cfg, remat=False), mesh,
+                  n_microbatches=PIPE_MICRO), stacked, x,
+            lambda y: torch.sum(y ** 2))
+        out[kind] = [t.cpu() for t in (y, *grads)]
+    err = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(out["cuda"], out["cpu"]))
+    print(f"gpipe (b): reduced {LM_ARCH} float32, {PIPE_STAGES} "
+          f"stages of one layer group, [{PIPE_MICRO}, 64] tokens: y and "
+          f"every gradient leaf within {err:.3e} (of the CPU leaf's largest "
+          f"|value|) of logical CPU devices (bound {PIPE_F32_BOUND:g})")
+    assert err <= PIPE_F32_BOUND, err
+    return {"rel_err": err}
+
+
+def pipeline_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
+    """Phase 25: GPipe (a) and (b) above; each part prints its seconds.
+    Returns (report, the kernel launches of (a)'s main path)."""
+    rep, clock = {"card": smi}, PhaseClock()
+    rep["granite"], launches = _pipe_granite(dev, smi, reset_counts,
+                                             read_counts)
+    torch.cuda.empty_cache()
+    clock("25 (a) granite pipelined at full width and depth")
+    rep["reduced"] = _pipe_reduced(dev)
+    clock("25 (b) reduced float32 granite, card against CPU")
+    rep["seconds"] = clock.seconds
+    return rep, launches
 
 def record(name, worst, ms, ms_source, call_ms, plain_ms, label, flops,
            nbytes, err_bound=None, library_ms=None,

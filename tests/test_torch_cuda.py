@@ -2013,3 +2013,106 @@ def test_lm_mesh_step_on_the_card_is_bit_equal_across_runs_and_model(
         assert losses == first[1], shape
         assert all(torch.equal(a, b) for a, b in zip(leaves, first[0])), \
             shape
+
+
+# ------------------------------------ GPipe (distributed/pipeline.py)
+#
+# The pipeline over 4 logical devices of the card, each stage on its own
+# stream (`distributed.pipeline.gpipe` on a ("stage",) mesh, 4
+# microbatches): float32 calls within 1e-6 of the same calls on 4 logical
+# CPU devices (y and every gradient leaf, relative to the CPU tensor's
+# largest |value|, as tests/test_torch_pipeline.py holds the CPU against
+# JAX), two calls bit-equal, and the pipelined forward bit-equal to the
+# stages applied in order, microbatch by microbatch, on one stream
+# (`pipeline.sequential`), its gradients too. The toy stage function's x
+# gradient reaches |74|, and the CPU's own float32 result is 9.0e-7 of
+# that from a float64 run (the card's 1.34e-6 from the CPU's on an H100),
+# so the toy leaves are held within PIPE_TOY_BOUND, granite and rwkv6
+# within 1e-6.
+
+#: the JAX test's stage function ("toy": x + tanh(x @ w1) @ w2, d 16,
+#: hidden 32, 8 rows) and reduced float32 granite (MoE and attention) and
+#: rwkv6 at 4 layer groups, one a stage (4 x 16 tokens)
+PIPE_FAMILIES = ("toy", "granite-moe-3b-a800m", "rwkv6-7b")
+PIPE_STAGES = 4
+#: twice the toy's float32-to-float64 distance on the CPU (9.0e-7, the x
+#: gradient), rounded up
+PIPE_TOY_BOUND = 2e-6
+
+
+def _pipe_case(family):
+    """(stage function, per-stage CPU trees, x on the CPU)."""
+    from repro_torch.models import lm
+    from repro_torch.params import tree_map
+
+    rng = np.random.default_rng(5)
+    if family == "toy":
+        stages = [{"w1": torch.from_numpy((rng.standard_normal((16, 32))
+                                           * 0.3).astype(np.float32)),
+                   "w2": torch.from_numpy((rng.standard_normal((32, 16))
+                                           * 0.3).astype(np.float32))}
+                  for _ in range(PIPE_STAGES)]
+        x = rng.standard_normal((8, 16))
+        return (lambda p, x: x + torch.tanh(x @ p["w1"]) @ p["w2"], stages,
+                torch.from_numpy(x.astype(np.float32)))
+    cfg = reduced_config(family)
+    cfg = cfg.with_(n_layers=PIPE_STAGES * cfg.group_size)
+    groups = init_lm_params(torch.Generator().manual_seed(11), cfg,
+                            device="cpu")["groups"]
+    stages = [tree_map(lambda t, i=i: t[i:i + 1], groups)
+              for i in range(PIPE_STAGES)]
+    x = rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+    return (lambda p, x: lm._run_groups({"groups": p}, cfg, x,
+                                        positions=lm._positions(x))[0],
+            stages, torch.from_numpy(x))
+
+
+def _pipe_run(family, device, in_order=False):
+    """y and the gradients of sum(y ** 2) (stacked leaves, then x), on the
+    CPU, of the pipelined call on 4 logical devices over `device`; with
+    `in_order`, of the stages applied in order microbatch by microbatch on
+    the current stream (`sequential`)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.pipeline import (gpipe, sequential,
+                                                  stack_stage_params)
+    from repro_torch.params import tree_leaves, tree_map
+
+    fn, stages, x = _pipe_case(family)
+    stages = [tree_map(lambda t: t.to(device).requires_grad_(), s)
+              for s in stages]
+    stacked = stack_stage_params(stages)
+    x = x.to(device).requires_grad_()
+    with sharding.logical_devices(PIPE_STAGES, device):
+        mesh = sharding.lm_mesh((PIPE_STAGES,), ("stage",), device)
+    y = (sequential if in_order else gpipe)(fn, mesh)(stacked, x)
+    grads = torch.autograd.grad(torch.sum(y ** 2),
+                                tree_leaves(stacked) + [x])
+    return [t.detach().cpu() for t in (y, *grads)]
+
+
+@pytest.mark.parametrize("family", PIPE_FAMILIES)
+def test_gpipe_on_the_card_matches_the_cpu(cuda, family):
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    card = _pipe_run(family, "cuda:0")
+    host = _pipe_run(family, "cpu")
+    bound = PIPE_TOY_BOUND if family == "toy" else 1e-6
+    for a, b in zip(card, host):
+        assert rel(a, b) <= bound, (rel(a, b), bound)
+
+
+@pytest.mark.parametrize("family", PIPE_FAMILIES)
+def test_gpipe_on_the_card_repeats_bit_for_bit(cuda, family):
+    first = _pipe_run(family, "cuda:0")
+    again = _pipe_run(family, "cuda:0")
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("family", PIPE_FAMILIES)
+def test_gpipe_on_the_card_is_the_stages_in_order_on_one_stream(cuda,
+                                                                family):
+    piped = _pipe_run(family, "cuda:0")
+    in_order = _pipe_run(family, "cuda:0", in_order=True)
+    assert all(torch.equal(a, b) for a, b in zip(piped, in_order))
