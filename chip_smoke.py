@@ -99,8 +99,18 @@ layer's `moe_experts` and `flash_attn` arguments captured in the
 pipelined run and each kernel held there against its plain version; the
 value-and-grad ms, idle share (busy as the union over streams), peak
 memory and the kernels with the most device time of both runs printed;
-and a 4-stage reduced float32 granite against logical CPU devices.
-Phases 4-7 pin `planner="threshold"`. Every failed check exits non-zero.
+and a 4-stage reduced float32 granite against logical CPU devices. Phase
+26 serves tensor-parallel over the mesh's `model` axis
+(`distributed/tensor_parallel.py`, logical devices over cuda:0 or the
+first cards): granite at full width and depth on (1, 4), (2, 2) and (1,
+1) (the phase 8-11 prompts and tokens, phase 15's 4096-token prompt),
+rwkv6-7b on (1, 4) and Jamba's Mamba block on (1, 4), each beside
+unsharded serving: (1, 1) bit-equal, the other meshes' logits within
+TP_LIMITS and a dropped-partial control beyond them, float32 models at
+full width (rwkv6-7b also at full depth) within TP_F32_CHECKS, the four
+LM kernels held against their plain versions at the shard shapes; wall, peak memory and idle share
+printed per mesh. Phases 4-7 pin `planner="threshold"`. Every failed
+check exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -165,6 +175,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -383,6 +394,35 @@ PIPE_LIMITS = {"params": 1.9e-2, "x": 3.4e-2}
 #: device activity names printed with the most summed time
 PIPE_TOP = 6
 PIPE_F32_BOUND = 1e-6
+#: phase 26: tensor-parallel serving (`distributed/tensor_parallel.py`)
+#: over logical devices of cuda:0 (the first cards where the machine has
+#: them): granite (LM_ARCH) on TP_MESHES, rwkv6-7b and Jamba's layer 0 on
+#: TP_CONTROL_MESH, beside unsharded serving. TP_LIMITS: each family's
+#: relative-L2 limit on the bf16 logits (Jamba's block: on its update, y -
+#: x) against unsharded, the geometric mean of a control's reading (the
+#: same run on TP_CONTROL_MESH with one member's partial left out of the
+#: last layer's row sums) and the floor's (unsharded serving with the
+#: plain versions in place of the kernels, as far from the kernels' run as
+#: two valid bf16 orders of the same sums get): granite 9.002e-2 and
+#: 1.215e-2, rwkv6-7b 1.095e-1 and 3.990e-2, the block 5.700e-1 and
+#: 2.904e-3 on an H100 at 700 W. bf16's 2^-9 is below that floor at full
+#: depth, so it cannot stand for the sound reading. TP_F32_CHECKS: the
+#: same comparison in float32, (layers, limit) at full width, prefill and
+#: TP_F32_STEPS decode steps (the block: TP_F32_LIMIT at full width). At
+#: 4 layers granite, rwkv6-7b and the block read 8.2e-7, 8.2e-6 and
+#: 2.7e-6 against controls of 0.29, 0.29 and 0.54, so TP_F32_LIMIT holds
+#: them near float32 rounding (granite stops there: at full depth a
+#: float32 difference may flip a near-tied expert choice of its router).
+#: rwkv6-7b also runs all its 32 layers, where depth carries float32
+#: rounding up to a floor of 3.156e-3 (unsharded with the plain wkv6);
+#: that limit is the geometric mean of the floor and the control's
+#: 9.343e-2, as TP_LIMITS are, 5x from each (its bf16 gate: 1.25x).
+TP_MESHES = ((1, 4), (2, 2), (1, 1))
+TP_CONTROL_MESH = (1, 4)
+TP_LIMITS = {"granite": 3.3e-2, "rwkv": 6.6e-2, "jamba": 4.1e-2}
+TP_F32_STEPS, TP_F32_LIMIT = 3, 1e-4
+TP_F32_CHECKS = {"granite": ((4, TP_F32_LIMIT),),
+                 "rwkv": ((4, TP_F32_LIMIT), (32, 1.7e-2))}
 #: the backward rules' `torch.autograd.Function`s whose forward inputs a
 #: card training step captures (both edge-list rules share one class, as
 #: both packed-CSR rules do)
@@ -890,6 +930,17 @@ def main() -> int:
         served[name] += n
         kernels[name]["pipeline_phase_launches"] = n
     phase("25 GPipe pipeline parallelism")
+
+    # ---- phase 26: tensor-parallel serving ----------------------------
+    torch.cuda.empty_cache()
+    report["tensor_parallel"], counts = tp_phase(dev, smi, reset_counts,
+                                                 read_counts)
+    for name, n in counts.items():
+        served[name] += n
+        kernels[name]["tp_phase_launches"] = n
+        kernels[name]["tp_shard_shapes"] = report["tensor_parallel"][
+            "held_at_shard_shapes"][name]
+    phase("26 tensor-parallel serving")
     report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
@@ -903,7 +954,8 @@ def main() -> int:
     line = {"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan_route",
-        "bit_identical") if key in k} for k in kernels.values()]}
+        "bit_identical", "tp_phase_launches") if key in k}
+        for k in kernels.values()]}
     report["kernels"] = list(kernels.values())
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2075,6 +2127,670 @@ def pipeline_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
     clock("25 (b) reduced float32 granite, card against CPU")
     rep["seconds"] = clock.seconds
     return rep, launches
+
+def _tp_runtime(shape):
+    """(runtime, where its mesh lies) of a (data, model) mesh of `shape`
+    on the card: the first cards where the machine has them, else logical
+    devices over cuda:0."""
+    from repro_torch.launch.mesh import mesh_runtime
+
+    return mesh_runtime("x".join(map(str, shape)), torch.device("cuda"))
+
+
+def _tp_rel(a, b, v: int) -> float:
+    """Relative L2 distance of `a` from `b` over the first `v` entries of
+    their last dim (the vocabulary's columns of logits)."""
+    a, b = a[..., :v].float(), b[..., :v].float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+@contextmanager
+def _tp_control(n_layers: int):
+    """The control of phase 26: every `tp_apply_block` call of a layer
+    n_layers - 1 (mod n_layers) leaves its row's last member's partial out
+    of its row sums."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import lm
+
+    real_block, real_sum = lm.tp_apply_block, tp.row_sum
+    state = {"calls": 0, "drop": False}
+
+    def block(*args, **kw):
+        state["drop"] = state["calls"] % n_layers == n_layers - 1
+        state["calls"] += 1
+        try:
+            return real_block(*args, **kw)
+        finally:
+            state["drop"] = False
+
+    def row_sum(row, partials):
+        if state["drop"] and row.size > 1:
+            with torch.cuda.stream(row.streams[-1]):
+                partials = list(partials[:-1]) + [
+                    torch.zeros_like(partials[-1])]
+        return real_sum(row, partials)
+
+    lm.tp_apply_block, tp.row_sum = block, row_sum
+    try:
+        yield
+    finally:
+        lm.tp_apply_block, tp.row_sum = real_block, real_sum
+
+
+def _tp_forced(params, cfg, rt, prompt, tokens, caches=False):
+    """Prefill and `tokens.shape[1] - 1` decode steps fed `tokens` on `rt`
+    (None: unsharded): ([the logits of each step], and with `caches` the
+    caches after prefill and after the last step, assembled whole)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+
+    prefill, decode = build_prefill_step(cfg, rt), build_decode_step(cfg, rt)
+    whole = (lambda c: c) if rt is None else tp.gather_caches
+    last, cache, pos = prefill(params, prompt)
+    logits, kept = [last], []
+    if caches:
+        kept.append(whole(cache))
+    for t in range(tokens.shape[1] - 1):
+        last, cache, pos = decode(params, tokens[:, t:t + 1], cache, pos)
+        logits.append(last)
+    if caches:
+        kept.append(whole(cache))
+    torch.cuda.synchronize()
+    return logits, kept
+
+
+def _tp_timed(fn):
+    """(fn(), wall s to a synchronize, peak bytes allocated, bytes
+    allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            base)
+
+
+def _tp_idle(params, cfg, rt, prompt) -> dict:
+    """A prefill and one decode step under the profiler (device only):
+    wall, busy (the union over streams) and idle share."""
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+
+    prefill, decode = build_prefill_step(cfg, rt), build_decode_step(cfg, rt)
+
+    def run():
+        last, cache, pos = prefill(params, prompt)
+        decode(params, torch.argmax(last, -1)[:, None], cache, pos)
+
+    wall, busy, n = _profile_idle(run, host=False)
+    return {"profiled_wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall, "device_activities": n}
+
+
+def _tp_tokens_gate(toks, ref_toks, ref_logits, delta, v) -> dict:
+    """Greedy tokens equal to the unsharded run's up to the first step at
+    which its top-2 margin is below 2 x `delta` (the largest |logit
+    difference| seen); returns the counts."""
+    compared, stops = 0, []
+    for b in range(ref_toks.shape[0]):
+        for t in range(ref_toks.shape[1]):
+            top2 = torch.topk(ref_logits[t][b, :v].float(), 2).values
+            margin = float(top2[0] - top2[1])
+            if margin < 2 * delta:
+                stops.append({"sequence": b, "step": t, "margin": margin})
+                break
+            assert int(toks[b, t]) == int(ref_toks[b, t]), (b, t, margin)
+            compared += 1
+    return {"compared": compared, "stops": stops}
+
+
+@contextmanager
+def _plain_versions(swaps):
+    """Each (module, attribute, plain function) of `swaps` in place of the
+    kernel wrapper for the `with` block."""
+    real = [getattr(mod, attr) for mod, attr, _ in swaps]
+    for mod, attr, plain in swaps:
+        setattr(mod, attr, plain)
+    try:
+        yield
+    finally:
+        for (mod, attr, _), fn in zip(swaps, real):
+            setattr(mod, attr, fn)
+
+
+def _tp_f32(tag, cfg, prompt, tokens, plains, n_layers, limit) -> dict:
+    """26 (a) / (b), float32: `cfg` at full width with `n_layers` layers
+    in float32 on the card, prefill and TP_F32_STEPS decode steps fed
+    `tokens`, on TP_CONTROL_MESH against unsharded: logits within `limit`
+    (relative L2), the control beyond it, the floor (unsharded with
+    `plains` in place of the kernels) printed beside them. The whole
+    params go once the layout is cut (rwkv6-7b's are 30 GB in float32)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models.init import init_params
+
+    cfg32 = cfg.with_(n_layers=n_layers, dtype="float32",
+                      param_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(1), cfg32,
+                         device=prompt.device)
+    toks = tokens[:, :TP_F32_STEPS + 1]
+    ref, _ = _tp_forced(params, cfg32, None, prompt, toks)
+    with _plain_versions(plains):
+        plain, _ = _tp_forced(params, cfg32, None, prompt, toks)
+    v = cfg.vocab_size
+    floor = max(_tp_rel(a, b, v) for a, b in zip(plain, ref))
+    rt, _ = _tp_runtime(TP_CONTROL_MESH)
+    layout = tp.tp_layout(params, cfg32, rt)
+    del params
+    torch.cuda.empty_cache()
+    got, _ = _tp_forced(layout, cfg32, rt, prompt, toks)
+    with _tp_control(cfg32.n_layers):
+        ctrl, _ = _tp_forced(layout, cfg32, rt, prompt, toks)
+    dist = max(_tp_rel(a, b, v) for a, b in zip(got, ref))
+    control = max(_tp_rel(a, b, v) for a, b in zip(ctrl, ref))
+    print(f"  tp {tag} float32, {n_layers} layers at full width on "
+          f"{TP_CONTROL_MESH}: logits rel L2 to unsharded {dist:.3e} "
+          f"(prefill and {TP_F32_STEPS} decode steps), control "
+          f"{control:.3e}, floor (unsharded with the plain versions) "
+          f"{floor:.3e}, limit {limit:g} (the geometric mean of this "
+          f"control and floor is {(control * floor) ** 0.5:.3e})")
+    assert dist <= limit < control, (dist, control)
+    del layout
+    torch.cuda.empty_cache()
+    return {"layers": n_layers, "distance": dist, "control": control,
+            "floor": floor, "limit": limit}
+
+
+def _tp_lm(tag, cfg, params, prompt, long, captures, plains, smi,
+           reset_counts, read_counts, meshes) -> tuple[dict, dict, dict]:
+    """26 (a) / (b): `cfg` served by `greedy_generate` unsharded and on each
+    of `meshes` (4 x LM_PROMPT tokens and LM_NEW greedy tokens; with `long`
+    also a 1 x LONG_PROMPT prefill), the TP runs counted; then the
+    teacher-forced logits (every run fed the unsharded tokens) held to
+    TP_LIMITS[tag], (1, 1) bit-equal to unsharded (logits, tokens,
+    assembled caches), the greedy tokens to `_tp_tokens_gate`, a control on
+    TP_CONTROL_MESH beyond the limit, and the floor (unsharded serving
+    with `plains`, the plain versions, in place of the kernels) printed
+    beside them. `captures` {kernel: (module, attribute, "greedy" or
+    "long", call indices)} keeps those calls' arguments on
+    TP_CONTROL_MESH. Returns (report, launches, captured arguments, the
+    unsharded run's greedy tokens)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.params import tree_leaves
+    from repro_torch.serve.step import build_prefill_step, greedy_generate
+
+    v, n_layers, limit = cfg.vocab_size, cfg.n_layers, TP_LIMITS[tag]
+
+    def greedy(p, rt):
+        return greedy_generate(p, cfg, prompt, max_new=LM_NEW,
+                               device=prompt.device, rt=rt)
+
+    def long_prefill(p, rt):
+        return build_prefill_step(cfg, rt)(p, long)[0]
+
+    ref_toks, wall, peak, base = _tp_timed(lambda: greedy(params, None))
+    ref_logits, ref_caches = _tp_forced(params, cfg, None, prompt, ref_toks,
+                                        caches=True)
+    ref_long = None if long is None else long_prefill(params, None)
+    with _plain_versions(plains):
+        plain, _ = _tp_forced(params, cfg, None, prompt, ref_toks)
+        plain_long = None if long is None else long_prefill(params, None)
+    floor = max([_tp_rel(a, b, v) for a, b in zip(plain, ref_logits)]
+                + ([] if long is None else [_tp_rel(plain_long, ref_long,
+                                                    v)]))
+    del plain, plain_long
+    rep = {"unsharded": {"generate_s": wall, "peak_bytes": peak,
+                         "resident_bytes_before": base,
+                         **_tp_idle(params, cfg, None, prompt)},
+           "floor": floor}
+    print(f"tp {tag} unsharded [{smi}]: greedy_generate of {LM_NEW} tokens "
+          f"after {tuple(prompt.shape)} prompt tokens {wall:.3f} s, peak "
+          f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} resident before); "
+          f"prefill + one decode step profiled: idle share "
+          f"{rep['unsharded']['idle_share']:.4f}; the floor (the same "
+          f"steps with the plain versions in place of the kernels) "
+          f"{floor:.3e} rel L2")
+    launches, captured, dist, control = {}, {}, {}, None
+    for shape in meshes:
+        rt, where = _tp_runtime(shape)
+        layout = tp.tp_layout(params, cfg, rt)
+        m, rows = layout.model_size, len(layout.rows(prompt.shape[0]))
+        keeps = {name: {"calls": set(calls), "args": []}
+                 for name, (_, _, _, calls) in captures.items()}
+
+        def counted(fn, when):
+            restores = [_capture(mod, attr, keeps[name])
+                        for name, (mod, attr, w, _) in captures.items()
+                        if w == when and shape == TP_CONTROL_MESH]
+            try:
+                reset_counts()
+                out = _tp_timed(fn)
+                counts = read_counts()
+            finally:
+                for restore in restores:
+                    restore()
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            return out, counts
+
+        (toks, wall, peak, base), counts = counted(
+            lambda: greedy(layout, rt), "greedy")
+        run = {"where": where, "generate_s": wall, "peak_bytes": peak,
+               "resident_bytes_before": base,
+               "launches": {k: n for k, n in counts.items() if n},
+               **_tp_idle(layout, cfg, rt, prompt)}
+        assert run["launches"] and all(
+            n == n_layers * LM_NEW * m * rows
+            for n in run["launches"].values()), (tag, shape, counts)
+        logits, caches = _tp_forced(layout, cfg, rt, prompt, ref_toks,
+                                    caches=shape == (1, 1))
+        steps = [_tp_rel(a, b, v) for a, b in zip(logits, ref_logits)]
+        delta = max(float((a[:, :v] - b[:, :v]).abs().max())
+                    for a, b in zip(logits, ref_logits))
+        run.update({"prefill_rel_l2": steps[0], "decode_rel_l2": steps[1:],
+                    "max_abs_logit_diff": delta})
+        if long is not None:
+            (last, lwall, lpeak, _), lcounts = counted(
+                lambda: long_prefill(layout, rt), "long")
+            assert lcounts["flash_attn"] == n_layers * m, (shape, lcounts)
+            run.update({"long_prefill_s": lwall, "long_peak_bytes": lpeak,
+                        "long_rel_l2": _tp_rel(last, ref_long, v),
+                        "long_launches": {k: n for k, n in lcounts.items()
+                                          if n}})
+        if shape == (1, 1):
+            same = {"logits": all(torch.equal(a, b) for a, b in zip(
+                        logits, ref_logits)),
+                    "tokens": torch.equal(toks, ref_toks),
+                    "caches": all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves(caches), tree_leaves(ref_caches))),
+                    "long": long is None or torch.equal(last, ref_long)}
+            run["bit_equal"] = same
+            print(f"  tp {tag} {shape} bit-equal to unsharded: {same}")
+            assert all(same.values()), same
+        else:
+            run["tokens"] = _tp_tokens_gate(toks, ref_toks, ref_logits,
+                                            delta, v)
+            dist[shape] = max(steps + ([run["long_rel_l2"]] if long
+                                       is not None else []))
+        if shape == TP_CONTROL_MESH:
+            with _tp_control(n_layers):
+                ctrl, _ = _tp_forced(layout, cfg, rt, prompt, ref_toks)
+            control = max(_tp_rel(a, b, v) for a, b in zip(ctrl, ref_logits))
+            del ctrl
+            for name, keep in keeps.items():
+                captured[name] = keep["args"]
+        rep[str(shape)] = run
+        print(f"  tp {tag} {shape} over {where} [{smi}]: greedy_generate "
+              f"{wall:.3f} s (unsharded {rep['unsharded']['generate_s']:.3f}"
+              f" s), peak {peak / 2**30:.2f} GiB ({base / 2**30:.2f} "
+              f"resident before), idle share {run['idle_share']:.4f} "
+              f"(prefill + one decode step profiled; unsharded "
+              f"{rep['unsharded']['idle_share']:.4f}); launches "
+              f"{run['launches']}; logits rel L2 to unsharded: prefill "
+              f"{steps[0]:.3e}, decode max {max(steps[1:]):.3e}"
+              + (f", 1 x {LONG_PROMPT} prefill {run['long_rel_l2']:.3e} "
+                 f"({run['long_prefill_s']:.3f} s)" if long is not None
+                 else "")
+              + f"; max |logit diff| {delta:.3e}; tokens "
+              f"{run.get('tokens', {}).get('compared', 'all')} compared")
+        del layout, logits, caches
+        torch.cuda.empty_cache()
+    rep.update({"distances": {str(k): d for k, d in dist.items()},
+                "control": control, "limit": limit,
+                "control_floor_geomean": (control * floor) ** 0.5})
+    print(f"  tp {tag}: distances {rep['distances']}, control (the last "
+          f"member's partial left out of the last layer's row sums) "
+          f"{control:.3e}, floor {floor:.3e}, limit {limit:g} (the "
+          f"geometric mean of this control and floor is "
+          f"{rep['control_floor_geomean']:.3e})")
+    assert all(d <= limit for d in dist.values()), rep["distances"]
+    assert control > limit, (control, limit)
+    return rep, launches, captured, ref_toks
+
+
+def _tp_granite(dev, smi, reset_counts, read_counts):
+    """26 (a): granite uncut on TP_MESHES; `moe_experts` (prefill and the
+    first decode step) and `flash_attn` (the long prompt) captured at the
+    last layer's first member on TP_CONTROL_MESH."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels.flash_attn import flash_attention_plain
+    from repro_torch.kernels.moe_experts import moe_expert_ffn_plain
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.init import init_params
+
+    cfg = get_config(LM_ARCH).with_(moe_use_kernel=True)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    prompt = torch.from_numpy(batch_for_step(
+        cfg, 0, global_batch=LM_BATCH, seq_len=LM_PROMPT,
+        seed=17)["tokens"]).to(dev)
+    long = torch.from_numpy(batch_for_step(
+        cfg, 0, global_batch=1, seq_len=LONG_PROMPT, seed=23)["tokens"]
+    ).to(dev)
+    m, last = TP_CONTROL_MESH[1], cfg.n_layers - 1
+    captures = {
+        "moe_experts": (moe_mod, "moe_expert_ffn", "greedy",
+                        (last * m, (cfg.n_layers + last) * m)),
+        "flash_attn": (layers_mod, "flash_attention", "long", (last * m,))}
+    plains = [(moe_mod, "moe_expert_ffn", moe_expert_ffn_plain),
+              (layers_mod, "flash_attention", flash_attention_plain)]
+    rep, launches, captured, fed = _tp_lm(
+        "granite", cfg, params, prompt, long, captures, plains, smi,
+        reset_counts, read_counts, TP_MESHES)
+    del params
+    torch.cuda.empty_cache()
+    rep["float32"] = [_tp_f32("granite", cfg, prompt, fed, plains, n, lim)
+                      for n, lim in TP_F32_CHECKS["granite"]]
+    return rep, launches, captured
+
+
+def _tp_rwkv(dev, smi, reset_counts, read_counts):
+    """26 (b): rwkv6-7b uncut on TP_CONTROL_MESH; `wkv6` captured at the
+    last layer's first member (prefill and the first decode step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels.wkv6 import wkv6_state_plain
+    from repro_torch.models import rwkv6 as rwkv_mod
+    from repro_torch.models.init import init_params
+
+    cfg = get_config(RWKV_ARCH)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    prompt = torch.from_numpy(batch_for_step(
+        cfg, 0, global_batch=LM_BATCH, seq_len=LM_PROMPT,
+        seed=17)["tokens"]).to(dev)
+    m, last = TP_CONTROL_MESH[1], cfg.n_layers - 1
+    captures = {"wkv6": (rwkv_mod, "wkv6_state", "greedy",
+                         (last * m, (cfg.n_layers + last) * m))}
+    plains = [(rwkv_mod, "wkv6_state", wkv6_state_plain)]
+    rep, launches, captured, fed = _tp_lm(
+        "rwkv", cfg, params, prompt, None, captures, plains, smi,
+        reset_counts, read_counts, (TP_CONTROL_MESH,))
+    del params
+    torch.cuda.empty_cache()
+    rep["float32"] = [_tp_f32("rwkv", cfg, prompt, fed, plains, n, lim)
+                      for n, lim in TP_F32_CHECKS["rwkv"]]
+    return rep, launches, captured
+
+
+def _tp_block_runs(cfg, p, inputs, dev):
+    """Jamba's layer 0 with params `p` over `inputs` [(x, positions)]
+    (prefill, then the decode steps): (the unsharded run, the run on
+    TP_CONTROL_MESH through `lm.tp_apply_block`, where its mesh lies, its
+    model size); each run returns its outputs."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import lm
+
+    kind, is_moe = cfg.layer_kinds()[0], cfg.layer_is_moe()[0]
+    rt, where = _tp_runtime(TP_CONTROL_MESH)
+    mesh = rt.lm_mesh
+    m = mesh.shape[tp.RULE_AXIS]
+    row_pos = [mesh.position({tp.RULE_AXIS: k}) for k in range(m)]
+    ps = [tp.member_params(p, k, m, mesh.devices[q])
+          for k, q in enumerate(row_pos)]
+
+    @torch.inference_mode()
+    def unsharded():
+        ys, cache = [], None
+        for h, at in inputs:
+            y, cache, _ = lm.apply_block(p, h, cfg, kind, is_moe,
+                                         positions=at, cache=cache)
+            ys.append(y)
+        return ys
+
+    @torch.inference_mode()
+    def sharded():
+        ys, caches = [], None
+        for h, at in inputs:
+            row = tp.Row(mesh, row_pos, dev)
+            out, caches, _ = lm.tp_apply_block(
+                row, ps, row.put(h), cfg, kind, is_moe,
+                positions=row.put(at), caches=caches)
+            ys.append(row.take(out[0]))
+            row.close()
+        return ys
+
+    return unsharded, sharded, where, m
+
+
+def _tp_update_rel(ys, ref, inputs, d) -> float:
+    """The largest relative L2 distance of a block's update (y - x) from
+    the unsharded run's over the calls."""
+    return max(_tp_rel(a.float() - h.float(), b.float() - h.float(), d)
+               for a, b, (h, _) in zip(ys, ref, inputs))
+
+
+def _tp_jamba(dev, smi, reset_counts, read_counts):
+    """26 (c): Jamba's layer 0 (phase 16's Mamba block with its dense FFN,
+    its weights and inputs) on TP_CONTROL_MESH through
+    `lm.tp_apply_block`: a prefill of MAMBA_BATCH x MAMBA_PROMPT tokens and
+    MAMBA_STEPS decode steps, beside `lm.apply_block`; the update (y - x)
+    of every call held to TP_LIMITS["jamba"], a control beyond it, the
+    floor (the unsharded block with the plain scan) printed; the same
+    block in float32 held to TP_F32_LIMIT; `mamba_scan` captured at the
+    first member (prefill and the first step). Returns (report,
+    launches, captured arguments)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import \
+        mamba_selective_scan_state_plain
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models.init import _Draw, init_block
+    from repro_torch.params import params_to
+
+    cfg = get_config(JAMBA_ARCH)
+    kind, is_moe = cfg.layer_kinds()[0], cfg.layer_is_moe()[0]
+    p = init_block(_Draw(torch.Generator().manual_seed(3), dev), cfg, kind,
+                   is_moe, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(8)
+    d = cfg.d_model
+    x = torch.randn((MAMBA_BATCH, MAMBA_PROMPT, d), device=dev,
+                    generator=g).to(torch.bfloat16)
+    steps = torch.randn((MAMBA_STEPS, MAMBA_BATCH, 1, d), device=dev,
+                        generator=g).to(torch.bfloat16)
+    pos = torch.arange(MAMBA_PROMPT, dtype=torch.int32,
+                       device=dev).expand(MAMBA_BATCH, MAMBA_PROMPT)
+    step_pos = torch.full((MAMBA_BATCH, 1), MAMBA_PROMPT, dtype=torch.int32,
+                          device=dev)
+    inputs = [(x, pos)] + [(s_, step_pos) for s_ in steps]
+    unsharded, sharded, where, m = _tp_block_runs(cfg, p, inputs, dev)
+    ref, wall_ref, peak_ref, _ = _tp_timed(unsharded)
+    with _plain_versions([(mamba_mod, "mamba_selective_scan_state",
+                           mamba_selective_scan_state_plain)]):
+        floor = _tp_update_rel(unsharded(), ref, inputs, d)
+    keep = {"calls": {0, m}, "args": []}
+    restore = _capture(mamba_mod, "mamba_selective_scan_state", keep)
+    try:
+        reset_counts()
+        got, wall, peak, base = _tp_timed(sharded)
+        counts = read_counts()
+    finally:
+        restore()
+    with _tp_control(1):
+        control = _tp_update_rel(sharded(), ref, inputs, d)
+    idle = {}
+    for name, run in (("unsharded", unsharded), ("sharded", sharded)):
+        wall_p, busy, n_act = _profile_idle(run, host=False)
+        idle[name] = {"profiled_wall_s": wall_p, "device_busy_s": busy,
+                      "idle_share": 1 - busy / wall_p,
+                      "device_activities": n_act}
+    assert counts["mamba_scan"] == len(inputs) * m and sum(
+        counts.values()) == counts["mamba_scan"], counts
+    assert all(torch.isfinite(y.float()).all() for y in got)
+    dist = _tp_update_rel(got, ref, inputs, d)
+    del ref, got
+    # the same block in float32 (its first TP_F32_STEPS decode steps)
+    p32 = params_to(p, dtype=torch.float32)
+    in32 = [(h.float(), at) for h, at in inputs[:TP_F32_STEPS + 1]]
+    un32, sh32, _, _ = _tp_block_runs(cfg, p32, in32, dev)
+    ref32 = un32()
+    dist32 = _tp_update_rel(sh32(), ref32, in32, d)
+    with _tp_control(1):
+        control32 = _tp_update_rel(sh32(), ref32, in32, d)
+    rep = {"where": where, "unsharded_s": wall_ref,
+           "unsharded_peak_bytes": peak_ref, "sharded_s": wall,
+           "sharded_peak_bytes": peak, "resident_bytes_before": base,
+           "launches": {k: n for k, n in counts.items() if n},
+           "idle": idle,
+           "distance": dist, "control": control, "floor": floor,
+           "limit": TP_LIMITS["jamba"],
+           "control_floor_geomean": (control * floor) ** 0.5,
+           "float32": {"distance": dist32, "control": control32,
+                       "limit": TP_F32_LIMIT}}
+    print(f"  tp jamba block over {where} [{smi}]: prefill {MAMBA_BATCH} x "
+          f"{MAMBA_PROMPT} + {MAMBA_STEPS} steps {wall:.3f} s (unsharded "
+          f"{wall_ref:.3f} s), peak {peak / 2**30:.2f} GiB (unsharded "
+          f"{peak_ref / 2**30:.2f}), idle share "
+          f"{idle['sharded']['idle_share']:.4f} (unsharded "
+          f"{idle['unsharded']['idle_share']:.4f}); launches "
+          f"{rep['launches']}; the "
+          f"update's rel L2 to unsharded {dist:.3e}, control {control:.3e}, "
+          f"floor (the unsharded block with the plain scan) {floor:.3e}, "
+          f"limit {TP_LIMITS['jamba']:g} (the geometric mean of this "
+          f"control and floor is {rep['control_floor_geomean']:.3e}); "
+          f"float32 (prefill and {TP_F32_STEPS} steps) {dist32:.3e}, "
+          f"control {control32:.3e}, limit {TP_F32_LIMIT:g}")
+    assert dist <= TP_LIMITS["jamba"] < control, rep
+    assert dist32 <= TP_F32_LIMIT < control32, rep["float32"]
+    del p, p32, ref32
+    torch.cuda.empty_cache()
+    return rep, rep["launches"], {"mamba_scan": keep["args"]}
+
+
+def _tp_held(captured, smi) -> dict:
+    """26 (d): each kernel held against its plain version on the arguments
+    captured at its shard shapes, its plan printed, its time (profiler),
+    the plain version's (CUDA events) and the bound."""
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain,
+                                                flash_attention_plan)
+    from repro_torch.kernels.mamba_scan import (
+        mamba_selective_scan_state, mamba_selective_scan_state_plain)
+    from repro_torch.kernels.moe_experts import (moe_expert_ffn,
+                                                 moe_expert_ffn_plain,
+                                                 moe_expert_ffn_plan)
+    from repro_torch.kernels.wkv6 import wkv6_state, wkv6_state_plain
+
+    def timed(name, label, kern, plain, symbols, flops, nbytes, peak):
+        # the profiler can keep none of a kernel's launches (ROADMAP Queue
+        # 2 D.3): CUDA events around back-to-back calls stand beside it
+        ms = kernel_device_ms(kern, symbols)
+        events_ms = time_cuda_batch(kern)
+        plain_ms = time_cuda_batch(plain)
+        bound = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
+        print(f"  {name} [{label}] [{smi}]: kernel {_ms(ms)} (profiler), "
+              f"{events_ms:.4f} ms (CUDA events over 10 back-to-back "
+              f"calls), plain {plain_ms:.4f} ms, bound {bound * 1e3:.3f} us")
+        return {"label": label, "ms": ms, "events_ms": events_ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "operations"
+                if flops / peak >= nbytes / PEAK_BYTES else "bytes"}
+
+    out: dict = {}
+    with torch.inference_mode():
+        for (args, _), phase in zip(captured["moe_experts"],
+                                    ("prefill", "decode step 1")):
+            b, e, c, d = args[0].shape
+            f = args[2].shape[1]
+            label = (f"granite {phase}, last layer, member 0: B {b} E {e} "
+                     f"C {c} D {d} F {f}")
+            got, want = moe_expert_ffn(*args), moe_expert_ffn_plain(*args)
+            excess = _bf16_excess(got, want)
+            plan = moe_expert_ffn_plan(*args)
+            print(f"  moe_experts [{label}]: max abs err "
+                  f"{float((got.float() - want.float()).abs().max()):.3e}, "
+                  f"excess over one bf16 ulp + f32 bound {excess:.3e}; "
+                  f"{_moe_tiling(plan)}")
+            assert torch.isfinite(got.float()).all() and excess <= 0, excess
+            out.setdefault("moe_experts", []).append(dict(
+                excess=excess, plan=plan, **timed(
+                    "moe_experts", label, lambda: moe_expert_ffn(*args),
+                    lambda: moe_expert_ffn_plain(*args), MOE_KERNELS,
+                    *_moe_work(b, e, c, d, f, 2), PEAK_BF16_FLOPS)))
+        (q, k, v), kw = captured["flash_attn"][0]
+        b, t, h, d = q.shape
+        label = (f"granite 1 x {t} prefill, last layer, member 0: H {h} KV "
+                 f"{k.shape[2]} D {d}")
+        plan = flash_attention_plan(q, k, v)
+        print(f"  flash_attn plan [{label}]: {plan}")
+        out["flash_attn"] = [dict(plan=plan, **_held_f64(
+            "flash_attn", label, flash_attention(q, k, v, **kw),
+            flash_attention_plain(q, k, v, **kw), _flash_f64(q, k, v, **kw),
+            FLASH_TOL), **timed(
+            "flash_attn", label, lambda: flash_attention(q, k, v, **kw),
+            lambda: flash_attention_plain(q, k, v, **kw), FLASH_KERNELS,
+            *_flash_work(b, t, t, h, k.shape[2], d, 2, **kw),
+            PEAK_BF16_FLOPS))]
+        for (args, kw), phase in zip(captured["wkv6"],
+                                     ("prefill", "decode step 1")):
+            r = args[0]
+            b, t, h, kd = r.shape
+            label = (f"rwkv6-7b {phase}, last layer, member 0: B {b} T {t} "
+                     f"H {h} K {kd}")
+            plan = _print_wkv_plan(label, (b, t, h, kd, args[2].shape[-1]),
+                                   r.dtype)
+            got, want = wkv6_state(*args, **kw), wkv6_state_plain(*args, **kw)
+            ref = _wkv6_f64(*args, **kw)
+            held = {"o": _held_f64("wkv6", f"{label}: o", got[0], want[0],
+                                   ref[0], SCAN_TOL),
+                    "state": _held_f64("wkv6", f"{label}: state", got[1],
+                                       want[1], ref[1], SCAN_TOL)}
+            out.setdefault("wkv6", []).append(dict(
+                plan=plan, held=held, **timed(
+                    "wkv6", label, lambda: wkv6_state(*args, **kw),
+                    lambda: wkv6_state_plain(*args, **kw), "wkv6_kernel",
+                    *_wkv_work(b, t, h, kd, args[2].shape[-1], 2,
+                               state=args[-1] is not None),
+                    PEAK_F32_FLOPS)))
+        for (args, kw), phase in zip(captured["mamba_scan"],
+                                     ("prefill", "decode step 1")):
+            dt = args[0]
+            bsz, t, din = dt.shape
+            n = args[2].shape[-1]
+            label = (f"Jamba block {phase}, member 0: B {bsz} T {t} Din "
+                     f"{din} N {n}")
+            plan = _print_mamba_plan(label, (bsz, t, din, n), dt.dtype)
+            got = mamba_selective_scan_state(*args, **kw)
+            want = mamba_selective_scan_state_plain(*args, **kw)
+            ref = _mamba_f64(*args, **kw)
+            held = {"y": _held_f64("mamba_scan", f"{label}: y", got[0],
+                                   want[0], ref[0], SCAN_TOL),
+                    "state": _held_f64("mamba_scan", f"{label}: state",
+                                       got[1], want[1], ref[1], SCAN_TOL)}
+            out.setdefault("mamba_scan", []).append(dict(
+                plan=plan, held=held, **timed(
+                    "mamba_scan", label,
+                    lambda: mamba_selective_scan_state(*args, **kw),
+                    lambda: mamba_selective_scan_state_plain(*args, **kw),
+                    "mamba_scan_kernel",
+                    *_mamba_work(bsz, t, din, n, dt.element_size(),
+                                 state=args[-1] is not None),
+                    PEAK_F32_FLOPS)))
+    torch.cuda.synchronize()
+    return out
+
+
+def tp_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
+    """Phase 26: tensor-parallel serving, (a)-(d) above; each part prints
+    its seconds. Returns (report, the kernel launches of the TP runs)."""
+    rep, clock, launches, captured = {"card": smi}, PhaseClock(), {}, {}
+    for key, part, title in (
+            ("granite", _tp_granite, "26 (a) granite tensor-parallel"),
+            ("rwkv", _tp_rwkv, "26 (b) rwkv6-7b tensor-parallel"),
+            ("jamba", _tp_jamba, "26 (c) Jamba's Mamba block "
+             "tensor-parallel")):
+        rep[key], counts, kept = part(dev, smi, reset_counts, read_counts)
+        captured.update(kept)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        clock(title)
+    rep["held_at_shard_shapes"] = _tp_held(captured, smi)
+    del captured
+    torch.cuda.empty_cache()
+    clock("26 (d) the kernels at their shard shapes")
+    rep["launches"], rep["seconds"] = launches, clock.seconds
+    return rep, {k: n for k, n in launches.items() if n}
+
 
 def record(name, worst, ms, ms_source, call_ms, plain_ms, label, flops,
            nbytes, err_bound=None, library_ms=None,

@@ -15,8 +15,12 @@ stream. Axis roles, as in the JAX package:
   pod    — data parallelism across pods;
   data   — data parallelism for the batch and storage sharding (FSDP) of
            the params and their optimizer state;
-  model  — in the JAX package tensor parallelism; here storage sharding
-           only (the port's compute over `model` is not written yet).
+  model  — tensor parallelism: serving (`lm.prefill` / `decode_step` /
+           `serve.step` with a runtime) computes each layer's shard of
+           heads, hidden units, Mamba channels and vocabulary on the
+           members of a model row (`distributed.tensor_parallel`); the LM
+           train step still shards only storage over it (its compute stays
+           data-parallel until ROADMAP item 6 part 4b(ii)).
 `_PARAM_RULES` / `param_spec` give each param path its `P` spec (the JAX
 package's rules, right-aligned to the leaf's rank, so the stacked group
 axis is replicated); `param_shardings` turns them into `NamedSharding`s,
@@ -43,12 +47,13 @@ each member's stream waits for the caller's before its work, and the
 caller's stream waits for all of them once every member is launched.
 
 `Runtime` carries either mesh: a tile mesh into `ScoringEngine(runtime=
-...)` and the search server, an LM mesh (with its `batch_axes`) into
-`train.step.build_train_step`.
+...)` and the search server, an LM mesh (with its `batch_axes` and
+`tp_axis`) into `train.step.build_train_step` and the serving steps.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import re
 from contextlib import contextmanager
@@ -415,10 +420,13 @@ class NamedSharding:
 @dataclass
 class Runtime:
     """Mesh + axis roles threaded through the engine, the search server
-    and the LM train step; `mesh=None` keeps every path single-device.
-    `batch_axes` is read with an `LMMesh` only."""
+    and the LM steps; `mesh=None` keeps every path single-device.
+    `batch_axes` and `tp_axis` are read with an `LMMesh` only; serving
+    takes `tp_axis` "model" only, the axis `_PARAM_RULES` cut by
+    (`tensor_parallel.tp_layout` raises ValueError on another)."""
     mesh: TileMesh | LMMesh | None = None
     batch_axes: tuple = ("data",)            # ('pod','data') when multi-pod
+    tp_axis: str = "model"
 
     @property
     def n_devices(self) -> int:
@@ -472,3 +480,12 @@ def resolve_spec(rt: Runtime, shape, *spec) -> P:
         size = math.prod(rt.mesh.shape[a] for a in _axes(axes))
         resolved.append(axes if (dim % size == 0 and dim >= size) else None)
     return P(*resolved)
+
+
+def replica_positions(mesh: LMMesh, batch_axes) -> list[int]:
+    """The mesh position of each data-parallel replica: the first device
+    of each coordinate of `batch_axes`, row-major (the order in which
+    the batch dim is split over those axes)."""
+    ranges = [range(mesh.shape[a]) for a in batch_axes]
+    return [mesh.position(dict(zip(batch_axes, c)))
+            for c in itertools.product(*ranges)]

@@ -63,13 +63,16 @@ def swiglu_mlp(p, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- attention
 
 def _qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """q, k, v [B, T, heads, hd]. The head counts come from the weights'
+    widths, so a tensor-parallel member's slice of whole heads (and whole
+    GQA groups) runs unchanged; `_out_proj` then gives its partial sum."""
     b, t, _ = x.shape
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["wq_b"], k + p["wk_b"], v + p["wv_b"]
-    q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    q = q.reshape(b, t, -1, cfg.head_dim)
+    k = k.reshape(b, t, -1, cfg.head_dim)
+    v = v.reshape(b, t, -1, cfg.head_dim)
     if cfg.rope_theta is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)

@@ -40,17 +40,23 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b, xp[:, -(k - 1):, :]
 
 
-def mamba_block(p, x: torch.Tensor, cfg, *, state=None):
-    """x [B,T,D]. state None (prefill) or {"conv": [B,K-1,Din], "ssm":
-    [B,Din,N]} (decode). Returns (y, new_state)."""
-    n = cfg.mamba_d_state
+def mamba_in(p, x: torch.Tensor, cfg, *, state=None):
+    """The block up to `x_proj`: (xin, z, new conv state, proj [B,T,
+    R+2N]). On a tensor-parallel member p holds its channels ([x_k | z_k]
+    of `in_proj`, its rows of `x_proj`), so proj is its partial sum: the
+    row sums it before `mamba_out`."""
     xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)            # [B,T,Din] each
-
     conv_state = state["conv"] if state is not None else None
     xin, new_conv = _causal_conv(xin, p["conv_w"], p["conv_b"], conv_state)
     xin = silu(xin)
+    return xin, z, new_conv, xin @ p["x_proj"]
 
-    proj = xin @ p["x_proj"]                                # [B,T,R+2N]
+
+def mamba_out(p, xin, z, new_conv, proj, cfg, *, state=None):
+    """The block from the whole `proj` on: the scan over xin's channels,
+    the gate and `out_proj` (a member's partial sum). Returns (y,
+    new_state)."""
+    n = cfg.mamba_d_state
     dt_low, b_mat, c_mat = torch.split(proj, [cfg.dt_rank, n, n], dim=-1)
     pre = dt_low @ p["dt_proj"] + p["dt_bias"]
     dt = torch.logaddexp(pre, torch.zeros_like(pre))        # jax softplus
@@ -59,6 +65,13 @@ def mamba_block(p, x: torch.Tensor, cfg, *, state=None):
     y, h_final = mamba_selective_scan_state(
         dt.float(), xin.float(), b_mat.float().contiguous(),
         c_mat.float().contiguous(), a, p["d"], h0)          # y holds D * x
-    y = y.to(x.dtype) * silu(z)
+    y = y.to(z.dtype) * silu(z)
     out = y @ p["out_proj"]
-    return out, {"conv": new_conv.to(x.dtype), "ssm": h_final}
+    return out, {"conv": new_conv.to(z.dtype), "ssm": h_final}
+
+
+def mamba_block(p, x: torch.Tensor, cfg, *, state=None):
+    """x [B,T,D]. state None (prefill) or {"conv": [B,K-1,Din], "ssm":
+    [B,Din,N]} (decode). Returns (y, new_state)."""
+    xin, z, new_conv, proj = mamba_in(p, x, cfg, state=state)
+    return mamba_out(p, xin, z, new_conv, proj, cfg, state=state)

@@ -9,6 +9,17 @@ every mamba layer `csrc/mamba_scan.cu` once per step; prompts of 2048
 tokens or more run `csrc/flash_attn.cu` once per (decoder) attention layer
 in prefill. The enc-dec steps (seamless) take the encoder's frames in
 prefill and its output in decode, as the JAX package's do.
+
+Each `build_*_step` takes a runtime, as the JAX package's do (`rt`,
+default None). On an LM mesh a decoder serves tensor-parallel over the mesh's
+`model` axis and data-parallel over its `rt.batch_axes`
+(`distributed.tensor_parallel`), each member of a model row launching its
+shard's kernels on its own stream: the steps take whole params, sharded
+params or a `tensor_parallel.tp_layout` of them (build it once to serve
+many calls without slicing again), and their cache is a
+`tensor_parallel.TPCache`. An enc-dec model on an LM mesh raises
+NotImplementedError. With `rt` None, or a runtime whose mesh is not an LM
+mesh, every step runs the single-device path.
 """
 
 from __future__ import annotations
@@ -17,15 +28,22 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.params import params_to
 
 
-def build_prefill_step(cfg: ModelConfig):
+def _no_enc_dec_mesh(cfg: ModelConfig, rt) -> None:
+    if cfg.is_enc_dec and rt is not None and rt.lm_mesh is not None:
+        raise NotImplementedError(tp.ENC_DEC_TODO)
+
+
+def build_prefill_step(cfg: ModelConfig, rt=None):
     """step(params, tokens, embeds=None, cache_len=None) -> (last_logits,
     caches, cache_pos); for enc-dec step(params, frames, tokens,
     cache_len=None) -> (last_logits, enc_out, caches, cache_pos)."""
+    _no_enc_dec_mesh(cfg, rt)
     if cfg.is_enc_dec:
         @torch.inference_mode()
         def encdec_step(params, frames, tokens, cache_len=None):
@@ -36,14 +54,15 @@ def build_prefill_step(cfg: ModelConfig):
     @torch.inference_mode()
     def step(params, tokens, embeds=None, cache_len=None):
         return lm.prefill(params, cfg, tokens, embeds=embeds,
-                          cache_len=cache_len)
+                          cache_len=cache_len, rt=rt)
     return step
 
 
-def build_decode_step(cfg: ModelConfig):
+def build_decode_step(cfg: ModelConfig, rt=None):
     """step(params, token, caches, cache_pos) -> (logits, caches,
     cache_pos); for enc-dec step(params, token, enc_out, caches,
     cache_pos)."""
+    _no_enc_dec_mesh(cfg, rt)
     if cfg.is_enc_dec:
         @torch.inference_mode()
         def encdec_step(params, token, enc_out, caches, cache_pos):
@@ -53,28 +72,40 @@ def build_decode_step(cfg: ModelConfig):
 
     @torch.inference_mode()
     def step(params, token, caches, cache_pos):
-        return lm.decode_step(params, cfg, token, caches, cache_pos)
+        return lm.decode_step(params, cfg, token, caches, cache_pos, rt=rt)
     return step
 
 
 def greedy_generate(params, cfg: ModelConfig, prompt, *, max_new: int = 16,
-                    embeds=None, device=None) -> torch.Tensor:
+                    embeds=None, device=None, rt=None) -> torch.Tensor:
     """Greedy decoding of `max_new` tokens after `prompt` [B, S] (tensor or
     array): prefill, then `max_new - 1` decode steps against a cache of the
     prompt's length, as the JAX package's host loop. Runs on `device`
     (None = the card; raises without CUDA unless "cpu"); params and inputs
-    are moved there (a no-op for tensors already there). Returns [B,
-    max_new] int32 token ids. Enc-dec models raise NotImplementedError,
-    as in the JAX package: their steps are driven directly."""
+    are moved there (a no-op for tensors already there). On an LM mesh
+    (`rt`) it runs on the mesh's devices (a `device` of another kind
+    raises ValueError) and builds the `tp_layout` once a call, unless
+    `params` is one already. The argmax runs on the whole logits. Returns
+    [B, max_new] int32 token ids. Enc-dec models raise
+    NotImplementedError, as in the JAX package: their steps are driven
+    directly."""
     if cfg.is_enc_dec:
         raise NotImplementedError("use encdec steps directly")
-    dev = resolve_device(device)
-    params = params_to(params, dev)
+    mesh = None if rt is None else rt.lm_mesh
+    if mesh is None:
+        dev = resolve_device(device)
+        params = params_to(params, dev)
+    else:
+        dev = mesh.devices[0]
+        if device is not None and resolve_device(device).type != dev.type:
+            raise ValueError(f"greedy_generate on a mesh of {dev.type} "
+                             f"devices was asked for {device}")
+        params = tp.serving_layout(params, cfg, rt)
     prompt = torch.as_tensor(np.asarray(prompt) if not isinstance(
         prompt, torch.Tensor) else prompt).to(dev)
     if embeds is not None:
         embeds = torch.as_tensor(embeds).to(dev)
-    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    prefill, decode = build_prefill_step(cfg, rt), build_decode_step(cfg, rt)
     last, caches, pos = prefill(params, prompt, embeds)
     toks = [torch.argmax(last, -1)]
     for _ in range(max_new - 1):

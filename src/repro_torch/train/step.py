@@ -29,8 +29,9 @@ aux term is formed once over all of them before one backward through
 every replica's graph; other models run each replica's backward as soon
 as its forward ends. A batch that the replicas cannot split evenly (B %
 n_dp, or B < n_dp) runs as one replica, as the JAX guard drops the axis.
-The `model` axis shards storage only: tensor-parallel compute over it is
-not written yet.
+The `model` axis shards storage only: training stays data-parallel
+until ROADMAP item 6 part 4b(ii) (serving already computes over it,
+`distributed.tensor_parallel`).
 
 No path selection happens in the SimGNN step: packing, bucketing and the
 choice of executor live in the engine, for training as for serving
@@ -39,14 +40,14 @@ choice of executor live in the engine, for training as for serving
 
 from __future__ import annotations
 
-import itertools
 from typing import Callable
 
 import torch
 
 from repro_torch.distributed import placement
 from repro_torch.distributed.compression import int8_compress_tree
-from repro_torch.distributed.sharding import LMMesh, Runtime, StreamFan
+from repro_torch.distributed.sharding import (LMMesh, Runtime, StreamFan,
+                                             replica_positions)
 from repro_torch.models import encdec, lm, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.params import tree_leaves, tree_map
@@ -140,15 +141,6 @@ def constrain_grads(grads, params):
     `constrain_grads`): a sharded param's gradient is cut into the same
     blocks, a whole param's stays whole."""
     return placement.shard_tree(grads, placement.tree_shardings(params))
-
-
-def replica_positions(mesh: LMMesh, batch_axes) -> list[int]:
-    """The mesh position of each data-parallel replica: the first device
-    of each coordinate of `batch_axes`, row-major (the order in which
-    the batch dim is split over those axes)."""
-    ranges = [range(mesh.shape[a]) for a in batch_axes]
-    return [mesh.position(dict(zip(batch_axes, c)))
-            for c in itertools.product(*ranges)]
 
 
 def _data_parallel_value_and_grad(params, cfg: ModelConfig, batch,

@@ -2116,3 +2116,150 @@ def test_gpipe_on_the_card_is_the_stages_in_order_on_one_stream(cuda,
     piped = _pipe_run(family, "cuda:0")
     in_order = _pipe_run(family, "cuda:0", in_order=True)
     assert all(torch.equal(a, b) for a, b in zip(piped, in_order))
+
+
+# -------------- tensor-parallel serving (distributed/tensor_parallel.py)
+#
+# Reduced float32 granite (the expert kernel; a 2048-token prompt, so the
+# flash kernel runs in prefill), rwkv6 (wkv6) and the Jamba hybrid
+# (mamba_scan and the expert kernel) served on a (1, 2) mesh of logical
+# devices over the card, each member launching its shard's kernels on its
+# own stream: the greedy tokens equal to the same mesh's on logical CPU
+# devices (the plain versions), the logits of a prefill and 4 decode steps
+# fed those tokens and the assembled caches within TP_ATOL (the float32
+# card-against-CPU bound of chip_smoke's 2-layer models); two runs
+# bit-equal, and a (1, 1) mesh bit-equal to unsharded serving on the card.
+# Then each of the four kernels at the shard shapes chip_smoke's phase 26
+# gives them on (1, 4) against its plain version.
+
+TP_FAMILIES = (("granite-moe-3b-a800m", {"moe_use_kernel": True}, 2048),
+               ("rwkv6-7b", {}, 16),
+               ("jamba-1.5-large-398b", {"moe_use_kernel": True}, 64))
+TP_ATOL = 1e-4
+TP_NEW = 5
+TP_WRAPPERS = {"moe_experts": moe_expert_ffn, "flash_attn": flash_attention,
+               "wkv6": wkv6_state, "mamba_scan": mamba_selective_scan_state}
+
+
+def _tp_expected(cfg, prompt_len, m) -> dict:
+    """Launches of a greedy_generate of TP_NEW tokens on one row of m."""
+    kinds = cfg.layer_kinds() * cfg.n_groups
+    moes = cfg.layer_is_moe() * cfg.n_groups
+    attn = sum(k in ("attn", "attn_local") for k in kinds)
+    return {"moe_experts": TP_NEW * m * sum(moes) if cfg.moe_use_kernel
+            else 0,
+            "flash_attn": m * attn if prompt_len >= 2048 else 0,
+            "wkv6": TP_NEW * m * kinds.count("rwkv"),
+            "mamba_scan": TP_NEW * m * kinds.count("mamba")}
+
+
+def _tp_card_run(arch, kw, prompt_len, device, shape=(1, 2), tokens=None):
+    """Reduced float32 `arch` served on a `shape` mesh over `device`
+    (logical devices on a one-card machine; None: unsharded): (greedy
+    tokens, the launches of that greedy_generate, [logits of a prefill
+    and TP_NEW - 1 decode steps fed `tokens` (default: its own)], the
+    caches' leaves assembled whole), all on the CPU."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.mesh import mesh_runtime
+    from repro_torch.params import tree_leaves
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+
+    cfg = reduced_config(arch).with_(**kw)
+    host = init_lm_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, prompt_len)).astype(np.int32)).to(device)
+    rt = None if shape is None else mesh_runtime(
+        "x".join(map(str, shape)), torch.device(device))[0]
+    params = params_to(host, device) if rt is None else tp.tp_layout(
+        host, cfg, rt)
+    before = {k: w.launches for k, w in TP_WRAPPERS.items()}
+    toks = greedy_generate(params, cfg, prompt, max_new=TP_NEW,
+                           device=device, rt=rt)
+    launched = {k: w.launches - before[k] for k, w in TP_WRAPPERS.items()}
+    tokens = toks if tokens is None else tokens.to(device)
+    prefill, decode = build_prefill_step(cfg, rt), build_decode_step(cfg, rt)
+    last, cache, pos = prefill(params, prompt)
+    logits = [last]
+    for t in range(TP_NEW - 1):
+        last, cache, pos = decode(params, tokens[:, t:t + 1], cache, pos)
+        logits.append(last)
+    whole = cache if rt is None else tp.gather_caches(cache)
+    return (toks.cpu(), launched, [x.cpu() for x in logits],
+            [x.cpu() for x in tree_leaves(whole)])
+
+
+@pytest.mark.parametrize("arch,kw,prompt_len", TP_FAMILIES,
+                         ids=[f[0] for f in TP_FAMILIES])
+def test_tp_serving_on_the_card_matches_the_cpu(cuda, arch, kw, prompt_len):
+    toks, launched, logits, caches = _tp_card_run(arch, kw, prompt_len,
+                                                  "cuda:0")
+    cfg = reduced_config(arch).with_(**kw)
+    assert launched == _tp_expected(cfg, prompt_len, 2), launched
+    assert any(launched.values())
+    h_toks, h_launched, h_logits, h_caches = _tp_card_run(
+        arch, kw, prompt_len, "cpu", tokens=toks)
+    assert not any(h_launched.values())
+    np.testing.assert_array_equal(toks.numpy(), h_toks.numpy())
+    for a, b in zip(logits, h_logits):
+        torch.testing.assert_close(a, b, rtol=0, atol=TP_ATOL)
+    for a, b in zip(caches, h_caches):
+        if a.dtype == torch.int32:                     # the pos planes
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=TP_ATOL)
+
+
+@pytest.mark.parametrize("arch,kw,prompt_len", TP_FAMILIES,
+                         ids=[f[0] for f in TP_FAMILIES])
+def test_tp_serving_on_the_card_repeats_and_one_member_is_unsharded(
+        cuda, arch, kw, prompt_len):
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(x, y) for x, y in zip(a[2] + a[3], b[2] + b[3]))
+
+    first = _tp_card_run(arch, kw, prompt_len, "cuda:0")
+    assert same(_tp_card_run(arch, kw, prompt_len, "cuda:0"), first)
+    one = _tp_card_run(arch, kw, prompt_len, "cuda:0", shape=(1, 1))
+    assert same(one, _tp_card_run(arch, kw, prompt_len, "cuda:0",
+                                  shape=None))
+
+
+@pytest.mark.parametrize("kernel", ("moe_prefill", "moe_decode", "flash",
+                                    "wkv6_prefill", "wkv6_decode",
+                                    "mamba_prefill", "mamba_decode"))
+def test_kernels_at_tensor_parallel_shard_shapes_match_plain(cuda, kernel):
+    """granite's experts at F 512 / 4 (C 129 for 512-token prompts, C 8 in
+    decode) and its attention at 24 / 4 q and 8 / 4 kv heads, rwkv6-7b's
+    64 / 4 heads, Jamba's 16384 / 4 Mamba channels; bf16, as served."""
+    bf16 = torch.bfloat16
+    if kernel.startswith("moe"):
+        c = 129 if kernel == "moe_prefill" else 8
+        x, w_in, w_out = _moe_inputs(cuda, 4, 40, c, 1536, 128, bf16)
+        got = moe_expert_ffn(x, w_in, w_out)
+        want = moe_expert_ffn_plain(x, w_in, w_out)
+        assert moe_expert_ffn_plan(x, w_in, w_out)["path"] == "wgmma"
+        assert _excess(got, want, BODY_TOL) <= 0
+    elif kernel == "flash":
+        g = torch.Generator(device=cuda).manual_seed(3)
+        q = _randn(g, (1, 2048, 6, 64), cuda).to(bf16)
+        k, v = (_randn(g, (1, 2048, 2, 64), cuda).to(bf16) for _ in range(2))
+        got, want = flash_attention(q, k, v), flash_attention_plain(q, k, v)
+        assert _excess(got, want, FLASH_TOL) <= 0
+    elif kernel.startswith("wkv6"):
+        t = 512 if kernel == "wkv6_prefill" else 1
+        r, k, v, w, u, s0 = _wkv_inputs(cuda, 4, t, 16, 64, 64, bf16)
+        init = None if t > 1 else s0
+        got, want = (wkv6_state(r, k, v, w, u, init),
+                     wkv6_state_plain(r, k, v, w, u, init))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **SCAN_TOL)
+    else:
+        t = 2048 if kernel == "mamba_prefill" else 1
+        dt, x, b, c, a, d, h0 = _mamba_inputs(cuda, 2, t, 4096, 16, bf16)
+        init = None if t > 1 else h0
+        got = mamba_selective_scan_state(dt, x, b, c, a, d, init)
+        want = mamba_selective_scan_state_plain(dt, x, b, c, a, d, init)
+        for a_, b_ in zip(got, want):
+            torch.testing.assert_close(a_, b_, **SCAN_TOL)
+    torch.cuda.synchronize()
