@@ -109,8 +109,17 @@ unsharded serving: (1, 1) bit-equal, the other meshes' logits within
 TP_LIMITS and a dropped-partial control beyond them, float32 models at
 full width (rwkv6-7b also at full depth) within TP_F32_CHECKS, the four
 LM kernels held against their plain versions at the shard shapes; wall, peak memory and idle share
-printed per mesh. Phases 4-7 pin `planner="threshold"`. Every failed
-check exits non-zero.
+printed per mesh. Phase 27 trains tensor-parallel over `model`: granite
+at full width and depth, the mesh train step's value-and-grad (each
+replica's `lm_loss` with remat on its model row) on (1, 4), (2, 2) and
+(1, 1) beside unsharded ((1, 1) bit-equal, the loss and
+the gradient tree within TPT_LIMITS, a dropped-partial control beyond
+them), one float32 `build_train_step` step of granite, rwkv6-7b and
+Jamba's layer 0 at full width on (1, 4) and (2, 2) within
+TPT_F32_LIMITS (rwkv6-7b's gradients also in float64), the four LM
+kernels held at the training shard shapes; wall, peak memory, idle
+share and the kernels with the most device time printed per mesh.
+Phases 4-7 pin `planner="threshold"`. Every failed check exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -171,6 +180,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -423,6 +433,81 @@ TP_LIMITS = {"granite": 3.3e-2, "rwkv": 6.6e-2, "jamba": 4.1e-2}
 TP_F32_STEPS, TP_F32_LIMIT = 3, 1e-4
 TP_F32_CHECKS = {"granite": ((4, TP_F32_LIMIT),),
                  "rwkv": ((4, TP_F32_LIMIT), (32, 1.7e-2))}
+#: phase 27: tensor-parallel training (`lm.lm_loss` with a runtime and the
+#: mesh `build_train_step` over `model`) over logical devices of cuda:0
+#: (the first cards where the machine has them). (a) granite (LM_ARCH)
+#: uncut in bf16 with `moe_use_kernel`: the mesh train step's
+#: value-and-grad (`train.step._mesh_value_and_grad`: the batch split over
+#: the replicas, each replica's `lm_loss` with remat on its model row) on
+#: TPT_MESHES at (replicas) x TPT_TOKENS tokens (seed 29), each
+#: beside the unsharded value_and_grad of the same batch: (1, 1) bit-equal
+#: in the loss and every gradient; on the other meshes the loss's relative
+#: error and the whole gradient tree's relative L2 within TPT_LIMITS; a
+#: control on TPT_CONTROL_MESH (the last member's partial left out of the
+#: last layer's row sums, in the forward and in its remat recompute)
+#: beyond each limit, and the floor (unsharded with the plain versions in
+#: place of the kernels) printed beside them; the last layer's
+#: `moe_experts` and `flash_attn` calls of member 0 on TPT_CONTROL_MESH
+#: held against their plain versions (`_pipe_held`). Each mesh's wall,
+#: peak memory, idle share (busy the union over streams, device rows
+#: only), its TPT_TOP kernels by device time and the device ms of
+#: TPT_CLASSES are printed. (b) TPT_F32 (tag, arch, layers, batch,
+#: tokens): one float32 `build_train_step` step at full width on (2, 2)
+#: against the data-parallel (2, 1) and on (1, 4) against unsharded: the
+#: loss, the grad norm and the update (new params - old) within
+#: TPT_F32_LIMITS relative (L2 for the update), the control on (1, 4)
+#: beyond them, the floor printed beside them; rwkv6-7b's value_and_grad
+#: also in float64 (`_tpt_f64`, TPT_F32_LIMIT); rwkv6-7b and Jamba's
+#: layer 0 at 256 tokens (the plain scan
+#: backwards the kernels train with grow with T: ROADMAP Queue 2 B.6),
+#: granite at 2048 (flash attention runs from CHUNK_THRESHOLD 2048 on);
+#: Jamba's layer 0 is its Mamba block (d_inner 16384) with the dense
+#: FFN at its 65536-id vocabulary (the whole float32 params and the
+#: reference's update wait on the host, so that the card holds the mesh
+#: step's copies). `wkv6` (H 16) and `mamba_scan` (Din 4096) are held
+#: at the captured shard shapes against their plain versions.
+TPT_MESHES = ((1, 4), (2, 2), (1, 1))
+TPT_CONTROL_MESH = (1, 4)
+TPT_TOKENS = 2048
+#: the loss's relative error and the gradient tree's relative L2: each
+#: the geometric mean of the control's reading and the floor's on an H100
+#: at 700 W (PERF.md §6: loss 1.423e-3 and 3.721e-5, grads 7.724e-2 and
+#: 3.850e-3), as phase 26 sets TP_LIMITS
+TPT_LIMITS = {"loss": 2.3e-4, "grads": 1.7e-2}
+TPT_TOP = 6
+#: kernel names of (c)'s question: which grows under a model row, the
+#: redundant routing and dispatch or the gather backward
+TPT_CLASSES = {
+    "routing and dispatch": r"RadixSort|radix|[Ss]ort|scan_innermost|"
+                            r"scan_outer|_scatter_gather_elementwise|"
+                            r"index_elementwise",
+    "gather backward": r"indexing_backward|index_put|embedding_backward|"
+                       r"scatter_add"}
+TPT_F32 = (("granite", LM_ARCH, 4, 2, 2048), ("rwkv", RWKV_ARCH, 4, 2, 256),
+           ("jamba", JAMBA_ARCH, 1, 2, 256))
+TPT_F32_LIMIT = 1e-4
+#: each family's limits on the (loss, grad norm, update) relative
+#: distances: TPT_F32_LIMIT where it parts the floor (two valid float32
+#: runs: the unsharded step with the plain versions against the kernels')
+#: from the control; elsewhere the geometric mean of the largest sound
+#: tensor-parallel reading ((1, 4) or (2, 2)) and the control's on an
+#: H100 at 700 W (PERF.md §6), the same room on both sides: rwkv6-7b's
+#: grad norm ((1, 4) 1.896e-3, control 1.203e-1: 8x each side) and update
+#: (7.051e-3, 6.231e-1: 9x), whose float32 gradients at random init are
+#: ill-conditioned (the unsharded float32 gradient tree is 1.55e-3 from
+#: float64; `_tpt_f64` holds its float64 gradients to TPT_F32_LIMIT), and
+#: Jamba's update ((1, 4) 1.533e-4, control 1.083: 84x): the first AdamW
+#: step divides by |g| + eps, which magnifies the rounding of gradients
+#: near eps
+TPT_F32_LIMITS = {
+    "granite": dict.fromkeys(("loss", "grad_norm", "update"), TPT_F32_LIMIT),
+    "rwkv": {"loss": TPT_F32_LIMIT, "grad_norm": 1.5e-2, "update": 6.6e-2},
+    "jamba": {"loss": TPT_F32_LIMIT, "grad_norm": TPT_F32_LIMIT,
+              "update": 1.3e-2}}
+#: the tokens of `_tpt_f64`'s float64 run (the plain scan's loops grow
+#: with T; float64 holds the arithmetic at any T: 2.950e-6 at 256 tokens
+#: in `tools/tp_train_conditioning.py`, 4.732e-6 at 64 here)
+TPT_F64_TOKENS = 64
 #: the backward rules' `torch.autograd.Function`s whose forward inputs a
 #: card training step captures (both edge-list rules share one class, as
 #: both packed-CSR rules do)
@@ -941,6 +1026,15 @@ def main() -> int:
         kernels[name]["tp_shard_shapes"] = report["tensor_parallel"][
             "held_at_shard_shapes"][name]
     phase("26 tensor-parallel serving")
+
+    # ---- phase 27: tensor-parallel training ---------------------------
+    torch.cuda.empty_cache()
+    report["tp_train"], counts = tp_train_phase(dev, smi, reset_counts,
+                                                read_counts)
+    for name, n in counts.items():
+        served[name] += n
+        kernels[name]["tp_train_phase_launches"] = n
+    phase("27 tensor-parallel training")
     report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
@@ -954,7 +1048,8 @@ def main() -> int:
     line = {"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan_route",
-        "bit_identical", "tp_phase_launches") if key in k}
+        "bit_identical", "tp_phase_launches", "tp_train_phase_launches")
+        if key in k}
         for k in kernels.values()]}
     report["kernels"] = list(kernels.values())
     out_dir = ROOT / "chiprun_out"
@@ -1267,13 +1362,16 @@ def _profile_idle(fn, host: bool = True,
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    # the kineto records themselves: `prof.events()` builds a Python
+    # event tree first, seconds for the tens of thousands of a train step
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    spans = sorted((e.start_ns(), e.end_ns()) for e in device)
     if by_name is not None:
         for e in device:
-            by_name[e.name] = by_name.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3
-    busy, end = 0.0, None
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + (
+                e.end_ns() - e.start_ns()) / 1e6
+    busy, end = 0, None
     for lo, hi in spans:
         if end is None or lo > end:
             busy += hi - lo
@@ -1281,7 +1379,7 @@ def _profile_idle(fn, host: bool = True,
         elif hi > end:
             busy += hi - end
             end = hi
-    return wall, busy / 1e6, len(spans)
+    return wall, busy / 1e9, len(spans)
 
 
 def _launch_all(*runs) -> list:
@@ -2788,6 +2886,488 @@ def tp_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
     del captured
     torch.cuda.empty_cache()
     clock("26 (d) the kernels at their shard shapes")
+    rep["launches"], rep["seconds"] = launches, clock.seconds
+    return rep, {k: n for k, n in launches.items() if n}
+
+
+# ------------------------------------ phase 27: tensor-parallel training
+
+
+def _tpt_grads(params, cfg, batch, rt):
+    """(loss, gradient leaves) of `lm.lm_loss` with remat, synchronized:
+    unsharded `value_and_grad` (`rt` None), else the mesh train step's
+    (`train.step._mesh_value_and_grad`: the batch split over the
+    replicas, each replica's loss on its model row)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.params import tree_leaves
+    from repro_torch.train.step import _mesh_value_and_grad, value_and_grad
+
+    if rt is None:
+        loss, g = value_and_grad(params, cfg, batch)
+    else:
+        mesh = rt.lm_mesh
+        loss, g = _mesh_value_and_grad(params, cfg, batch, mesh,
+                                       rt.batch_axes,
+                                       tp.train_row_size(cfg, mesh)[0])
+    torch.cuda.synchronize()
+    return loss, tree_leaves(g)
+
+
+def _sq_dist(a: list, b: list, chunk: int = 1 << 26) -> tuple[float, float]:
+    """(sum of squared differences, sum of squares of `b`) over leaf
+    lists, `chunk` elements at a time in float32 (the bf16 leaves of
+    granite's gradient are up to 4 GB), summed on `a`'s device in float64
+    and read once; `b` may lie on the host."""
+    num = den = torch.zeros((), dtype=torch.float64, device=a[0].device)
+    for x, y in zip(a, b):
+        x, y = x.reshape(-1), y.reshape(-1)
+        for i in range(0, x.numel(), chunk):
+            xs = x[i:i + chunk].float()
+            ys = y[i:i + chunk].to(x.device, torch.float32)
+            num = num + torch.sum(torch.square(xs - ys), dtype=torch.float64)
+            den = den + torch.sum(torch.square(ys), dtype=torch.float64)
+    return float(num), float(den)
+
+
+def _tpt_dist(run, ref) -> dict:
+    """TPT_LIMITS' keys of a (loss, grads) run against `ref`: the loss's
+    relative error, the whole gradient tree's relative L2."""
+    num, den = _sq_dist(run[1], ref[1])
+    return {"loss": abs(float(run[0]) - float(ref[0])) / abs(float(ref[0])),
+            "grads": (num / den) ** 0.5}
+
+
+@contextmanager
+def _tpt_control(n_groups: int):
+    """The control of phase 27: every `tp_apply_block` call of the last
+    layer group (told by its param views' offset into the group stack,
+    so a remat recompute drops as the forward did) leaves its row's last
+    member's partial out of its row sums. The configs here have groups
+    of one layer."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import lm
+
+    real_block, real_sum = lm.tp_apply_block, tp.row_sum
+    state = {"drop": False, "dropped": 0}
+
+    def block(row, ps, *args, **kw):
+        scale = ps[0]["ln1"]["scale"]
+        state["drop"] = (scale.storage_offset() // scale.numel()
+                         == n_groups - 1)
+        state["dropped"] += state["drop"]
+        try:
+            return real_block(row, ps, *args, **kw)
+        finally:
+            state["drop"] = False
+
+    def row_sum(row, partials):
+        if state["drop"] and row.size > 1:
+            with torch.cuda.stream(row.streams[-1]):
+                partials = list(partials[:-1]) + [
+                    torch.zeros_like(partials[-1])]
+        return real_sum(row, partials)
+
+    lm.tp_apply_block, tp.row_sum = block, row_sum
+    try:
+        yield state
+    finally:
+        lm.tp_apply_block, tp.row_sum = real_block, real_sum
+
+
+def _tpt_classes(by_name: dict) -> dict:
+    """Summed device ms of the kernels of TPT_CLASSES' name patterns."""
+    return {k: sum(v for name, v in by_name.items() if re.search(pat, name))
+            for k, pat in TPT_CLASSES.items()}
+
+
+def _tpt_granite(dev, smi, reset_counts, read_counts):
+    """27 (a): granite uncut in bf16, the mesh train step's value-and-grad
+    (`_tpt_grads`) on TPT_MESHES beside unsharded; the last layer's
+    `moe_experts` and `flash_attn` calls captured on TPT_CONTROL_MESH and
+    held against their plain versions. Returns (report, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain)
+    from repro_torch.kernels.moe_experts import (moe_expert_ffn,
+                                                 moe_expert_ffn_plain)
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.init import init_params
+
+    cfg = get_config(LM_ARCH).with_(moe_use_kernel=True)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    batches = {b: _batch_on(batch_for_step(cfg, 0, global_batch=b,
+                                           seq_len=TPT_TOKENS, seed=29),
+                            dev) for b in (1, 2)}
+    plains = [(moe_mod, "moe_expert_ffn", moe_expert_ffn_plain),
+              (layers_mod, "flash_attention", flash_attention_plain)]
+    refs, rep, launches = {}, {"card": smi}, {}
+
+    def profiled(rt, b):
+        """One value_and_grad on `rt` under the device-only profiler:
+        ((loss, grads), its wall, peak memory, idle share and kernels)."""
+        by_name, out = {}, []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        wall, busy, n_act = _profile_idle(
+            lambda: out.append(_tpt_grads(params, cfg, batches[b], rt)),
+            host=False, by_name=by_name)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TPT_TOP]
+        return out[0], {"wall_s": wall,
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "resident_bytes_before": base, "device_busy_s": busy,
+                        "idle_share": 1 - busy / wall,
+                        "device_activities": n_act, "top_device_ms": top,
+                        "classes_ms": _tpt_classes(by_name)}
+
+    _tpt_grads(params, cfg, batches[1], None)      # warm-up
+    for b in (1, 2):
+        refs[b], rep[f"unsharded_b{b}"] = profiled(None, b)
+        rep[f"unsharded_b{b}"]["loss"] = float(refs[b][0])
+    with _plain_versions(plains):
+        floor = _tpt_dist(_tpt_grads(params, cfg, batches[1], None),
+                          refs[1])
+    rep["floor"] = floor
+    u = rep["unsharded_b1"]
+    print(f"tp train (a) {LM_ARCH} bf16 [{smi}]: unsharded value_and_grad "
+          f"of lm_loss with remat, 1 x {TPT_TOKENS} tokens: "
+          f"{u['wall_s']:.3f} s (wall under the device-only profiler), "
+          f"peak {u['peak_bytes'] / 2**30:.2f} GiB "
+          f"({u['resident_bytes_before'] / 2**30:.2f} resident before), "
+          f"idle share {u['idle_share']:.4f}; 2 x {TPT_TOKENS}: "
+          f"{rep['unsharded_b2']['wall_s']:.3f} s; the floor (unsharded "
+          f"with the plain versions): loss {floor['loss']:.3e}, grads "
+          f"{floor['grads']:.3e} rel L2")
+    dist, control = {}, None
+    for shape in TPT_MESHES:
+        rt, where = _tp_runtime(shape)
+        b, m = shape
+        keep = {name: {"calls": {(cfg.n_layers - 1) * m}, "args": []}
+                for name in ("moe_experts", "flash_attn")}
+        restores = ([_capture(moe_mod, "moe_expert_ffn", keep["moe_experts"]),
+                     _capture(layers_mod, "flash_attention",
+                              keep["flash_attn"])]
+                    if shape == TPT_CONTROL_MESH else [])
+        try:
+            reset_counts()
+            run, entry = profiled(rt, b)
+            counts = read_counts()
+        finally:
+            for restore in restores:
+                restore()
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        ran = {k: n for k, n in counts.items() if n}
+        assert all(ran.get(name, 0) >= cfg.n_layers * m * b for name in
+                   ("moe_experts", "flash_attn")), (shape, ran)
+        d = _tpt_dist(run, refs[b])
+        finite = bool(torch.isfinite(run[0])) and all(
+            bool(torch.isfinite(g).all()) for g in run[1])
+        entry.update({"where": where, "launches": ran, "distance": d,
+                      "finite": finite})
+        if shape == (1, 1):
+            same = torch.equal(run[0], refs[b][0]) and all(
+                torch.equal(x, y) for x, y in zip(run[1], refs[b][1]))
+            entry["bit_equal"] = same
+            assert same and finite, entry
+        else:
+            dist[shape] = d
+        del run
+        torch.cuda.empty_cache()
+        if shape == TPT_CONTROL_MESH:
+            with _tpt_control(cfg.n_groups) as st:
+                ctrl = _tpt_grads(params, cfg, batches[b], rt)
+            control = _tpt_dist(ctrl, refs[b])
+            entry["control_drops"] = st["dropped"]
+            del ctrl
+            torch.cuda.empty_cache()
+            entry["held"] = _pipe_held(keep, moe_expert_ffn,
+                                       moe_expert_ffn_plain,
+                                       flash_attention,
+                                       flash_attention_plain, smi)
+            del keep
+        rep[str(shape)] = entry
+        ub = rep[f"unsharded_b{b}"]
+        print(f"  tp train {shape} over {where} [{smi}]: value_and_grad "
+              f"{entry['wall_s']:.3f} s (unsharded {ub['wall_s']:.3f} s), "
+              f"peak {entry['peak_bytes'] / 2**30:.2f} GiB (unsharded "
+              f"{ub['peak_bytes'] / 2**30:.2f}), idle share "
+              f"{entry['idle_share']:.4f} (unsharded "
+              f"{ub['idle_share']:.4f}), {entry['device_activities']} "
+              f"device activities; launches {ran}; loss rel err "
+              f"{d['loss']:.3e}, grads rel L2 {d['grads']:.3e}"
+              + (f"; bit-equal {entry['bit_equal']}" if shape == (1, 1)
+                 else ""))
+        print(f"    device ms by class: "
+              + ", ".join(f"{k} {v:.1f} (unsharded {ub['classes_ms'][k]:.1f})"
+                          for k, v in entry["classes_ms"].items())
+              + "; most device time: " + "; ".join(
+                  f"{k[:50]} {v:.1f} ms" for k, v in entry["top_device_ms"]))
+    rep.update({"distances": {str(k): v for k, v in dist.items()},
+                "control": control, "limits": TPT_LIMITS,
+                "control_floor_geomean": {
+                    k: (control[k] * floor[k]) ** 0.5 for k in control}})
+    print(f"  tp train (a): control (the last member's partial left out of "
+          f"the last layer's row sums) {control}, floor {floor}, limits "
+          f"{TPT_LIMITS} (the geometric means of this control and floor "
+          f"are {rep['control_floor_geomean']})")
+    for d in dist.values():
+        assert all(d[k] <= TPT_LIMITS[k] for k in TPT_LIMITS), rep
+    assert all(control[k] > TPT_LIMITS[k] for k in TPT_LIMITS), rep
+    del params, refs
+    torch.cuda.empty_cache()
+    return rep, launches
+
+
+def _tpt_on(params, rt, dev):
+    """Whole host `params` on `dev` (`rt` None) or laid out by the rules
+    on `rt`'s mesh."""
+    from repro_torch.params import params_to
+
+    return params_to(params, dev) if rt is None else _placed(params, rt)
+
+
+def _tpt_step(cfg, placed, batch, rt, control=False, host=False):
+    """One `build_train_step` step of `cfg` on `rt` (None: unsharded)
+    from `placed` (`_tpt_on`), under the control with `control`: (loss,
+    grad norm, [new - old params] leaves, on the host with `host`, the
+    step's model row). Nothing of `placed` is updated in place."""
+    from repro_torch.distributed import placement
+    from repro_torch.params import tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.step import build_train_step
+
+    opt_state = adamw_init(placed)
+    step = build_train_step(cfg, rt)
+    if control:
+        with _tpt_control(cfg.n_groups):
+            new, _, m = step(placed, opt_state, batch)
+    else:
+        new, _, m = step(placed, opt_state, batch)
+    del opt_state
+    update = [placement.gather(a) - placement.gather(b)
+              for a, b in zip(tree_leaves(new), tree_leaves(placed))]
+    if host:
+        update = [u.cpu() for u in update]
+    torch.cuda.synchronize()
+    return float(m["loss"]), float(m["grad_norm"]), update, step.model_row
+
+
+def _tpt_f32(dev, smi, reset_counts, read_counts):
+    """27 (b): float32 at full width, one `build_train_step` step of
+    granite (4 layers), rwkv6-7b (4 layers) and Jamba's layer 0 (its
+    Mamba block and dense FFN, one layer, its 65536-id vocabulary; the
+    whole params and the reference's update wait on the host, so that one
+    card holds the mesh step's copies): (2, 2) against the data-parallel
+    (2, 1), (1, 4)
+    against unsharded and the control, the floor (the unsharded step with
+    the plain versions in place of the kernels) beside them; rwkv6-7b's
+    value_and_grad in float64 too (`_tpt_f64`); `wkv6` and `mamba_scan`
+    captured on (1, 4) and held against their plain versions. Every
+    reading is printed before the gates. Returns (report, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels.flash_attn import flash_attention_plain
+    from repro_torch.kernels.mamba_scan import \
+        mamba_selective_scan_state_plain
+    from repro_torch.kernels.moe_experts import moe_expert_ffn_plain
+    from repro_torch.kernels.wkv6 import wkv6_state_plain
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import rwkv6 as rwkv_mod
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to
+
+    plains = {"granite": [(moe_mod, "moe_expert_ffn", moe_expert_ffn_plain),
+                          (layers_mod, "flash_attention",
+                           flash_attention_plain)],
+              "rwkv": [(rwkv_mod, "wkv6_state", wkv6_state_plain)],
+              "jamba": [(mamba_mod, "mamba_selective_scan_state",
+                         mamba_selective_scan_state_plain)]}
+    need = {"granite": ("moe_experts", "flash_attn"), "rwkv": ("wkv6",),
+            "jamba": ("mamba_scan",)}
+    rep, launches, held = {"card": smi}, {}, {}
+
+    def dist(run, ref):
+        num, den = _sq_dist(run[2], ref[2])
+        return {"loss": abs(run[0] - ref[0]) / abs(ref[0]),
+                "grad_norm": abs(run[1] - ref[1]) / abs(ref[1]),
+                "update": (num / den) ** 0.5}
+
+    for tag, arch, layers, b, t in TPT_F32:
+        cfg = get_config(arch).with_(n_layers=layers, dtype="float32",
+                                     param_dtype="float32")
+        if tag == "jamba":
+            cfg = cfg.with_(layer_pattern=("mamba",), moe_period=0)
+        if tag == "granite":
+            cfg = cfg.with_(moe_use_kernel=True)
+        batch = batch_for_step(cfg, 0, global_batch=b, seq_len=t, seed=31)
+        capture = {"rwkv": (rwkv_mod, "wkv6_state"),
+                   "jamba": (mamba_mod, "mamba_selective_scan_state")}.get(tag)
+        params = params_to(init_params(torch.Generator().manual_seed(1), cfg,
+                                       device=dev), "cpu")
+        ref = _tpt_step(cfg, _tpt_on(params, None, dev), batch, None,
+                        host=True)
+        with _plain_versions(plains[tag]):
+            out = {"floor": dist(_tpt_step(
+                cfg, _tpt_on(params, None, dev), batch, None), ref)}
+        torch.cuda.empty_cache()
+        for shape, control in (((1, 4), False), ((1, 4), True),
+                               ((2, 1), False), ((2, 2), False)):
+            if shape == (2, 1):
+                del ref
+                rt = _tp_runtime(shape)[0]
+                ref = _tpt_step(cfg, _tpt_on(params, rt, dev), batch, rt,
+                                host=True)
+                torch.cuda.empty_cache()
+                continue
+            rt, where = _tp_runtime(shape)
+            placed = _tpt_on(params, rt, dev)
+            keep = {"calls": {(layers - 1) * 4}, "args": []}
+            restore = (_capture(*capture, keep)
+                       if capture and shape == (1, 4) and not control
+                       else (lambda: None))
+            try:
+                reset_counts()
+                run, wall, peak, _ = _tp_timed(
+                    lambda: _tpt_step(cfg, placed, batch, rt, control))
+                counts = read_counts()
+            finally:
+                restore()
+            assert run[3] == shape[1], (tag, shape, run[3])
+            key = f"{shape}" + (" control" if control else "")
+            out[key] = {"where": where, **dist(run, ref), "wall_s": wall,
+                        "peak_bytes": peak,
+                        "launches": {k: n for k, n in counts.items() if n}}
+            if not control:
+                for name, n in counts.items():
+                    launches[name] = launches.get(name, 0) + n
+            if keep["args"]:
+                held[tag] = keep["args"][0]
+            del run, placed
+            torch.cuda.empty_cache()
+        del ref
+        torch.cuda.empty_cache()
+        rep[tag] = out
+        print(f"tp train (b) {arch} float32, {layers} layer(s) at full width"
+              f", [{b}, {t}] tokens, one build_train_step step [{smi}]: "
+              + "; ".join(f"{k}: loss {v['loss']:.3e}, grad norm "
+                          f"{v['grad_norm']:.3e}, update {v['update']:.3e} "
+                          f"rel" + (f" ({v['wall_s']:.3f} s, peak "
+                                    f"{v['peak_bytes'] / 2**30:.2f} GiB, "
+                                    f"launches {v['launches']})"
+                                    if "wall_s" in v else "")
+                          for k, v in out.items())
+              + f" (limits {TPT_F32_LIMITS[tag]}; (1, 4) and the floor "
+              "against unsharded, (2, 2) against the data-parallel (2, 1))")
+        if tag == "rwkv":
+            rep["rwkv_float64"] = _tpt_f64(cfg, params, batch, dev, smi)
+        del params
+        torch.cuda.empty_cache()
+    rep["held"] = _tpt_held(held, smi)
+    keys = ("loss", "grad_norm", "update")
+    for tag, *_ in TPT_F32:
+        lim = TPT_F32_LIMITS[tag]
+        for k, v in rep[tag].items():
+            if k.endswith("control"):
+                assert all(v[x] > lim[x] for x in keys), (tag, v, lim)
+            elif k != "floor":
+                assert all(v[x] <= lim[x] for x in keys), (tag, k, v, lim)
+                assert all(v["launches"].get(name, 0) > 0
+                           for name in need[tag]), (tag, k, v)
+    f64 = rep["rwkv_float64"]
+    assert f64["distance"]["grads"] <= TPT_F32_LIMIT < \
+        f64["control"]["grads"], f64
+    return rep, launches
+
+
+def _tpt_f64(cfg, params, batch, dev, smi) -> dict:
+    """27 (b): `cfg` (rwkv6-7b's float32 config) with `params` in float64
+    and the plain wkv6 (the kernel is float32) on the first
+    TPT_F64_TOKENS tokens of `batch`: value_and_grad of `lm_loss` on (1,
+    4) and under the control against unsharded, the whole gradient tree's
+    relative L2 (TPT_F32_LIMIT must part them: float32 cannot, its own
+    rounding moves these gradients by 1.5e-3)."""
+    from repro_torch.kernels.wkv6 import wkv6_state_plain
+    from repro_torch.models import rwkv6 as rwkv_mod
+    from repro_torch.params import params_to
+
+    cfg64 = cfg.with_(dtype="float64", param_dtype="float64")
+    params = params_to(params, dev, torch.float64)
+    batch = {k: v[:, :TPT_F64_TOKENS] for k, v in _batch_on(batch,
+                                                            dev).items()}
+    rt, _ = _tp_runtime((1, 4))
+    with _plain_versions([(rwkv_mod, "wkv6_state", wkv6_state_plain)]):
+        ref = _tpt_grads(params, cfg64, batch, None)
+        got = _tpt_dist(_tpt_grads(params, cfg64, batch, rt), ref)
+        with _tpt_control(cfg64.n_groups):
+            control = _tpt_dist(_tpt_grads(params, cfg64, batch, rt), ref)
+    del params, ref
+    torch.cuda.empty_cache()
+    print(f"tp train (b) {cfg.name} float64 value_and_grad, {cfg.n_layers} "
+          f"layers at full width, {TPT_F64_TOKENS} tokens [{smi}]: (1, 4) "
+          f"against unsharded loss "
+          f"{got['loss']:.3e}, grads {got['grads']:.3e} rel L2; control "
+          f"{control['loss']:.3e}, {control['grads']:.3e} (limit "
+          f"{TPT_F32_LIMIT:g} on the grads)")
+    return {"distance": got, "control": control, "limit": TPT_F32_LIMIT}
+
+
+def _tpt_held(held, smi) -> dict:
+    """27 (b): `wkv6` (rwkv6-7b's last layer, member 0 of (1, 4)) and
+    `mamba_scan` (Jamba's layer 0, member 0) on the captured arguments,
+    each kernel against its plain version through a float64 run."""
+    from repro_torch.kernels.mamba_scan import (
+        mamba_selective_scan_state, mamba_selective_scan_state_plain)
+    from repro_torch.kernels.wkv6 import wkv6_state, wkv6_state_plain
+
+    out = {}
+    with torch.no_grad():
+        args, kw = held["rwkv"]
+        args = [a.detach() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        b, t, h, kd = args[0].shape
+        label = f"rwkv6-7b float32, last layer, member 0: B {b} T {t} H {h}"
+        got, want = wkv6_state(*args, **kw), wkv6_state_plain(*args, **kw)
+        ref = _wkv6_f64(*args, **kw)
+        out["wkv6"] = {"shape": [b, t, h, kd], **{
+            part: _held_f64("wkv6", f"{label}: {part}", got[i], want[i],
+                            ref[i], SCAN_TOL)
+            for i, part in enumerate(("o", "state"))}}
+        args, kw = held["jamba"]
+        args = [a.detach() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        bsz, t, din = args[0].shape
+        label = (f"Jamba layer 0 float32, member 0: B {bsz} T {t} Din {din} "
+                 f"N {args[2].shape[-1]}")
+        got = mamba_selective_scan_state(*args, **kw)
+        want = mamba_selective_scan_state_plain(*args, **kw)
+        ref = _mamba_f64(*args, **kw)
+        out["mamba_scan"] = {"shape": [bsz, t, din], **{
+            part: _held_f64("mamba_scan", f"{label}: {part}", got[i],
+                            want[i], ref[i], SCAN_TOL)
+            for i, part in enumerate(("y", "state"))}}
+    torch.cuda.synchronize()
+    return out
+
+
+def tp_train_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
+    """Phase 27: tensor-parallel training, (a) and (b) above; each part
+    prints its seconds. Returns (report, the kernel launches of the
+    tensor-parallel runs)."""
+    rep, clock, launches = {"card": smi}, PhaseClock(), {}
+    for key, part, title in (
+            ("granite", _tpt_granite, "27 (a) granite tensor-parallel "
+             "value_and_grad"),
+            ("float32", _tpt_f32, "27 (b) float32 train steps")):
+        rep[key], counts = part(dev, smi, reset_counts, read_counts)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        torch.cuda.empty_cache()
+        clock(title)
     rep["launches"], rep["seconds"] = launches, clock.seconds
     return rep, {k: n for k, n in launches.items() if n}
 

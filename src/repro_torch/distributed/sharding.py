@@ -16,11 +16,13 @@ stream. Axis roles, as in the JAX package:
   data   — data parallelism for the batch and storage sharding (FSDP) of
            the params and their optimizer state;
   model  — tensor parallelism: serving (`lm.prefill` / `decode_step` /
-           `serve.step` with a runtime) computes each layer's shard of
-           heads, hidden units, Mamba channels and vocabulary on the
-           members of a model row (`distributed.tensor_parallel`); the LM
-           train step still shards only storage over it (its compute stays
-           data-parallel until ROADMAP item 6 part 4b(ii)).
+           `serve.step` with a runtime) and training (`lm.lm_loss` with
+           a runtime, the mesh `train.step.build_train_step`) compute
+           each layer's shard of heads, hidden units, Mamba channels and
+           vocabulary on the members of a model row
+           (`distributed.tensor_parallel`); a config that does not split
+           over it trains on rows of one member, and enc-dec models train
+           data-parallel (ROADMAP item 6 part 4b(iv)).
 `_PARAM_RULES` / `param_spec` give each param path its `P` spec (the JAX
 package's rules, right-aligned to the leaf's rank, so the stacked group
 axis is replicated); `param_shardings` turns them into `NamedSharding`s,
@@ -29,7 +31,8 @@ An uneven split raises ValueError: every config of the repo divides
 evenly on its meshes, so the port need not invent a padded layout.
 `resolve_spec` is the JAX `constrain`'s divisibility guard, the spec a
 batch-sharded activation would take. Nothing in the port constrains
-activations: a data-parallel replica already holds only its rows.
+activations: a data-parallel replica already holds only its rows, and a
+model row's member only its shard.
 
 Logical devices. The JAX package runs its meshes on simulated host
 devices (`--xla_force_host_platform_device_count`). The port's

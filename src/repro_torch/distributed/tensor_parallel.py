@@ -1,7 +1,7 @@
-"""Tensor-parallel serving over an LM mesh's `model` axis — the port's
-counterpart of the JAX package's serving steps on a mesh, where XLA
-partitions every layer by the `model` entries of `_PARAM_RULES` (DESIGN.md
-§6).
+"""Tensor parallelism over an LM mesh's `model` axis, for serving and
+training — the port's counterpart of the JAX package's serving and train
+steps on a mesh, where XLA partitions every layer by the `model` entries
+of `_PARAM_RULES` (DESIGN.md §6).
 
 Layout. `tp_layout(params, cfg, rt)` cuts every leaf once into the slice
 one member of a model row computes with. The role of a leaf comes from
@@ -51,6 +51,27 @@ tests and the smoke run use the CPU and logical devices over one card).
 The members' streams wait for the caller's when a step's rows are made,
 and the caller's stream waits for every member's when they are closed.
 
+Training. `member_params(..., grad=True)` cuts the same slices with
+differentiable operations (`narrow`, the fused halves' `cat`,
+`contiguous`, `.to(device)`; a replicated leaf is the leaf itself), so
+autograd hands each whole leaf its gradient: a cut leaf's is its
+members' parts in place, the fused halves too; a replicated leaf's
+(norms, router, LoRAs, `mix_*`) is the sum over the members that read
+it. The row hand-offs are autograd's as they stand: `put`, `spread` and
+`take` hand the same tensor on (or `.to()` it, between cards), so the
+backward of `row_sum` followed by `spread` sums the members' incoming
+gradients and hands the sum to every partial, and that of `row_gather`
+cuts its incoming gradient into the members' parts. Autograd runs each
+backward op on the stream of its forward op and makes a consumer's
+stream wait for the producer's where gradients cross streams;
+`Row.enter` makes the members' streams wait for the current stream
+before a layer group, which in the backward is the stream that asks for
+the group's remat recompute, and `wait_for_mesh` hands the gradients of
+every member's stream to the caller's. A training row takes whole heads,
+groups and hidden units too; where `cfg` does not split over the
+`model` axis (`unsplit_dim`), its rows are one member, as a batch that
+the replicas cannot split runs as one replica (`train_row_size`).
+
 Caches. A step's decode cache is a `TPCache`: each member's cache in
 `lm.init_cache`'s layout with its heads' K/V, its channels' Mamba states
 and its heads' wkv states; the `pos` planes and the shift states are
@@ -97,27 +118,59 @@ def _split_dims(cfg) -> list[tuple[str, int]]:
     return dims
 
 
+def unsplit_dim(cfg, m: int) -> str | None:
+    """"name=n" of the first count of `cfg` that a model row of `m`
+    members cannot take whole (heads, GQA groups, hidden units), or
+    None."""
+    for name, n in _split_dims(cfg):
+        if n % m:
+            return f"{name}={n}"
+    return None
+
+
 def check_splits(cfg, m: int) -> None:
     """ValueError naming the config and the dim when a model row of `m`
     members cannot take whole heads, groups and hidden units of `cfg`."""
-    for name, n in _split_dims(cfg):
-        if n % m:
-            raise ValueError(
-                f"{cfg.name}: {name}={n} does not split evenly over {m} "
-                f"members of a model row (tensor-parallel serving splits "
-                f"whole heads, GQA groups and hidden units)")
+    bad = unsplit_dim(cfg, m)
+    if bad is not None:
+        raise ValueError(
+            f"{cfg.name}: {bad} does not split evenly over {m} "
+            f"members of a model row (tensor-parallel serving splits "
+            f"whole heads, GQA groups and hidden units)")
 
 
-def member_params(tree, k: int, m: int, device):
+def train_row_size(cfg, mesh: LMMesh) -> tuple[int, str | None]:
+    """(the members of a training model row on `mesh`, why it is one
+    member where the `model` axis has more): the axis' size where `cfg`
+    splits over it; else 1, as a batch the replicas cannot split runs as
+    one replica. An enc-dec model trains data-parallel (its encoder and
+    cross-attention run on one device in `lm.tp_apply_block`)."""
+    m = mesh.shape.get(RULE_AXIS, 1)
+    if m == 1:
+        return 1, None
+    if cfg.is_enc_dec:
+        return 1, ("an enc-dec model trains data-parallel (tensor-parallel "
+                   "enc-dec training is ROADMAP Queue 1 item 6, part "
+                   "4b(iv))")
+    bad = unsplit_dim(cfg, m)
+    if bad is not None:
+        return 1, f"{bad} does not split over {m} members"
+    return m, None
+
+
+def member_params(tree, k: int, m: int, device, *, grad: bool = False):
     """Member k of m's slice of every leaf of `tree` (whole tensors; a
     subtree works too, since the rules match the paths' ends), each a
-    contiguous tensor of its own on `device` (module docstring)."""
+    contiguous tensor of its own on `device` (module docstring). With
+    `grad` the slices are cut by differentiable operations and a slice
+    that is the whole leaf (replicated, or m = 1) is the leaf itself on
+    `device`, so gradients reach the leaves of `tree`."""
 
     def leaf(path, x):
         spec = param_spec(path, x.ndim)
         dims = [i for i, e in enumerate(spec) if RULE_AXIS in _axes(e)]
         part = x
-        if dims:
+        if dims and m > 1:
             dim = dims[0]
             if x.shape[dim] % (2 * m if _FUSED.search(path) else m):
                 raise ValueError(f"{path}: dim {dim} of {tuple(x.shape)} "
@@ -128,6 +181,8 @@ def member_params(tree, k: int, m: int, device):
             else:
                 n = x.shape[dim] // m
                 part = x.narrow(dim, k * n, n)
+        if grad:
+            return part.contiguous().to(device)
         return torch.empty(part.shape, dtype=part.dtype,
                            device=device).copy_(part)
 
@@ -151,18 +206,41 @@ class TPLayout:
 
     def rows(self, batch: int) -> tuple:
         """The mesh positions of each replica's model row for a batch of
-        `batch` rows: one replica a coordinate of the batch axes, or one
-        replica when they do not divide the batch."""
-        first = replica_positions(self.mesh, self.batch_axes)
-        n = len(first)
-        if n == 1 or batch % n or batch < n:
-            first = first[:1]
-        rows = []
-        for p in first:
-            c = self.mesh.coords(p)
-            rows.append(tuple(self.mesh.position({**c, RULE_AXIS: k})
-                              for k in range(self.model_size)))
-        return tuple(rows)
+        `batch` rows (`model_rows`)."""
+        return model_rows(self.mesh, self.batch_axes, batch,
+                          self.model_size)
+
+
+def model_rows(mesh: LMMesh, batch_axes, batch: int, m: int) -> tuple:
+    """The mesh positions of each replica's model row of `m` members
+    (coordinates 0 .. m - 1 of `model`) for a batch of `batch` rows: one
+    replica a coordinate of the batch axes, or one replica when they do
+    not divide the batch."""
+    first = replica_positions(mesh, [a for a in batch_axes
+                                     if a in mesh.shape])
+    n = len(first)
+    if n == 1 or batch % n or batch < n:
+        first = first[:1]
+    return tuple(row_positions(mesh, p, m) for p in first)
+
+
+def row_positions(mesh: LMMesh, position: int, m: int) -> tuple:
+    """The mesh positions of the model row of `m` members through mesh
+    `position` (its coordinates, `model` from 0 to m - 1)."""
+    c = mesh.coords(position)
+    return tuple(mesh.position({**c, RULE_AXIS: k}) for k in range(m))
+
+
+def row_runtime(mesh: LMMesh, positions) -> Runtime:
+    """A runtime whose mesh is the one model row at mesh `positions`
+    (a `("model",)` mesh of those members, one replica): what the train
+    step hands each replica's loss."""
+    pos = tuple(positions)
+    return Runtime(mesh=LMMesh((RULE_AXIS,), (len(pos),),
+                               tuple(mesh.devices[p] for p in pos),
+                               tuple(mesh.streams[p] for p in pos),
+                               mesh.logical),
+                   batch_axes=())
 
 
 def tp_layout(params, cfg, rt: Runtime) -> TPLayout:
@@ -213,6 +291,9 @@ class _OneRow:
     single-device path runs its blocks on (`lm.apply_block`)."""
     size = 1
 
+    def enter(self) -> None:
+        pass
+
     def map(self, fn, *per_member) -> list:
         return [fn(0, *(a[0] for a in per_member))]
 
@@ -241,6 +322,17 @@ class Row:
     @property
     def size(self) -> int:
         return len(self.positions)
+
+    def enter(self) -> None:
+        """Every member's stream waits for the current stream: the
+        caller's in the forward, and in the backward the stream whose op
+        asks for a layer group's remat recompute."""
+        if self.caller is None:
+            return
+        now = torch.cuda.current_stream(self.device)
+        for st in self.streams:
+            if st is not None and st != now:
+                st.wait_stream(now)
 
     def map(self, fn, *per_member) -> list:
         """[fn(k, a[k], b[k], ...) for every member k], each call on
@@ -273,26 +365,47 @@ class Row:
             _cross(t, _done(st), st, self.streams[0], self.devices[0])
             for t, st in zip(parts[1:], self.streams[1:])]
 
-    def close(self) -> None:
-        """The caller's stream waits for every member's."""
+    def close(self, keep=()) -> None:
+        """The caller's stream waits for every member's; the tensors of
+        `keep`, made on the members' streams, are marked as used by the
+        caller's."""
         if self.caller is None:
             return
         for st in self.streams:
             if st is not None:
                 self.caller.wait_stream(st)
+        for t in keep:
+            t.record_stream(self.caller)
+
+
+def wait_for_mesh(mesh: LMMesh, tensors=()) -> None:
+    """The current stream waits for every stream of `mesh` (after a
+    backward through rows of it has been queued), and `tensors` are
+    marked as used by it."""
+    streams = [st for st in mesh.streams if st is not None]
+    if not streams:
+        return
+    now = torch.cuda.current_stream(streams[0].device)
+    for st in streams:
+        now.wait_stream(st)
+    for t in tensors:
+        if t.is_cuda:
+            t.record_stream(now)
 
 
 def row_sum(row: Row, partials) -> list:
-    """The members' partial sums reduced: summed in float32 in member
-    order on the row's first member, rounded once to their dtype, the
-    result on every member. One member: its partial, untouched."""
+    """The members' partial sums reduced: summed in float32 (float64
+    partials in float64) in member order on the row's first member,
+    rounded once to their dtype, the result on every member. One member:
+    its partial, untouched."""
     if row.size == 1:
         return list(partials)
     parts = row._to_first(partials)
+    acc_dtype = torch.promote_types(partials[0].dtype, torch.float32)
     with torch.cuda.stream(row.streams[0]):
-        acc = parts[0].float()
+        acc = parts[0].to(acc_dtype)
         for t in parts[1:]:
-            acc = acc + t.float()
+            acc = acc + t.to(acc_dtype)
         out = acc.to(partials[0].dtype)
     return row.spread(out)
 

@@ -23,6 +23,9 @@ wrappers (`flash_attention`, `wkv6_state`, `mamba_selective_scan_state`,
 `moe_expert_ffn`) a backward on the card. Their forward stays the CUDA
 kernel; their backward is autograd of the plain version, the port's
 counterpart of `jax.grad` over the `jnp` code the JAX package trains with.
+On a tensor-parallel model row (`distributed.tensor_parallel`) the plain
+recompute runs at the member's shard shapes and on its stream: autograd
+runs a backward node on the stream its forward ran on.
 """
 
 from __future__ import annotations

@@ -34,9 +34,12 @@ device, so a run saved at N devices resumes at M.
 (16, 16) over ("data", "model"), or (2, 16, 16) with "pod" in front),
 `--mesh DxM` on a (D, M) test mesh: params and AdamW state stored as
 per-device blocks by the param rules, the step data-parallel over the
-batch axes (`train/step.py`). Where the machine has fewer cards than the
-mesh has devices (256 for single, 512 for multi) it uses that many
-logical devices over the one `--device` (it prints which).
+batch axes and tensor-parallel over `model` (`train/step.py`; it prints
+the model row's members, and the dim that did not split where a config
+does not split over M and its rows are one member). Where the machine
+has fewer cards than the mesh has devices (256 for single, 512 for
+multi) it uses that many logical devices over the one `--device` (it
+prints which).
 Checkpoints hold whole leaves, so a run saved on one mesh resumes on
 another or on none.
 """
@@ -197,6 +200,10 @@ def train_lm(args) -> TrainRun:
     opt_state = adamw_init(params, cfg.opt_state_dtype)
     step_fn = build_train_step(cfg, rt, peak_lr=args.lr,
                                compress_grads=args.compress_grads)
+    if rt is not None:
+        m, why = step_fn.model_row, step_fn.model_row_note
+        print(f"[train] model row: {m} member{'s' if m > 1 else ''}"
+              + (f" ({why})" if why else ""))
     run_step, current = _failing_after(step_fn, args)
 
     def batch_fn(step):            # deterministic per step for restartability

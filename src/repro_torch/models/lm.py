@@ -28,6 +28,21 @@ ids in its range, zeros elsewhere, then a row sum) and so are the logits
 (a member's float32 columns with the softcap and the pad mask, gathered
 along V; the argmax runs on the whole logits). With `rt` None, or a
 runtime whose mesh is not an LM mesh, they run the single-device path.
+
+`forward` and `lm_loss` take a runtime too: on an LM mesh of one
+data-parallel replica (the train step splits a batch over replicas and
+hands each its row, `tensor_parallel.row_runtime`) the rows go through
+the model row (`tensor_parallel.train_row_size` members; one where the
+config does not split) with the members' slices cut from
+the whole params by differentiable operations, so autograd returns whole
+gradients; the layers run under remat as on one device. The loss is
+vocab-parallel: each member's float32 logits slice (pad ids masked,
+softcap applied) gives its max and sum of exponentials and the gold
+logits of the ids it owns; member 0 combines them into the logsumexp
+(`vocab_parallel_nll`), and the [B, T, V] logits are never gathered.
+Every member routes the MoE layers redundantly; only member 0's routing
+statistics and aux term count, so the aux gradient reaches the router
+once a replica.
 """
 
 from __future__ import annotations
@@ -35,8 +50,10 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import placement
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.models import layers, rwkv6
+from repro_torch.distributed.sharding import replica_positions
+from repro_torch.models import layers, moe, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import torch_dtype
 from repro_torch.models.mamba import mamba_in, mamba_out
@@ -161,7 +178,8 @@ def tp_apply_block(row, ps, xs, cfg, kind: str, is_moe: bool, *,
         for nc, q in zip(new, parts):
             nc["rwkv"]["shift_c"] = q[2]
     elif is_moe:
-        outs = row.map(lambda k, p, h: moe_ffn(p["moe"], h, cfg), ps, hs)
+        outs = row.map(lambda k, p, h: moe_ffn(p["moe"], h, cfg,
+                                                record=k == 0), ps, hs)
         ys, aux = tp.row_sum(row, [o[0] for o in outs]), [o[1] for o in outs]
     else:
         ys = tp.row_sum(row, row.map(
@@ -216,6 +234,7 @@ def _row_groups(row, trees, cfg, xs, *, positions, caches=None,
     n_groups = tree_leaves(trees[0][groups_key][0])[0].shape[0]
 
     def group(xs, g):
+        row.enter()
         new_caches, aux_total = [[] for _ in trees], [0.0] * row.size
         for j, kind in enumerate(kinds):
             ps = [tree_map(lambda t: t[g], tr[groups_key][j])
@@ -312,11 +331,19 @@ def _embed_inputs(params, cfg, tokens, embeds):
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            embeds: torch.Tensor | None = None, remat: bool = False):
+            embeds: torch.Tensor | None = None, remat: bool = False,
+            rt=None):
     """Training/scoring forward. tokens [B,S_tok]; embeds [B,P,D]
-    prepended (VLM patches). Returns (logits [B,S,V] float32, aux_loss)."""
+    prepended (VLM patches). Returns (logits [B,S,V] float32, aux_loss).
+    On an LM mesh (`rt`) tensor-parallel (module docstring), the logits
+    gathered along V."""
     if cfg.is_enc_dec:
         raise ValueError("use encdec.forward_encdec for enc-dec models")
+    if rt is not None and rt.lm_mesh is not None:
+        def head(row, trees, xs, tok):
+            return _tp_logits(row, trees, cfg, xs)
+
+        return _tp_train(params, cfg, rt, tokens, embeds, remat, head)
     x, positions = _embed_inputs(params, cfg, tokens, embeds)
     x, _, aux = _run_groups(params, cfg, x, positions=positions,
                             remat=remat)
@@ -517,13 +544,92 @@ def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor):
     return torch.mean(logz - gold)
 
 
+def vocab_parallel_nll(row, trees, cfg, xs, tokens) -> torch.Tensor:
+    """`next_token_nll(logits_from_hidden(params, cfg, x), tokens)` on a
+    model row, on its first member, without gathering the logits: `xs`
+    are the members' hidden states at the positions that predict
+    tokens[:, 1:] (the same on every member), `tokens` the members'
+    copies. Each member's float32 logits slice gives its max (detached:
+    it only keeps the exponentials finite), its sum of exponentials and
+    the gold logits of the ids it owns (zero elsewhere); member 0 forms
+    the logsumexp from the members' parts and the mean of logsumexp -
+    gold."""
+    def part(k, tr, x, tok):
+        w = tr["embed"]["table"] if cfg.tie_embeddings else tr["lm_head"]["w"].T
+        n = w.shape[0]
+        logits = logits_from_hidden(tr, cfg, x, first_id=k * n)
+        top = logits.detach().amax(-1)
+        sumexp = torch.exp(logits - top[..., None]).sum(-1)
+        local = tok[:, 1:].long() - k * n
+        inside = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+        gold = torch.where(inside, gold[..., 0], 0.0)
+        return torch.stack([top, sumexp, gold], -1)[..., None, :]
+
+    parts = tp.row_gather(row, row.map(part, trees, xs, tokens), -2,
+                          first_only=True)[0]             # [B, T, m, 3]
+    with torch.cuda.stream(row.streams[0]):
+        top, sumexp, gold = parts.unbind(-1)
+        big = top.amax(-1)
+        logz = big + torch.log(torch.sum(
+            sumexp * torch.exp(top - big[..., None]), -1))
+        return torch.mean(logz - gold.sum(-1))
+
+
+def _tp_train(params, cfg, rt, tokens, embeds, remat, head):
+    """The training forward on `rt`'s LM mesh, one model row: (`head(row,
+    trees, xs, tokens)` on the caller, the aux loss). The members' slices
+    are cut from the whole `params` on their streams before any layer
+    runs. A mesh of several data-parallel replicas raises: the train step
+    splits the batch over them (`train.step`) and hands each replica's
+    loss its row (`tensor_parallel.row_runtime`)."""
+    mesh = rt.lm_mesh
+    firsts = replica_positions(mesh, [a for a in rt.batch_axes
+                                      if a in mesh.shape])
+    if len(firsts) > 1:
+        raise ValueError(
+            f"lm_loss / forward on a mesh run one model row; this mesh "
+            f"has {len(firsts)} replicas over {tuple(rt.batch_axes)}: "
+            f"train through train.step.build_train_step, which splits the "
+            f"batch over them")
+    m, _ = tp.train_row_size(cfg, mesh)
+    whole = tree_map(placement.gather, params)
+    row = tp.Row(mesh, tp.row_positions(mesh, firsts[0], m), tokens.device)
+    trees = row.map(lambda k, dev: tp.member_params(
+        whole, k, m, dev, grad=True), row.devices)
+    with moe.route_stats() as seen:
+        xs = _tp_embed(row, trees, cfg, row.put(tokens))
+        if embeds is not None:
+            xs = row.map(lambda k, e, x: torch.cat([e.to(x.dtype), x], 1),
+                         row.put(embeds), xs)
+        xs, _, aux = _row_groups(
+            row, trees, cfg, xs, positions=row.map(
+                lambda k, x: _positions(x), xs), remat=remat)
+    out = row.take(head(row, trees, xs, row.put(tokens)))
+    aux = row.take(aux[0])
+    row.close([t for pair in seen for t in pair])
+    return out, aux
+
+
 def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
-            aux_weight: float = AUX_WEIGHT):
+            aux_weight: float = AUX_WEIGHT, rt=None):
     """Next-token cross-entropy (+ MoE aux). batch: {"tokens" [B,S],
     optional "embeds" [B,P,D]} — targets are tokens shifted by one; with
-    embeds the logits from position P on predict them."""
+    embeds the logits from position P on predict them. On an LM mesh
+    (`rt`, one model row) tensor-parallel with the vocab-parallel
+    cross-entropy (module docstring)."""
     tokens = batch["tokens"]
     embeds = batch.get("embeds")
-    logits, aux = forward(params, cfg, tokens, embeds=embeds, remat=remat)
     p = 0 if embeds is None else embeds.shape[1]
+    if rt is not None and rt.lm_mesh is not None:
+        def head(row, trees, xs, tok):
+            if row.size == 1:               # the single-device loss's bits
+                return next_token_nll(logits_from_hidden(
+                    trees[0], cfg, xs[0])[:, p:-1], tok[0])
+            return vocab_parallel_nll(row, trees, cfg,
+                                      [x[:, p:-1] for x in xs], tok)
+
+        nll, aux = _tp_train(params, cfg, rt, tokens, embeds, remat, head)
+        return nll + aux_weight * aux
+    logits, aux = forward(params, cfg, tokens, embeds=embeds, remat=remat)
     return next_token_nll(logits[:, p:-1], tokens) + aux_weight * aux

@@ -10,9 +10,12 @@ With `cfg.moe_use_kernel` the expert FFN of the whole batch, [B, E, C, D],
 goes through one call of `kernels.moe_experts.moe_expert_ffn` (one kernel
 launch per MoE layer on the card, float32 inside); otherwise through
 einsums in the activations' dtype, as the JAX package's `else` branch. The
-JAX package's mesh constraints (`rt`) only lay tensors out; the port's
-data-parallel mesh step (`train/step.py`) runs each replica on its own
-rows, so routing needs none of them.
+JAX package's mesh constraints (`rt`) only lay tensors out, and pin the
+expert hidden to the `model` axis; the port's mesh step (`train/step.py`)
+runs each replica on its own rows, and on a model row (`lm.tp_apply_block`)
+each member routes every token with the replicated router and computes
+its columns of the expert hidden (its slices of `w_in` / `w_out`), so
+routing needs no constraint.
 
 The load-balancing aux loss is a product of two batch means, so it does
 not split over data-parallel replicas. Inside `route_stats()` every
@@ -20,7 +23,9 @@ not split over data-parallel replicas. Inside `route_stats()` every
 are one-hot of an argmax) and mean router probabilities, in call order;
 the mesh step averages them over replicas and forms the aux term once
 (`aux_from_stats`), as the JAX package's step on a mesh computes it over
-the whole batch.
+the whole batch. On a model row only member 0 records (`record=False`
+elsewhere) and only its aux term counts, so each layer counts once a
+replica and the aux gradient reaches the router once.
 """
 
 from __future__ import annotations
@@ -58,12 +63,15 @@ _STATS: list | None = None
 @contextmanager
 def route_stats():
     """Collect (frac [E], mean_prob [E]) of every `route` call of the
-    `with` block, in call order, into the list it yields."""
+    `with` block, in call order, into the list it yields; an enclosing
+    `route_stats` gets them too when the block ends."""
     global _STATS
     before, _STATS = _STATS, []
     try:
         yield _STATS
     finally:
+        if before is not None:
+            before.extend(_STATS)
         _STATS = before
 
 
@@ -83,8 +91,10 @@ def aux_from_stats(per_replica: list) -> torch.Tensor:
     return aux
 
 
-def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
-    """x [B,S,D] -> (weights [B,S,k], experts [B,S,k] int32, aux_loss)."""
+def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int, *,
+          record: bool = True):
+    """x [B,S,D] -> (weights [B,S,k], experts [B,S,k] int32, aux_loss).
+    With `record` False the call adds nothing to `route_stats`."""
     logits = torch.einsum("bsd,de->bse", x.float(), router_w.float())
     weights, experts = top_k_lowest_first(logits, top_k)
     weights = torch.softmax(weights, dim=-1)              # renorm over top-k
@@ -94,7 +104,7 @@ def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
     frac = torch.nn.functional.one_hot(experts[..., 0].long(), n_e).float() \
         .mean(dim=(0, 1))
     mean_prob = probs.mean(dim=(0, 1))
-    if _STATS is not None:
+    if record and _STATS is not None:
         _STATS.append((frac.detach(), mean_prob))
     aux = n_e * torch.sum(frac * mean_prob)
     return weights, experts, aux
@@ -141,13 +151,14 @@ def slot_token_map(experts: torch.Tensor, n_experts: int, capacity: int):
     return tok.reshape(b, n_experts, capacity), slot, keep
 
 
-def moe_ffn(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p, x: torch.Tensor, cfg, *,
+            record: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """p: {router [D,E], w_in [E,D,2F], w_out [E,F,D]}; x [B,S,D].
-    Returns (y [B,S,D], aux_loss)."""
+    Returns (y [B,S,D], aux_loss); `record` goes to `route`."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = moe_capacity(s, e, k, cfg.capacity_factor)
-    weights, experts, aux = route(p["router"], x, k)
+    weights, experts, aux = route(p["router"], x, k, record=record)
 
     tok_for_slot, slot, keep = slot_token_map(experts, e, cap)
     # gather tokens into dense expert tiles (sentinel -> zero row)

@@ -12,26 +12,38 @@ forward pass; their backward is autograd of their plain versions
 `accum_steps` microbatches along the batch leaves' leading axis.
 
 On an LM mesh (`build_train_step(cfg, rt)` with `rt.mesh` an
-`LMMesh`) the step is data-parallel over `rt.batch_axes`. Params and
-their AdamW moments are stored as per-device blocks
-(`distributed.placement`, laid out by `param_shardings`). One replica
-runs per coordinate of the batch axes, on that row's first device and
-its stream (a `StreamFan`: the caller's stream waits for the replicas
-once all are launched, so their work overlaps on the device): it gathers whole params from the blocks, runs the unchanged
-loss on its rows of the batch and gives whole gradients. The gradients
+`LMMesh`) the step is data-parallel over `rt.batch_axes` and
+tensor-parallel over `model`. Params and their AdamW moments are stored
+as per-device blocks (`distributed.placement`, laid out by
+`param_shardings`). One replica runs per coordinate of the batch axes,
+on that row's first device and its stream (a `StreamFan`: the caller's
+stream waits for the replicas once all are launched, so their work
+overlaps on the device): it gathers whole params from the blocks, runs
+the loss on its rows of the batch and gives whole gradients. Where the
+mesh's `model` axis has m > 1 members and the config splits over them
+(`tensor_parallel.train_row_size`), the replica's loss runs on its model
+row (`lm.lm_loss` with `tensor_parallel.row_runtime`): each member
+computes its shard of every layer on its own stream from slices cut
+from the whole params by differentiable operations, the cross-entropy is
+vocab-parallel, and the backward runs through the same row hand-offs
+back to the whole params. A config that does not split over m (heads,
+GQA groups or hidden units), and any enc-dec model (seamless: its
+encoder and cross-attention are not cut yet, ROADMAP part 4b(iv)),
+trains with rows of one member: the data-parallel step alone, whose
+bits a (d, 1) mesh gives too. `step_fn.model_row` is the row's size and
+`step_fn.model_row_note` says why it is one member where the axis has
+more (None otherwise). The gradients
 are summed over replicas in replica order on the mesh's first device,
 then go through int8 compression (if asked), the global norm and
 clipping whole, as in the JAX step, and are scattered into the params'
 blocks (`constrain_grads`); AdamW updates each block on its device.
 The MoE aux loss couples the whole batch, so for MoE models every
-replica's routing statistics are collected (`moe.route_stats`) and the
-aux term is formed once over all of them before one backward through
-every replica's graph; other models run each replica's backward as soon
-as its forward ends. A batch that the replicas cannot split evenly (B %
-n_dp, or B < n_dp) runs as one replica, as the JAX guard drops the axis.
-The `model` axis shards storage only: training stays data-parallel
-until ROADMAP item 6 part 4b(ii) (serving already computes over it,
-`distributed.tensor_parallel`).
+replica's routing statistics are collected (`moe.route_stats`; on a
+model row member 0's only) and the aux term is formed once over all of
+them before one backward through every replica's graph; other models
+run each replica's backward as soon as its forward ends. A batch that
+the replicas cannot split evenly (B % n_dp, or B < n_dp) runs as one
+replica, as the JAX guard drops the axis.
 
 No path selection happens in the SimGNN step: packing, bucketing and the
 choice of executor live in the engine, for training as for serving
@@ -45,6 +57,7 @@ from typing import Callable
 import torch
 
 from repro_torch.distributed import placement
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.compression import int8_compress_tree
 from repro_torch.distributed.sharding import (LMMesh, Runtime, StreamFan,
                                              replica_positions)
@@ -71,7 +84,9 @@ def value_and_grad(params, cfg: ModelConfig, batch, *,
     a tree like `params`, by autograd on detached copies of the leaves.
     `loss_kw` goes to the loss (e.g. `remat`). A leaf the loss does not
     reach gets zeros, as `jax.grad` gives it; with `allow_unused=False`
-    autograd raises instead."""
+    autograd raises instead. With an `rt` on an LM mesh in `loss_kw` the
+    current stream waits for the mesh's streams before the gradients are
+    returned."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     it = iter(leaves)
     loss = loss_for(cfg)(tree_map(lambda _: next(it), params), cfg, batch,
@@ -79,6 +94,9 @@ def value_and_grad(params, cfg: ModelConfig, batch, *,
     grads = torch.autograd.grad(loss, leaves, allow_unused=allow_unused)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
+    rt = loss_kw.get("rt")
+    if rt is not None and rt.lm_mesh is not None:
+        tp.wait_for_mesh(rt.lm_mesh, grads)
     it = iter(grads)
     return loss.detach(), tree_map(lambda _: next(it), params)
 
@@ -92,15 +110,17 @@ def build_train_step(cfg: ModelConfig, rt: Runtime | None = None, *,
     accumulation axis when accum_steps > 1; the microbatches' losses and
     float32 gradients are summed in order and divided by accum_steps.
     Nothing is updated in place. With `rt` on an `LMMesh` the step is the
-    data-parallel mesh step of the module docstring; without one it is
-    the single-device step, as the JAX package's with `rt.mesh is None`."""
+    mesh step of the module docstring (`step_fn.model_row` members a
+    model row); without one it is the single-device step, as the JAX
+    package's with `rt.mesh is None`."""
     mesh = rt.lm_mesh if rt is not None else None
+    m, why = (1, None) if mesh is None else tp.train_row_size(cfg, mesh)
 
     def grads_of(params, batch):
         if mesh is None:
             return value_and_grad(params, cfg, batch)
-        return _data_parallel_value_and_grad(params, cfg, batch, mesh,
-                                             rt.batch_axes)
+        return _mesh_value_and_grad(params, cfg, batch, mesh, rt.batch_axes,
+                                    m)
 
     def step_fn(params, opt_state, batch):
         device = tree_leaves(params)[0].device
@@ -133,6 +153,7 @@ def build_train_step(cfg: ModelConfig, rt: Runtime | None = None, *,
                    "step": opt_state.step}
         return params, opt_state, metrics
 
+    step_fn.model_row, step_fn.model_row_note = m, why
     return step_fn
 
 
@@ -143,10 +164,11 @@ def constrain_grads(grads, params):
     return placement.shard_tree(grads, placement.tree_shardings(params))
 
 
-def _data_parallel_value_and_grad(params, cfg: ModelConfig, batch,
-                                  mesh: LMMesh, batch_axes):
+def _mesh_value_and_grad(params, cfg: ModelConfig, batch, mesh: LMMesh,
+                         batch_axes, m: int = 1):
     """(loss, whole grads on the mesh's first device) of the batch split
-    row-wise over the replicas of `batch_axes` (module docstring)."""
+    row-wise over the replicas of `batch_axes`, each replica's loss on its
+    model row of `m` members (module docstring)."""
     first = mesh.devices[0]
     positions = replica_positions(mesh, batch_axes)
     n = len(positions)
@@ -162,18 +184,24 @@ def _data_parallel_value_and_grad(params, cfg: ModelConfig, batch,
     for r, pos in enumerate(positions):
         dev = mesh.devices[pos]
         part = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+        kw = {} if m == 1 else {
+            "rt": tp.row_runtime(mesh, tp.row_positions(mesh, pos, m))}
         with fan.member(mesh.streams[pos]) as (reads, out):
             reads.extend(blocks + list(batch.values()))
             part = _on(part, dev)
             whole = placement.gather_tree(params, dev)
             if not is_moe:
-                loss, g = value_and_grad(whole, cfg, part)
+                loss, g = value_and_grad(whole, cfg, part, **kw)
                 grads.append(tree_leaves(g))
                 out.extend(grads[-1])
             else:
-                leaves = [t.requires_grad_(True) for t in tree_leaves(whole)]
+                leaves = [t.detach().requires_grad_(True)
+                          for t in tree_leaves(whole)]
+                it = iter(leaves)
+                whole = tree_map(lambda _: next(it), whole)
                 with moe.route_stats() as seen:
-                    loss = loss_for(cfg)(whole, cfg, part, aux_weight=0.0)
+                    loss = loss_for(cfg)(whole, cfg, part, aux_weight=0.0,
+                                         **kw)
                 graphs.append(leaves)
                 stats.append(seen)
                 out.extend(t for pair in seen for t in pair)
@@ -193,6 +221,8 @@ def _data_parallel_value_and_grad(params, cfg: ModelConfig, batch,
         flat = [t for leaves in graphs for t in leaves]
         g = torch.autograd.grad(total, flat, allow_unused=True)
         g = [torch.zeros_like(p) if x is None else x for p, x in zip(flat, g)]
+        if m > 1:
+            tp.wait_for_mesh(mesh, g)
         k = len(graphs[0])
         grads = [g[r * k:(r + 1) * k] for r in range(n)]
         total, scale = total.detach(), 1

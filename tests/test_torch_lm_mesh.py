@@ -1,6 +1,7 @@
 """The port's LM mesh (the param rules, `LMMesh`, `NamedSharding`, per-device
-block storage and the data-parallel `build_train_step(cfg, rt)`) against
-the JAX package's on the CPU.
+block storage and the mesh `build_train_step(cfg, rt)`: data-parallel over
+the batch axes, tensor-parallel over `model`) against the JAX package's on
+the CPU.
 
 The JAX package lays its mesh out on simulated host devices, which XLA
 fixes when its backend starts, so a module fixture runs the JAX side in
@@ -19,10 +20,13 @@ Bounds: specs, paths, `constrain`'s resolved specs and block index slices
 equal to JAX's; blocks equal to JAX's shards bit for bit; the loss and
 params after each step within PARAM_ATOL of the JAX mesh step's (also with
 `accum_steps=2`, with `compress_grads` and with a batch the data axis does
-not divide); a mesh with one batch replica bit-equal to the port's
-unsharded step, meshes that differ only in `model` bit-equal to each
-other, two runs bit-equal. Granite runs with `moe_use_kernel=False`: the
-JAX package's Pallas expert kernel has no VJP rule.
+not divide); a mesh with one batch replica within PARAM_ATOL of the port's
+unsharded step, and bit-equal to it where its model rows are one member
+((1, 1), a config that does not split over `model`, enc-dec); meshes that
+differ only in `model` within PARAM_ATOL of each other, and bit-equal
+where both have rows of one member; two runs bit-equal. Granite runs
+with `moe_use_kernel=False`: the JAX package's Pallas expert kernel has
+no VJP rule.
 """
 
 import functools
@@ -46,6 +50,7 @@ from repro.models.init import init_params as jax_init_params
 from repro_torch.configs import get_config as port_get_config
 from repro_torch.configs import reduced_config as port_reduced_config
 from repro_torch.distributed import placement, sharding
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.models.init import init_params
 from repro_torch.params import params_from_numpy, tree_leaves
@@ -283,6 +288,27 @@ def _bit_equal(a, b) -> bool:
         for s, t in zip(pa, pb) for x, y in zip(s, t))
 
 
+def _close(a, b) -> bool:
+    """Losses and params after each step within PARAM_ATOL."""
+    (la, pa), (lb, pb) = a, b
+    return all(abs(float(x) - float(y)) <= PARAM_ATOL
+               for x, y in zip(la, lb)) and all(
+        float((x - y).abs().max()) <= PARAM_ATOL
+        for s, t in zip(pa, pb) for x, y in zip(s, t))
+
+
+def _row_size(arch, shape) -> int:
+    """The members of the step's model rows on a mesh of `shape`."""
+    return tp.train_row_size(_cfg(arch, jax_side=False),
+                             _port_mesh(shape))[0]
+
+
+def _agrees(a, b, one_member: bool) -> bool:
+    """Bit-equal where both runs' model rows are one member, else within
+    PARAM_ATOL."""
+    return _bit_equal(a, b) if one_member else _close(a, b)
+
+
 # ---------------------------------------------------- the rules and paths
 
 def _jax_abstract(cfg):
@@ -419,26 +445,48 @@ def test_meshes_and_runtimes():
 
 # ------------------------------------------------------------ the step
 
+#: the model rows of the bit-equality tests' meshes: reduced granite's 2
+#: KV heads do not split over 4 members (a row of one), rwkv6's 4 heads
+#: do; seamless trains data-parallel (rows of one) on every mesh
+ROW_SIZES = {GRANITE: {(1, 4): 1, (2, 2): 2, (2, 4): 1},
+             RWKV: {(1, 4): 4, (2, 2): 2, (2, 4): 4},
+             SEAMLESS: {(1, 4): 1, (2, 2): 1, (2, 4): 1}}
+
+
 @pytest.mark.parametrize("arch", BIT_FAMILIES)
-def test_one_replica_meshes_equal_the_unsharded_step(arch):
-    """(1, 1) and (1, 4) hold one batch replica: bit-equal to the
-    unsharded step; so is a batch the data axis does not divide."""
+def test_one_replica_meshes_hold_the_unsharded_step(arch):
+    """(1, 1) and (1, 4) hold one batch replica: within PARAM_ATOL of the
+    unsharded step where the replica's model row computes tensor-parallel,
+    bit-equal where it is one member ((1, 1) always); so is a batch the
+    data axis does not divide ((2, 2) at batch 3: one replica on a row of
+    2; (4, 1) at batch 2: bit-equal)."""
     plain = _port_run(arch, None)
+    assert _row_size(arch, (1, 1)) == 1
     assert _bit_equal(_port_run(arch, (1, 1)), plain)
-    assert _bit_equal(_port_run(arch, (1, 4)), plain)
+    m = _row_size(arch, (1, 4))
+    assert m == ROW_SIZES[arch][(1, 4)]
+    assert _agrees(_port_run(arch, (1, 4)), plain, m == 1)
     if arch == GRANITE:
-        assert _bit_equal(_port_run(arch, (2, 2), (), 3),
-                          _port_run(arch, None, (), 3))
+        assert _row_size(arch, (2, 2)) == 2
+        assert _close(_port_run(arch, (2, 2), (), 3),
+                      _port_run(arch, None, (), 3))
         assert _bit_equal(_port_run(arch, (4, 1), (), 2),
                           _port_run(arch, None, (), 2))
 
 
 @pytest.mark.parametrize("arch", BIT_FAMILIES)
-def test_meshes_differing_only_in_model_are_bit_equal(arch):
-    two = _port_run(arch, (2, 2))
-    assert _bit_equal(_port_run(arch, (2, 1)), two)
-    assert _bit_equal(_port_run(arch, (2, 4)), two)
-    assert not _bit_equal(_port_run(arch, None), two)
+def test_meshes_differing_only_in_model_agree(arch):
+    """(2, 1), (2, 2) and (2, 4) split the batch over the same two
+    replicas: within PARAM_ATOL of each other, bit-equal where both
+    meshes' rows are one member."""
+    runs = {shape: _port_run(arch, shape) for shape in ((2, 1), (2, 2),
+                                                         (2, 4))}
+    sizes = {shape: _row_size(arch, shape) for shape in runs}
+    assert sizes == {(2, 1): 1, (2, 2): ROW_SIZES[arch][(2, 2)],
+                     (2, 4): ROW_SIZES[arch][(2, 4)]}
+    for a, b in (((2, 1), (2, 2)), ((2, 4), (2, 2)), ((2, 1), (2, 4))):
+        assert _agrees(runs[a], runs[b], sizes[a] == sizes[b] == 1), (a, b)
+    assert not _bit_equal(_port_run(arch, None), runs[(2, 2)])
 
 
 @pytest.mark.parametrize("arch", BIT_FAMILIES)
