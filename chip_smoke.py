@@ -108,8 +108,14 @@ rwkv6-7b on (1, 4) and Jamba's Mamba block on (1, 4), each beside
 unsharded serving: (1, 1) bit-equal, the other meshes' logits within
 TP_LIMITS and a dropped-partial control beyond them, float32 models at
 full width (rwkv6-7b also at full depth) within TP_F32_CHECKS, the four
-LM kernels held against their plain versions at the shard shapes; wall, peak memory and idle share
-printed per mesh. Phase 27 trains tensor-parallel over `model`: granite
+LM kernels held against their plain versions at the shard shapes, and
+(e) seamless-m4t-large-v2 uncut on the same meshes through the enc-dec
+steps (4 x 1024 frames and a 128-token prompt; 1 x 1024 frames and a
+2048-token prompt on (1, 4), `flash_attn` in every member's decoder
+layers, member 0's last call held against its plain version and timed
+beside SDPA): (1, 1) bit-equal, the other meshes within
+TP_LIMITS["seamless"], a control beyond it, 4 + 4 float32 layers within
+TP_F32_LIMIT; wall, peak memory and idle share printed per mesh. Phase 27 trains tensor-parallel over `model`: granite
 at full width and depth, the mesh train step's value-and-grad (each
 replica's `lm_loss` with remat on its model row) on (1, 4), (2, 2) and
 (1, 1) beside unsharded ((1, 1) bit-equal, the loss and
@@ -429,10 +435,27 @@ PIPE_F32_BOUND = 1e-6
 #: 9.343e-2, as TP_LIMITS are, 5x from each (its bf16 gate: 1.25x).
 TP_MESHES = ((1, 4), (2, 2), (1, 1))
 TP_CONTROL_MESH = (1, 4)
-TP_LIMITS = {"granite": 3.3e-2, "rwkv": 6.6e-2, "jamba": 4.1e-2}
+TP_LIMITS = {"granite": 3.3e-2, "rwkv": 6.6e-2, "jamba": 4.1e-2,
+             "seamless": 5.8e-2}
 TP_F32_STEPS, TP_F32_LIMIT = 3, 1e-4
 TP_F32_CHECKS = {"granite": ((4, TP_F32_LIMIT),),
                  "rwkv": ((4, TP_F32_LIMIT), (32, 1.7e-2))}
+#: 26 (e): seamless-m4t-large-v2 (SEAMLESS_ARCH) uncut in bf16 on
+#: TP_MESHES at phase 21's shape (ENCDEC_BATCH x ENCDEC_FRAMES frames, a
+#: 128-token decoder prompt, ENCDEC_NEW tokens) beside unsharded serving,
+#: and 1 x ENCDEC_FRAMES frames with an ENCDEC_LONG_PROMPT-token prompt on
+#: TP_CONTROL_MESH (`flash_attn` in every member's decoder layers). No
+#: kernel runs at the 128-token prompt, so TP_LIMITS["seamless"]'s floor
+#: is the unsharded bf16 logits' relative L2 to an unsharded float32 run
+#: of the same params; the control leaves the last member's partial out
+#: of the last encoder layer's and the last decoder layer's row sums.
+#: On an H100 at 700 W the floor read 3.056e-2 and the control 1.108e-1
+#: (their geometric mean 5.819e-2), the meshes 2.465e-2-2.507e-2 and the
+#: long prompt on TP_CONTROL_MESH 3.477e-2. TP_ED_F32_LAYERS encoder and
+#: as many decoder layers in float32 at full width on TP_ED_F32_MESHES:
+#: TP_F32_LIMIT (1.608e-6 and 1.619e-6, the control 0.3019).
+TP_ED_F32_LAYERS = 4
+TP_ED_F32_MESHES = (TP_CONTROL_MESH, (2, 2))
 #: phase 27: tensor-parallel training (`lm.lm_loss` with a runtime and the
 #: mesh `build_train_step` over `model`) over logical devices of cuda:0
 #: (the first cards where the machine has them). (a) granite (LM_ARCH)
@@ -2868,8 +2891,322 @@ def _tp_held(captured, smi) -> dict:
     return out
 
 
+def _tp_ed_serve(params, cfg, rt, frames, prompt, tokens=None,
+                 caches=False):
+    """26 (e): the enc-dec steps on `rt` (None: unsharded), synchronized: a
+    prefill of `frames` and `prompt` into a cache of the prompt's length
+    plus the tokens, then decode steps fed `tokens` [B, n] (n - 1 steps;
+    None: ENCDEC_NEW - 1 steps fed its own greedy tokens). Returns
+    ([the logits of each step], enc_out, the greedy tokens [B, n], and
+    with `caches` the caches after prefill and after the last step,
+    assembled whole)."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+
+    prefill, decode = build_prefill_step(cfg, rt), build_decode_step(cfg, rt)
+    whole = (lambda c: c) if rt is None else tp.gather_caches
+    n = ENCDEC_NEW if tokens is None else tokens.shape[1]
+    last, enc_out, cache, pos = prefill(params, frames, prompt,
+                                        cache_len=prompt.shape[1] + n)
+    logits, toks, kept = [last], [torch.argmax(last, -1)], []
+    if caches:
+        kept.append(whole(cache))
+    for t in range(n - 1):
+        fed = toks[-1][:, None] if tokens is None else tokens[:, t:t + 1]
+        last, cache, pos = decode(params, fed, enc_out, cache, pos)
+        logits.append(last)
+        toks.append(torch.argmax(last, -1))
+    if caches:
+        kept.append(whole(cache))
+    torch.cuda.synchronize()
+    return logits, enc_out, torch.stack(toks, 1), kept
+
+
+def _tp_ed_idle(params, cfg, rt, frames, prompt) -> dict:
+    """A seamless prefill and one decode step under the profiler (device
+    only): wall, busy (the union over streams) and idle share."""
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+
+    prefill, decode = build_prefill_step(cfg, rt), build_decode_step(cfg, rt)
+
+    def run():
+        last, enc_out, cache, pos = prefill(params, frames, prompt,
+                                            cache_len=prompt.shape[1] + 1)
+        decode(params, torch.argmax(last, -1)[:, None], enc_out, cache, pos)
+
+    wall, busy, n = _profile_idle(run, host=False)
+    return {"profiled_wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall, "device_activities": n}
+
+
+def _tp_ed_f32(cfg, frames, prompt, tokens) -> dict:
+    """26 (e), float32: seamless at full width with TP_ED_F32_LAYERS
+    encoder and decoder layers in float32, prefill and TP_F32_STEPS decode
+    steps fed `tokens`, on TP_ED_F32_MESHES against unsharded: logits
+    within TP_F32_LIMIT (relative L2), the control on TP_CONTROL_MESH
+    beyond it."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models.init import init_params
+
+    n = TP_ED_F32_LAYERS
+    cfg32 = cfg.with_(n_layers=n, n_enc_layers=n, dtype="float32",
+                      param_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(1), cfg32,
+                         device=prompt.device)
+    toks = tokens[:, :TP_F32_STEPS + 1]
+    v, d = cfg.vocab_size, cfg.d_model
+    ref, ref_enc, _, _ = _tp_ed_serve(params, cfg32, None, frames, prompt,
+                                      toks)
+    rep = {"layers": n, "limit": TP_F32_LIMIT}
+    for shape in TP_ED_F32_MESHES:
+        rt, _ = _tp_runtime(shape)
+        layout = tp.tp_layout(params, cfg32, rt)
+        got, enc, _, _ = _tp_ed_serve(layout, cfg32, rt, frames, prompt,
+                                      toks)
+        rep[str(shape)] = {
+            "distance": max(_tp_rel(a, b, v) for a, b in zip(got, ref)),
+            "enc_out_rel_l2": _tp_rel(enc, ref_enc, d)}
+        if shape == TP_CONTROL_MESH:
+            with _tp_control(n):
+                ctrl, _, _, _ = _tp_ed_serve(layout, cfg32, rt, frames,
+                                             prompt, toks)
+            rep["control"] = max(_tp_rel(a, b, v)
+                                 for a, b in zip(ctrl, ref))
+        print(f"  tp seamless float32, {n} + {n} layers at full width on "
+              f"{shape}: logits rel L2 to unsharded "
+              f"{rep[str(shape)]['distance']:.3e} (prefill and "
+              f"{TP_F32_STEPS} decode steps), enc_out "
+              f"{rep[str(shape)]['enc_out_rel_l2']:.3e}; limit "
+              f"{TP_F32_LIMIT:g}")
+        del layout
+        torch.cuda.empty_cache()
+    print(f"  tp seamless float32 control on {TP_CONTROL_MESH} (the last "
+          f"member's partial left out of the last layers' row sums): "
+          f"{rep['control']:.3e}, beyond the limit {TP_F32_LIMIT:g}")
+    del params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _tp_ed_flash(captured, smi) -> dict:
+    """26 (e): member 0's last-layer `flash_attn` call of the long prompt's
+    prefill on TP_CONTROL_MESH, held against `flash_attention_plain`
+    (through float64), its plan printed, and timed with CUDA events on a
+    stream of its own beside the plain version and SDPA at the same shape
+    (the profiler misses launches: ROADMAP Queue 2 D.3), with its bound."""
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain,
+                                                flash_attention_plan)
+
+    (q, k, v), kw = captured[0]
+    b, t, h, d = q.shape
+    kv = k.shape[2]
+    label = (f"seamless 1 x {t} decoder prefill, last layer, member 0: B {b}"
+             f" T {t} H {h} KV {kv} D {d}")
+    plan = flash_attention_plan(q, k, v)
+    print(f"  flash_attn plan [{label}]: {plan}")
+    with torch.inference_mode():
+        held = _held_f64("flash_attn", label, flash_attention(q, k, v, **kw),
+                         flash_attention_plain(q, k, v, **kw),
+                         _flash_f64(q, k, v, **kw), FLASH_TOL)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        torch.cuda.synchronize()
+        own = torch.cuda.Stream()
+        with torch.cuda.stream(own):
+            ms = time_cuda_batch(lambda: flash_attention(q, k, v, **kw))
+            plain_ms = time_cuda_batch(
+                lambda: flash_attention_plain(q, k, v, **kw))
+            sdpa_ms = time_cuda_batch(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+        torch.cuda.synchronize()
+    flops, nbytes = _flash_work(b, t, t, h, kv, d, 2, **kw)
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    print(f"  flash_attn [{label}] [{smi}]: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA {sdpa_ms:.4f} ms (CUDA events over 10 "
+          f"back-to-back calls on a stream of its own), bound "
+          f"{bound * 1e3:.3f} us ({bound / ms:.2%} of it)")
+    return {"label": label, "plan": plan, **held, "events_ms": ms,
+            "plain_ms": plain_ms, "library_ms": sdpa_ms,
+            "bound_ms": bound, "bound_by": "operations"
+            if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"}
+
+
+def _tp_seamless(dev, smi, reset_counts, read_counts):
+    """26 (e): seamless-m4t-large-v2 uncut in bf16, served by the enc-dec
+    steps unsharded and on each of TP_MESHES (ENCDEC_BATCH x
+    ENCDEC_FRAMES frames, the 128-token prompt, ENCDEC_NEW greedy tokens),
+    the runs counted (no kernel runs at that prompt); then the
+    teacher-forced logits (every run fed the unsharded tokens) held to
+    TP_LIMITS["seamless"], (1, 1) bit-equal to unsharded (logits, tokens,
+    enc_out, assembled caches), the greedy tokens to `_tp_tokens_gate`, a
+    control on TP_CONTROL_MESH beyond the limit, the floor (the unsharded
+    bf16 logits against float32) printed beside them; on TP_CONTROL_MESH
+    also the long prompt's prefill, every member launching `flash_attn`
+    in each decoder layer, member 0's last call held and timed
+    (`_tp_ed_flash`); and the float32 check (`_tp_ed_f32`). Returns
+    (report, launches, the held `flash_attn` call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to, tree_leaves
+    from repro_torch.serve.step import build_prefill_step
+
+    cfg = get_config(SEAMLESS_ARCH)
+    # the control drops the partials of calls n_layers - 1 (mod n_layers):
+    # the last encoder layer and the last decoder layer when both stacks
+    # have n_layers layers
+    assert cfg.n_enc_layers == cfg.n_layers, cfg
+    v, n_layers, limit = cfg.vocab_size, cfg.n_layers, TP_LIMITS["seamless"]
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    batch = _batch_on(batch_for_step(cfg, 0, global_batch=ENCDEC_BATCH,
+                                     seq_len=ENCDEC_FRAMES), dev)
+    frames, prompt = batch["frames"], batch["tokens"]
+    long_frames = _batch_on(batch_for_step(
+        cfg, 1, global_batch=1, seq_len=ENCDEC_FRAMES), dev)["frames"]
+    long_prompt = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (1, ENCDEC_LONG_PROMPT)).astype(np.int32)).to(dev)
+
+    def long_prefill(p, rt):
+        return build_prefill_step(cfg, rt)(p, long_frames, long_prompt)[0]
+
+    _tp_ed_serve(params, cfg, None, frames, prompt)              # warm
+    (ref_logits, ref_enc, ref_toks, ref_caches), wall, peak, base = \
+        _tp_timed(lambda: _tp_ed_serve(params, cfg, None, frames, prompt,
+                                       caches=True))
+    ref_long, long_s, long_peak, _ = _tp_timed(
+        lambda: long_prefill(params, None))
+    p32 = params_to(params, dtype=torch.float32)
+    f32, _, _, _ = _tp_ed_serve(p32, cfg.with_(
+        dtype="float32", param_dtype="float32"), None, frames, prompt,
+        ref_toks)
+    del p32
+    torch.cuda.empty_cache()
+    floor = max(_tp_rel(a, b, v) for a, b in zip(ref_logits, f32))
+    del f32
+    rep = {"unsharded": {"serve_s": wall, "peak_bytes": peak,
+                         "resident_bytes_before": base,
+                         "long_prefill_s": long_s,
+                         "long_peak_bytes": long_peak,
+                         **_tp_ed_idle(params, cfg, None, frames, prompt)},
+           "floor": floor}
+    print(f"tp seamless unsharded [{smi}]: prefill of frames "
+          f"{tuple(frames.shape)} and a {prompt.shape[1]}-token prompt and "
+          f"{ENCDEC_NEW - 1} greedy decode steps {wall:.3f} s, peak "
+          f"{peak / 2**30:.2f} GiB ({base / 2**30:.2f} resident before); "
+          f"prefill + one decode step profiled: idle share "
+          f"{rep['unsharded']['idle_share']:.4f}; 1 x {ENCDEC_LONG_PROMPT} "
+          f"prefill {long_s:.3f} s; the floor (these bf16 logits against "
+          f"a float32 run of the same params) {floor:.3e} rel L2")
+    launches, dist, control, flash = {}, {}, None, None
+    for shape in TP_MESHES:
+        rt, where = _tp_runtime(shape)
+        layout = tp.tp_layout(params, cfg, rt)
+        m = layout.model_size
+        reset_counts()
+        (_, _, toks, _), wall, peak, base = _tp_timed(
+            lambda: _tp_ed_serve(layout, cfg, rt, frames, prompt))
+        counts = read_counts()
+        assert not any(counts.values()), (shape, counts)
+        run = {"where": where, "serve_s": wall, "peak_bytes": peak,
+               "resident_bytes_before": base,
+               **_tp_ed_idle(layout, cfg, rt, frames, prompt)}
+        logits, enc_out, _, caches = _tp_ed_serve(
+            layout, cfg, rt, frames, prompt, ref_toks,
+            caches=shape == (1, 1))
+        steps = [_tp_rel(a, b, v) for a, b in zip(logits, ref_logits)]
+        delta = max(float((a[:, :v] - b[:, :v]).abs().max())
+                    for a, b in zip(logits, ref_logits))
+        run.update({"prefill_rel_l2": steps[0], "decode_rel_l2": steps[1:],
+                    "enc_out_rel_l2": _tp_rel(enc_out, ref_enc,
+                                              cfg.d_model),
+                    "max_abs_logit_diff": delta})
+        if shape == (1, 1):
+            same = {"logits": all(torch.equal(a, b) for a, b in zip(
+                        logits, ref_logits)),
+                    "tokens": torch.equal(toks, ref_toks),
+                    "enc_out": torch.equal(enc_out, ref_enc),
+                    "caches": all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves(caches), tree_leaves(ref_caches)))}
+            run["bit_equal"] = same
+            print(f"  tp seamless {shape} bit-equal to unsharded: {same}")
+            assert all(same.values()), same
+        else:
+            run["tokens"] = _tp_tokens_gate(toks, ref_toks, ref_logits,
+                                            delta, v)
+            dist[str(shape)] = max(steps)
+        if shape == TP_CONTROL_MESH:
+            with _tp_control(n_layers):
+                ctrl, _, _, _ = _tp_ed_serve(layout, cfg, rt, frames,
+                                             prompt, ref_toks)
+            control = max(_tp_rel(a, b, v) for a, b in zip(ctrl, ref_logits))
+            del ctrl
+            keep = {"calls": {(n_layers - 1) * m}, "args": []}
+            restore = _capture(layers_mod, "flash_attention", keep)
+            try:
+                reset_counts()
+                last, lwall, lpeak, _ = _tp_timed(
+                    lambda: long_prefill(layout, rt))
+                lcounts = read_counts()
+            finally:
+                restore()
+            assert lcounts["flash_attn"] == n_layers * m and sum(
+                lcounts.values()) == lcounts["flash_attn"], lcounts
+            for name, n in lcounts.items():
+                launches[name] = launches.get(name, 0) + n
+            run.update({"long_prefill_s": lwall, "long_peak_bytes": lpeak,
+                        "long_rel_l2": _tp_rel(last, ref_long, v),
+                        "long_launches": {k: n for k, n in lcounts.items()
+                                          if n}})
+            dist[f"{shape} long"] = run["long_rel_l2"]
+            flash = keep["args"]
+        rep[str(shape)] = run
+        print(f"  tp seamless {shape} over {where} [{smi}]: serving "
+              f"{wall:.3f} s (unsharded {rep['unsharded']['serve_s']:.3f} "
+              f"s), peak {peak / 2**30:.2f} GiB ({base / 2**30:.2f} "
+              f"resident before), idle share {run['idle_share']:.4f} "
+              f"(prefill + one decode step profiled; unsharded "
+              f"{rep['unsharded']['idle_share']:.4f}); logits rel L2 to "
+              f"unsharded: prefill {steps[0]:.3e}, decode max "
+              f"{max(steps[1:]):.3e}; enc_out {run['enc_out_rel_l2']:.3e}; "
+              f"max |logit diff| {delta:.3e}; tokens "
+              f"{run.get('tokens', {}).get('compared', 'all')} compared"
+              + (f"; 1 x {ENCDEC_LONG_PROMPT} prefill "
+                 f"{run['long_prefill_s']:.3f} s (unsharded {long_s:.3f} "
+                 f"s), rel L2 {run['long_rel_l2']:.3e}, launches "
+                 f"{run['long_launches']}" if "long_rel_l2" in run else ""))
+        if shape != (1, 1):
+            print(f"  tp seamless {shape} gate: {max(steps):.3e}"
+                  + (f" (long prompt {run['long_rel_l2']:.3e})"
+                     if "long_rel_l2" in run else "")
+                  + f" against TP_LIMITS['seamless'] {limit:g}")
+        del layout, logits, caches
+        torch.cuda.empty_cache()
+    rep.update({"distances": dist, "control": control, "limit": limit,
+                "control_floor_geomean": (control * floor) ** 0.5})
+    print(f"  tp seamless control on {TP_CONTROL_MESH} (the last member's "
+          f"partial left out of the last encoder and decoder layers' row "
+          f"sums): {control:.3e} against TP_LIMITS['seamless'] {limit:g}; "
+          f"floor {floor:.3e}; the geometric mean of this control and "
+          f"floor is {rep['control_floor_geomean']:.3e}")
+    rep["float32"] = _tp_ed_f32(cfg, frames, prompt, ref_toks)
+    del params
+    torch.cuda.empty_cache()
+    rep["flash_attn"] = _tp_ed_flash(flash, smi)
+    del flash
+    assert all(d <= limit for d in dist.values()), dist
+    assert control > limit, (control, limit)
+    f32 = rep["float32"]
+    assert all(f32[str(s)]["distance"] <= TP_F32_LIMIT
+               for s in TP_ED_F32_MESHES) and f32["control"] > TP_F32_LIMIT, \
+        f32
+    return rep, launches, rep["flash_attn"]
+
+
 def tp_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
-    """Phase 26: tensor-parallel serving, (a)-(d) above; each part prints
+    """Phase 26: tensor-parallel serving, (a)-(e) above; each part prints
     its seconds. Returns (report, the kernel launches of the TP runs)."""
     rep, clock, launches, captured = {"card": smi}, PhaseClock(), {}, {}
     for key, part, title in (
@@ -2886,6 +3223,12 @@ def tp_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
     del captured
     torch.cuda.empty_cache()
     clock("26 (d) the kernels at their shard shapes")
+    rep["seamless"], counts, flash = _tp_seamless(dev, smi, reset_counts,
+                                                  read_counts)
+    rep["held_at_shard_shapes"]["flash_attn"].append(flash)
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    clock("26 (e) seamless-m4t-large-v2 tensor-parallel")
     rep["launches"], rep["seconds"] = launches, clock.seconds
     return rep, {k: n for k, n in launches.items() if n}
 

@@ -31,6 +31,16 @@ of its own on its member's device (the kernel wrappers check exact
 contiguous shapes); positions that hold the same member on one device
 (logical devices) share one tree.
 
+An enc-dec model (seamless) takes the same rules: the encoder's
+`enc_groups` blocks are cut as a decoder's (q/k/v columns and `wo` rows
+by heads, the FFN by hidden units), and so is the decoder's
+cross-attention, `xattn/(wq|wk|wv)` by heads and `xattn/wo` by rows, so a
+member's cross-attention gives a partial sum that is reduced like the
+mixer's. `enc_out` is whole on every member: each computes
+`enc_final_norm` over the row sum of the last encoder layer, and the
+cross-attention's K and V come from that whole `enc_out` through the
+member's columns.
+
 Rows. A step splits its batch over the data-parallel replicas of
 `rt.batch_axes` (`sharding.replica_positions`; one replica when they do
 not divide the batch, as the JAX guard drops the axis); replica r's model
@@ -96,9 +106,6 @@ from repro_torch.params import tree_leaves, tree_map
 RULE_AXIS = "model"
 #: leaves that hold two halves side by side along their last dim
 _FUSED = re.compile(r"(mlp/w_in|moe/w_in|mamba/in_proj)$")
-#: what an enc-dec model on an LM mesh raises
-ENC_DEC_TODO = ("tensor-parallel enc-dec serving is not ported yet "
-                "(ROADMAP Queue 1 item 6, part 4b(iii))")
 
 
 def _split_dims(cfg) -> list[tuple[str, int]]:
@@ -143,15 +150,14 @@ def train_row_size(cfg, mesh: LMMesh) -> tuple[int, str | None]:
     """(the members of a training model row on `mesh`, why it is one
     member where the `model` axis has more): the axis' size where `cfg`
     splits over it; else 1, as a batch the replicas cannot split runs as
-    one replica. An enc-dec model trains data-parallel (its encoder and
-    cross-attention run on one device in `lm.tp_apply_block`)."""
+    one replica. An enc-dec model trains data-parallel: its
+    tensor-parallel training is not ported yet."""
     m = mesh.shape.get(RULE_AXIS, 1)
     if m == 1:
         return 1, None
     if cfg.is_enc_dec:
         return 1, ("an enc-dec model trains data-parallel (tensor-parallel "
-                   "enc-dec training is ROADMAP Queue 1 item 6, part "
-                   "4b(iv))")
+                   "enc-dec training is ROADMAP Queue 1 item 3)")
     bad = unsplit_dim(cfg, m)
     if bad is not None:
         return 1, f"{bad} does not split over {m} members"
@@ -254,8 +260,6 @@ def tp_layout(params, cfg, rt: Runtime) -> TPLayout:
         raise ValueError(f"tensor-parallel serving runs along the axis the "
                          f"param rules cut by, {RULE_AXIS!r}; the runtime "
                          f"names {rt.tp_axis!r}")
-    if cfg.is_enc_dec:
-        raise NotImplementedError(ENC_DEC_TODO)
     m = mesh.shape.get(RULE_AXIS, 1)
     check_splits(cfg, m)
     whole = tree_map(placement.gather, params)

@@ -9,27 +9,53 @@ bidirectional attention stack (`lm._run_groups` over `enc_groups` with
 the JAX package, decode recomputes the cross-attention K and V from
 `enc_out` at every step: the cache holds only the decoder's
 self-attention.
+
+Tensor parallelism. `prefill_encdec` and `decode_step_encdec` take a
+runtime (`rt`, as the JAX functions do); on an LM mesh they serve
+tensor-parallel over its `model` axis as `lm.prefill` / `lm.decode_step`
+serve a decoder (`distributed.tensor_parallel`). The batch is split over
+the data-parallel replicas, and each replica's frames go to every member
+of its model row. A member computes its heads and FFN units of every
+encoder layer (the partial sums reduced across the row), then
+`enc_final_norm` over the whole `enc_out`, which every member holds.
+The decoder embeds and projects to logits vocab-parallel, and a member
+computes its heads of the self-attention, its `xattn` heads of the
+cross-attention (their K and V from the whole `enc_out`) and its FFN
+units. The self-attention cache is a `tensor_parallel.TPCache` of the
+members' heads. Prefill returns `enc_out` whole on the caller's device,
+the replicas joined along the batch, and decode hands each replica's
+rows of it to its members. With `rt` None, or a runtime whose mesh is
+not an LM mesh, both run the single-device path.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers, lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.init import torch_dtype
 from repro_torch.models.moe import AUX_WEIGHT
 
 
+def _row_encode(row, trees, cfg, frames, *, remat: bool = False) -> list:
+    """`encode` on a model row (`tensor_parallel.Row`, or `SOLO`):
+    `frames` are the members' copies, `trees` their params; returns the
+    members' enc_out, the same on each."""
+    xs = row.map(lambda k, f: f.to(torch_dtype(cfg.dtype)), frames)
+    xs, _, _ = lm._row_groups(
+        row, trees, cfg, xs, positions=row.map(
+            lambda k, x: lm._positions(x), xs), causal=False, remat=remat,
+        groups_key="enc_groups", kinds=["attn"], moes=[False])
+    return row.map(lambda k, tr, x: layers.rmsnorm(
+        x, tr["enc_final_norm"]["scale"], cfg.norm_eps), trees, xs)
+
+
 def encode(params, cfg: ModelConfig, frames: torch.Tensor, *,
            remat: bool = False) -> torch.Tensor:
     """frames [B, S_enc, D] (precomputed frame embeddings) -> enc_out."""
-    x = frames.to(torch_dtype(cfg.dtype))
-    x, _, _ = lm._run_groups(params, cfg, x, positions=lm._positions(x),
-                             causal=False, remat=remat,
-                             groups_key="enc_groups", kinds=["attn"],
-                             moes=[False])
-    return layers.rmsnorm(x, params["enc_final_norm"]["scale"], cfg.norm_eps)
+    return _row_encode(tp.SOLO, [params], cfg, [frames], remat=remat)[0]
 
 
 def forward_encdec(params, cfg: ModelConfig, frames: torch.Tensor,
@@ -53,41 +79,89 @@ def encdec_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
         + aux_weight * aux
 
 
-def prefill_encdec(params, cfg: ModelConfig, frames: torch.Tensor,
-                   tokens: torch.Tensor, *, cache_len: int | None = None):
-    """Encoder pass + decoder prompt prefill. Returns (last_logits [B,V],
-    enc_out, caches, cache_pos [B]).
-
-    The cache is built as the JAX package builds it: the prompt's last W
-    keys and values cast to the cache's dtype. An int8 KV config casts
-    them without scales (the JAX function does the same)."""
-    enc_out = encode(params, cfg, frames)
-    x = lm.embed_tokens(params, cfg, tokens)
-    b, s, _ = x.shape
-    cache_len = cache_len or s
-    x, kv_stacks, _ = lm._run_groups(params, cfg, x,
-                                     positions=lm._positions(x),
-                                     enc_out=enc_out)
-    caches = lm.init_cache(cfg, b, cache_len, device=x.device)
-    for j, c in enumerate(caches):
-        c = c["attn"]
-        k_all, v_all = kv_stacks[j]["attn_kv"]                # [G,B,S,KV,hd]
+def _prefill_cache(cfg, kv_stacks: list, s: int, cache_len: int) -> list:
+    """The decoder's self-attention cache from prefill's per-layer (k, v)
+    stacks [G,B,S,KV,hd], built as the JAX package builds it: the prompt's
+    last W keys and values cast to the cache's dtype, in a ring buffer of
+    the heads the stacks hold. An int8 KV config casts them without scales
+    (the JAX function does the same)."""
+    caches = []
+    for kind, st in zip(cfg.layer_kinds(), kv_stacks):
+        k_all, v_all = st["attn_kv"]
+        g, b, _, kv, _ = k_all.shape
+        device = k_all.device
+        c = lm._attn_cache(cfg, g, b, lm._attn_alloc(cfg, kind, cache_len),
+                           kv, torch_dtype(cfg.dtype), device)
         w = c["k"].shape[2]
-        tail = torch.arange(s - min(s, w), s, device=x.device)
+        tail = torch.arange(s - min(s, w), s, device=device)
         slots = tail % w
         c["k"][:, :, slots] = k_all[:, :, tail].to(c["k"].dtype)
         c["v"][:, :, slots] = v_all[:, :, tail].to(c["v"].dtype)
         c["pos"][:, :, slots] = tail.to(torch.int32)
+        caches.append({"attn": c})
+    return caches
+
+
+def prefill_encdec(params, cfg: ModelConfig, frames: torch.Tensor,
+                   tokens: torch.Tensor, *, cache_len: int | None = None,
+                   rt=None):
+    """Encoder pass + decoder prompt prefill. Returns (last_logits [B,V],
+    enc_out [B,S_enc,D], caches, cache_pos [B]); the cache as
+    `_prefill_cache` builds it. On an LM mesh (`rt`) `params` may also be
+    a `tensor_parallel.TPLayout` of it, and the cache is a
+    `tensor_parallel.TPCache` (module docstring)."""
+    layout = tp.serving_layout(params, cfg, rt)
+    if layout is not None:
+        return _tp_prefill(layout, cfg, frames, tokens, cache_len)
+    enc_out = encode(params, cfg, frames)
+    x = lm.embed_tokens(params, cfg, tokens)
+    b, s, _ = x.shape
+    x, kv_stacks, _ = lm._run_groups(params, cfg, x,
+                                     positions=lm._positions(x),
+                                     enc_out=enc_out)
+    caches = _prefill_cache(cfg, kv_stacks, s, cache_len or s)
     last = lm.logits_from_hidden(params, cfg, x[:, -1:])[:, 0]
     return last, enc_out, caches, torch.full((b,), s, dtype=torch.int32,
                                              device=x.device)
 
 
+def _tp_prefill(layout, cfg, frames, tokens, cache_len):
+    """`prefill_encdec` tensor-parallel: each replica's frames and prompt
+    through its model row; the last logits and enc_out joined on the
+    caller's device."""
+    b = tokens.shape[0]
+    rows = lm._tp_rows(layout, b, tokens.device)
+    last, enc, blocks = [], [], []
+    for row, trees, sl in rows:
+        es = _row_encode(row, trees, cfg, row.put(frames[sl]))
+        xs = lm._tp_embed(row, trees, cfg, row.put(tokens[sl]))
+        s = xs[0].shape[1]
+        xs, kv_stacks, _ = lm._row_groups(
+            row, trees, cfg, xs, positions=row.map(
+                lambda k, x: lm._positions(x), xs), enc_out=es)
+        blocks.append(row.map(lambda k, kv: _prefill_cache(
+            cfg, kv, s, cache_len or s), kv_stacks))
+        out = lm._tp_logits(row, trees, cfg, [x[:, -1:] for x in xs])
+        last.append(row.take(out[:, 0]))
+        enc.append(row.take(es[0]))
+    for row, _, _ in rows:
+        row.close()
+    cache_pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    return (torch.cat(last), torch.cat(enc),
+            tp.TPCache(blocks, layout.rows(b)), cache_pos)
+
+
 def decode_step_encdec(params, cfg: ModelConfig, token: torch.Tensor,
-                       enc_out: torch.Tensor, caches, cache_pos: torch.Tensor):
+                       enc_out: torch.Tensor, caches, cache_pos: torch.Tensor,
+                       rt=None):
     """One decoder step against the self-attention cache, cross-attending
     to enc_out. token [B,1]. Returns (logits [B,V], new_caches,
-    cache_pos+1)."""
+    cache_pos+1). On an LM mesh (`rt`) as `prefill_encdec`, on the
+    `TPCache` of a prefill on the same rows."""
+    layout = tp.serving_layout(params, cfg, rt)
+    if layout is not None:
+        return lm._tp_decode(layout, cfg, token, caches, cache_pos,
+                             enc_out=enc_out)
     x = lm.embed_tokens(params, cfg, token)
     x, new_caches, _ = lm._run_groups(params, cfg, x,
                                       positions=cache_pos[:, None],

@@ -235,12 +235,14 @@ def cross_attention(p, x: torch.Tensor, enc_out: torch.Tensor, cfg,
     """Decoder cross-attention (seamless), dense — port of `repro.models.
     layers.cross_attention`. x [B,T,D], enc_out [B,S,D], enc_mask [B,S]
     bool or None (every frame seen). No RoPE, no bias, no causal mask:
-    queries and keys all sit at position 0."""
+    queries and keys all sit at position 0. The head counts come from the
+    weights' widths, as in `_qkv`, so a tensor-parallel member's slice of
+    whole heads gives its partial sum through `_out_proj`."""
     b, t, _ = x.shape
     s = enc_out.shape[1]
-    q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = (enc_out @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = (x @ p["wq"]).reshape(b, t, -1, cfg.head_dim)
+    k = (enc_out @ p["wk"]).reshape(b, s, -1, cfg.head_dim)
+    v = (enc_out @ p["wv"]).reshape(b, s, -1, cfg.head_dim)
     q_pos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
     kv_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
     mask = _mask(q_pos, kv_pos, causal=False, window=None,

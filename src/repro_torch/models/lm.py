@@ -14,7 +14,9 @@ the JAX layout: a list over group positions whose leaves are stacked
 
 The enc-dec model (`models/encdec.py`) runs its encoder through
 `_run_groups` with `groups_key="enc_groups"` and `causal=False`, and its
-decoder with `enc_out` (cross-attention in every block).
+decoder with `enc_out` (cross-attention in every block); its
+tensor-parallel serving runs both through `_row_groups`, `enc_out` whole
+on every member.
 
 Tensor parallelism. `prefill` and `decode_step` take a runtime (`rt`, as
 the JAX functions do); on an LM mesh they serve tensor-parallel over its
@@ -106,8 +108,8 @@ def apply_block(p, x: torch.Tensor, cfg, kind: str, is_moe: bool, *,
     whose row sums add nothing."""
     xs, new, aux = tp_apply_block(
         tp.SOLO, [p], [x], cfg, kind, is_moe, positions=[positions],
-        caches=[cache], cache_pos=[cache_pos], enc_out=enc_out,
-        causal=causal)
+        caches=[cache], cache_pos=[cache_pos],
+        enc_out=None if enc_out is None else [enc_out], causal=causal)
     return xs[0], new[0], aux[0]
 
 
@@ -116,11 +118,13 @@ def tp_apply_block(row, ps, xs, cfg, kind: str, is_moe: bool, *,
                    causal: bool = True):
     """One layer on a model row (`tensor_parallel.Row`, or `SOLO` for one
     device): `ps` are the members' slices of the block's params, and `xs`,
-    `positions`, `caches` and `cache_pos` lists over the members (the same
-    activations on every member). Each member computes its shard of the
-    mixer and the FFN; the partial sums are reduced across the row before
-    `post_block_norm`'s rmsnorm and before the residual add. `enc_out`
-    and `causal=False` (enc-dec models) run on one device only. Returns
+    `positions`, `caches`, `cache_pos` and `enc_out` lists over the
+    members (the same activations on every member). Each member computes
+    its shard of the mixer, the cross-attention (the enc-dec decoder's,
+    over its `xattn` heads and the whole `enc_out`) and the FFN; the
+    partial sums are reduced across the row before `post_block_norm`'s
+    rmsnorm and before the residual add. `causal=False` is the encoder's
+    block: dense bidirectional attention over the member's heads. Returns
     (xs, the members' new cache entries, the members' aux losses)."""
     m, eps = row.size, cfg.norm_eps
     caches = caches or [None] * m
@@ -161,9 +165,11 @@ def tp_apply_block(row, ps, xs, cfg, kind: str, is_moe: bool, *,
     xs = row.map(add, xs, ys)
 
     if enc_out is not None:                     # decoder cross-attention
-        xs = row.map(lambda k, p, x: x + layers.cross_attention(
-            p["xattn"], layers.rmsnorm(x, p["ln_x"]["scale"], eps), enc_out,
-            cfg), ps, xs)
+        ys = tp.row_sum(row, row.map(
+            lambda k, p, x, e: layers.cross_attention(
+                p["xattn"], layers.rmsnorm(x, p["ln_x"]["scale"], eps), e,
+                cfg), ps, xs, enc_out))
+        xs = row.map(add, xs, ys)
 
     hs = row.map(norm("ln2"), ps, xs)
     aux = [0.0] * m
@@ -215,8 +221,8 @@ def _run_groups(params, cfg, x: torch.Tensor, *, positions, caches=None,
     xs, new, aux = _row_groups(
         tp.SOLO, [params], cfg, [x], positions=[positions],
         caches=None if caches is None else [caches], cache_pos=[cache_pos],
-        enc_out=enc_out, causal=causal, remat=remat, groups_key=groups_key,
-        kinds=kinds, moes=moes)
+        enc_out=None if enc_out is None else [enc_out], causal=causal,
+        remat=remat, groups_key=groups_key, kinds=kinds, moes=moes)
     return xs[0], new[0], aux[0]
 
 
@@ -226,9 +232,9 @@ def _row_groups(row, trees, cfg, xs, *, positions, caches=None,
                 kinds=None, moes=None):
     """`_run_groups` on a model row: every layer in order through
     `tp_apply_block`; `trees` are the members' params (or slices),
-    `caches` the members' caches, and `positions` and `cache_pos` lists
-    over the members. Returns (xs, the members' new caches stacked
-    [G, ...], the members' aux sums)."""
+    `caches` the members' caches, and `positions`, `cache_pos` and
+    `enc_out` lists over the members. Returns (xs, the members' new
+    caches stacked [G, ...], the members' aux sums)."""
     kinds = kinds or cfg.layer_kinds()
     moes = moes if moes is not None else cfg.layer_is_moe()
     n_groups = tree_leaves(trees[0][groups_key][0])[0].shape[0]
@@ -512,8 +518,10 @@ def _tp_prefill(layout, cfg, tokens, embeds, cache_len):
             cache_pos)
 
 
-def _tp_decode(layout, cfg, token, caches, cache_pos):
-    """`decode_step` tensor-parallel on a `TPCache` of the same rows."""
+def _tp_decode(layout, cfg, token, caches, cache_pos, enc_out=None):
+    """`decode_step` tensor-parallel on a `TPCache` of the same rows (the
+    enc-dec decoder's too: each replica's rows of `enc_out` go to its
+    members)."""
     if not isinstance(caches, tp.TPCache) or \
             caches.rows != layout.rows(token.shape[0]):
         raise ValueError("decode on a mesh takes the TPCache of a prefill "
@@ -523,9 +531,10 @@ def _tp_decode(layout, cfg, token, caches, cache_pos):
     for (row, trees, sl), cache in zip(rows, caches.blocks):
         cps = row.put(cache_pos[sl])
         xs = _tp_embed(row, trees, cfg, row.put(token[sl]))
-        xs, new, _ = _row_groups(row, trees, cfg, xs,
-                                 positions=[cp[:, None] for cp in cps],
-                                 caches=cache, cache_pos=cps)
+        xs, new, _ = _row_groups(
+            row, trees, cfg, xs, positions=[cp[:, None] for cp in cps],
+            caches=cache, cache_pos=cps,
+            enc_out=None if enc_out is None else row.put(enc_out[sl]))
         blocks.append(new)
         logits.append(row.take(_tp_logits(row, trees, cfg, xs)[:, 0]))
     for row, _, _ in rows:

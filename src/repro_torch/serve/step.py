@@ -11,15 +11,17 @@ in prefill. The enc-dec steps (seamless) take the encoder's frames in
 prefill and its output in decode, as the JAX package's do.
 
 Each `build_*_step` takes a runtime, as the JAX package's do (`rt`,
-default None). On an LM mesh a decoder serves tensor-parallel over the mesh's
-`model` axis and data-parallel over its `rt.batch_axes`
+default None). On an LM mesh a model serves tensor-parallel over the
+mesh's `model` axis and data-parallel over its `rt.batch_axes`
 (`distributed.tensor_parallel`), each member of a model row launching its
 shard's kernels on its own stream: the steps take whole params, sharded
 params or a `tensor_parallel.tp_layout` of them (build it once to serve
 many calls without slicing again), and their cache is a
-`tensor_parallel.TPCache`. An enc-dec model on an LM mesh raises
-NotImplementedError. With `rt` None, or a runtime whose mesh is not an LM
-mesh, every step runs the single-device path.
+`tensor_parallel.TPCache`. The enc-dec steps cut the encoder, the
+decoder's self- and cross-attention and both FFNs the same way
+(`models/encdec.py`); prefill returns `enc_out` whole, and decode takes
+it back. With `rt` None, or a runtime whose mesh is not an LM mesh, every
+step runs the single-device path.
 """
 
 from __future__ import annotations
@@ -34,21 +36,15 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.params import params_to
 
 
-def _no_enc_dec_mesh(cfg: ModelConfig, rt) -> None:
-    if cfg.is_enc_dec and rt is not None and rt.lm_mesh is not None:
-        raise NotImplementedError(tp.ENC_DEC_TODO)
-
-
 def build_prefill_step(cfg: ModelConfig, rt=None):
     """step(params, tokens, embeds=None, cache_len=None) -> (last_logits,
     caches, cache_pos); for enc-dec step(params, frames, tokens,
     cache_len=None) -> (last_logits, enc_out, caches, cache_pos)."""
-    _no_enc_dec_mesh(cfg, rt)
     if cfg.is_enc_dec:
         @torch.inference_mode()
         def encdec_step(params, frames, tokens, cache_len=None):
             return encdec.prefill_encdec(params, cfg, frames, tokens,
-                                         cache_len=cache_len)
+                                         cache_len=cache_len, rt=rt)
         return encdec_step
 
     @torch.inference_mode()
@@ -62,12 +58,11 @@ def build_decode_step(cfg: ModelConfig, rt=None):
     """step(params, token, caches, cache_pos) -> (logits, caches,
     cache_pos); for enc-dec step(params, token, enc_out, caches,
     cache_pos)."""
-    _no_enc_dec_mesh(cfg, rt)
     if cfg.is_enc_dec:
         @torch.inference_mode()
         def encdec_step(params, token, enc_out, caches, cache_pos):
             return encdec.decode_step_encdec(params, cfg, token, enc_out,
-                                             caches, cache_pos)
+                                             caches, cache_pos, rt=rt)
         return encdec_step
 
     @torch.inference_mode()

@@ -28,9 +28,9 @@ from the whole params by differentiable operations, the cross-entropy is
 vocab-parallel, and the backward runs through the same row hand-offs
 back to the whole params. A config that does not split over m (heads,
 GQA groups or hidden units), and any enc-dec model (seamless: its
-encoder and cross-attention are not cut yet, ROADMAP part 4b(iv)),
-trains with rows of one member: the data-parallel step alone, whose
-bits a (d, 1) mesh gives too. `step_fn.model_row` is the row's size and
+tensor-parallel training is ROADMAP Queue 1 item 3), trains with rows
+of one member: the data-parallel step alone, whose bits a (d, 1) mesh
+gives too. `step_fn.model_row` is the row's size and
 `step_fn.model_row_note` says why it is one member where the axis has
 more (None otherwise). The gradients
 are summed over replicas in replica order on the mesh's first device,

@@ -491,12 +491,38 @@ def test_decode_takes_the_cache_of_a_prefill_on_the_same_rows():
 
 
 def test_enc_dec_on_an_lm_mesh_raises_naming_the_roadmap_item():
+    """Enc-dec serving on an LM mesh no longer raises: the steps build and
+    run on (1, 2) (held against the JAX mesh in
+    `tests/test_torch_tp_encdec.py`), and the unsharded steps are the
+    enc-dec functions as before. What still names the roadmap item is
+    training: seamless trains on rows of one member, and the reason names
+    ROADMAP Queue 1 item 3."""
+    from repro_torch.models import encdec
+    from repro_torch.models.init import init_params
+
     cfg = port_reduced_config("seamless-m4t-large-v2")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    frames = torch.randn((2, 8, cfg.d_model), generator=g)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 6), generator=g)
     rt = _runtime((1, 2))
-    for build in (build_prefill_step, build_decode_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build(cfg, rt)
-        build(cfg, None)                       # unsharded: as before
+    want = encdec.prefill_encdec(params, cfg, frames, prompt)
+    nxt = torch.argmax(want[0], -1)[:, None]
+    want_step = encdec.decode_step_encdec(params, cfg, nxt, *want[1:])
+    last, enc_out, cache, pos = build_prefill_step(cfg, rt)(params, frames,
+                                                            prompt)
+    assert isinstance(cache, tp.TPCache) and enc_out.shape == want[1].shape
+    logits, cache, pos = build_decode_step(cfg, rt)(params, nxt, enc_out,
+                                                    cache, pos)
+    for got, ref in ((last, want[0]), (logits, want_step[0])):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
+                                   atol=LOGIT_ATOL)
+    assert pos.tolist() == want_step[2].tolist()
+    assert _same(build_prefill_step(cfg, None)(params, frames, prompt), want)
+    assert _same(build_decode_step(cfg, None)(params, nxt, *want[1:]),
+                 want_step)
+    m, why = tp.train_row_size(cfg, rt.lm_mesh)
+    assert m == 1 and "ROADMAP Queue 1 item 3" in why
 
 
 def test_the_member_heads_and_states_of_a_cache_assemble_whole():

@@ -406,5 +406,5 @@ def test_step_options_on_a_model_row(arch, kw):
 
 def test_enc_dec_trains_data_parallel_on_any_mesh():
     step, got = _steps(SEAMLESS, (2, 2), {}, n=1)
-    assert step.model_row == 1 and "4b(iv)" in step.model_row_note
+    assert step.model_row == 1 and "Queue 1 item 3" in step.model_row_note
     assert _bit_equal(got, _steps(SEAMLESS, (2, 1), {}, n=1)[1])
