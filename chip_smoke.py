@@ -76,9 +76,11 @@ and resumed at 2 and at 4 devices; it prints the step ms, the
 trains on the LM mesh (`build_train_step(cfg, rt)` on `make_test_mesh`
 meshes of logical devices over cuda:0; params and AdamW state stored as
 per-device blocks, one data-parallel replica a batch row on its stream):
-seamless-m4t-large-v2 at full width and depth in bf16 on (2, 2), (1, 4)
-and (2, 1) beside the unsharded step (losses within 2e-2 relative, (1, 4)
-bit-equal; step ms, peak memory and idle share printed), reduced float32
+seamless-m4t-large-v2 at full width and depth in bf16 on (2, 2), (1, 4),
+(2, 1) and (1, 1) beside the unsharded step ((1, 4) and (2, 2) on model
+rows of 4 and 2 members; losses within 2e-2 relative, the grad norms,
+final params and first moments within MESH_LIMITS, (1, 1) bit-equal; step
+ms, peak memory and idle share printed), reduced float32
 granite (`moe_experts`, and `flash_attn` at 2048 tokens), rwkv6 (`wkv6`)
 and the Jamba hybrid (`mamba_scan`) on (2, 2) against the same steps on
 logical CPU devices, a `--mesh 2x2` launcher run killed and resumed
@@ -124,8 +126,21 @@ them), one float32 `build_train_step` step of granite, rwkv6-7b and
 Jamba's layer 0 at full width on (1, 4) and (2, 2) within
 TPT_F32_LIMITS (rwkv6-7b's gradients also in float64), the four LM
 kernels held at the training shard shapes; wall, peak memory, idle
-share and the kernels with the most device time printed per mesh.
-Phases 4-7 pin `planner="threshold"`. Every failed check exits non-zero.
+share and the kernels with the most device time printed per mesh; and
+(d) seamless-m4t-large-v2 uncut, each replica's `encdec_loss` on its
+model row (the encoder's layers, then the decoder's reading the members'
+enc_out), 1 x 1024 frames and a 2048-token decoder sequence on (1, 4) and
+(1, 1), 2 x on (2, 2) (`flash_attn` in every member's decoder layers),
+beside unsharded: (1, 1) bit-equal, the loss and the gradient tree within
+TPT_LIMITS["seamless"], a dropped-partial control beyond them, member 0's
+last decoder `flash_attn` call held against its plain version and timed
+beside SDPA, and 4 + 4 float32 layers in one `build_train_step` step on
+(1, 4) and (2, 2) within TPT_F32_LIMIT.
+Phases 4-7 pin `planner="threshold"`. The launcher processes that phases
+20, 21 (e), 23 and 24 (c)-(d) check run ahead of phase 20, while nothing
+else runs, in two rounds of five processes started together
+(`_run_ahead`: their start-up is most of their time); 24 (a) profiles
+its last step, and 24 (b) runs MESH_CASE_STEPS steps. Every failed check exits non-zero.
 
 Output: per-kernel lines, the served requests' split into host stages and
 device span, the search stages, a `{"kernels": [...]}` JSON line, the
@@ -354,20 +369,24 @@ SHARD_LAUNCH_DEVICES, SHARD_RESUME_DEVICES = 2, 4
 #: phase 24: the LM mesh. (a) seamless at full width and depth (bf16) on
 #: MESH_SHAPES meshes of logical devices over cuda:0, MESH_STEPS steps of
 #: phase 21 (b)'s batches, beside the unsharded step: losses within
-#: MESH_LOSS_RTOL relative, one-replica meshes bit-equal, and every mesh's
-#: grad norms, final params and first moments within MESH_LIMITS of the
-#: unsharded run's; a dropped-replica control (the unsharded step on the
-#: first replica's rows alone) must exceed each of MESH_LIMITS. (b) MESH_CASES
+#: MESH_LOSS_RTOL relative, (1, 1) bit-equal (losses, final params and
+#: first moments), and every mesh's grad norms, final params and first
+#: moments within MESH_LIMITS of the unsharded run's ((1, 4) and (2, 2)
+#: train on model rows of 4 and 2 members, (2, 1) data-parallel); a
+#: dropped-replica control (the unsharded step on the first replica's
+#: rows alone) must exceed each of MESH_LIMITS. (b) MESH_CASES
 #: (arch, config changes, batch, tokens, the kernels its forward
-#: launches), reduced float32 on (2, 2), MESH_STEPS steps against the same
-#: on logical CPU devices: params and moments within STEP_PARAM_BOUND.
+#: launches), reduced float32 on (2, 2), MESH_CASE_STEPS steps against the
+#: same on logical CPU devices: params and moments within
+#: STEP_PARAM_BOUND.
 #: (c) the launcher at `--mesh 2x2` (phase 21's LM launcher run) killed
 #: and resumed, its last checkpoint restored onto MESH_RESTORE_SHAPES and
 #: resharded live onto (1, 4). (d) the launcher at `--mesh single` for
 #: MESH_SINGLE_STEPS steps of MESH_SINGLE_BATCH sequences and the
 #: elastic_restart example.
-MESH_SHAPES = ((2, 2), (1, 4), (2, 1))
+MESH_SHAPES = ((2, 2), (1, 4), (2, 1), (1, 1))
 MESH_STEPS = 3
+MESH_CASE_STEPS = 2
 MESH_LOSS_RTOL = 2e-2
 #: distances to the unsharded run (`_mesh_distances`): grad norms (largest
 #: relative error over the steps), final params (L2 distance over the
@@ -488,15 +507,32 @@ TP_ED_F32_MESHES = (TP_CONTROL_MESH, (2, 2))
 #: FFN at its 65536-id vocabulary (the whole float32 params and the
 #: reference's update wait on the host, so that the card holds the mesh
 #: step's copies). `wkv6` (H 16) and `mamba_scan` (Din 4096) are held
-#: at the captured shard shapes against their plain versions.
+#: at the captured shard shapes against their plain versions. (d)
+#: seamless-m4t-large-v2 (SEAMLESS_ARCH) uncut in bf16 as (a), each
+#: replica's `encdec_loss` on its model row (the encoder's layers, then
+#: the decoder's reading the members' enc_out), at (replicas) x
+#: ENCDEC_FRAMES frames (`batch_for_step`, seed 37) and a TPT_TOKENS-token
+#: decoder sequence drawn as its tokens are (`_tpt_ed_batch`), so that
+#: `flash_attn` runs in every member's decoder layers: (1, 1) bit-equal,
+#: TPT_LIMITS["seamless"], the control leaving the last member's partial
+#: out of the last encoder layer's and the last decoder layer's row sums,
+#: member 0's last decoder `flash_attn` call on TPT_CONTROL_MESH held
+#: against its plain version and timed beside SDPA; TP_ED_F32_LAYERS
+#: encoder and as many decoder layers in float32 at full width (2 x
+#: ENCDEC_FRAMES frames, TPT_TOKENS tokens), one `build_train_step` step
+#: on (1, 4) against unsharded and on (2, 2) against (2, 1) within
+#: TPT_F32_LIMIT, the control beyond it.
 TPT_MESHES = ((1, 4), (2, 2), (1, 1))
 TPT_CONTROL_MESH = (1, 4)
 TPT_TOKENS = 2048
-#: the loss's relative error and the gradient tree's relative L2: each
-#: the geometric mean of the control's reading and the floor's on an H100
-#: at 700 W (PERF.md §6: loss 1.423e-3 and 3.721e-5, grads 7.724e-2 and
-#: 3.850e-3), as phase 26 sets TP_LIMITS
-TPT_LIMITS = {"loss": 2.3e-4, "grads": 1.7e-2}
+#: the loss's relative error and the gradient tree's relative L2 of (a)
+#: granite and (d) seamless: each the geometric mean of the control's
+#: reading and the floor's on an H100 at 700 W (PERF.md §6), as phase 26
+#: sets TP_LIMITS: granite's loss 1.423e-3 and 3.721e-5, grads 7.724e-2
+#: and 3.850e-3; seamless's loss 1.675e-3 and 7.437e-6, grads 1.123e-1
+#: and 4.071e-3
+TPT_LIMITS = {"granite": {"loss": 2.3e-4, "grads": 1.7e-2},
+              "seamless": {"loss": 1.1e-4, "grads": 2.1e-2}}
 TPT_TOP = 6
 #: kernel names of (c)'s question: which grows under a model row, the
 #: redundant routing and dispatch or the gather backward
@@ -521,7 +557,7 @@ TPT_F32_LIMIT = 1e-4
 #: float64; `_tpt_f64` holds its float64 gradients to TPT_F32_LIMIT), and
 #: Jamba's update ((1, 4) 1.533e-4, control 1.083: 84x): the first AdamW
 #: step divides by |g| + eps, which magnifies the rounding of gradients
-#: near eps
+#: near eps. (d)'s float32 seamless steps are held to TPT_F32_LIMIT.
 TPT_F32_LIMITS = {
     "granite": dict.fromkeys(("loss", "grad_norm", "update"), TPT_F32_LIMIT),
     "rwkv": {"loss": TPT_F32_LIMIT, "grad_norm": 1.5e-2, "update": 6.6e-2},
@@ -999,6 +1035,7 @@ def main() -> int:
     phase("19 SimGNN training on the card")
 
     # ---- phase 20: the launcher, checkpoints and the examples ----------
+    report["launcher_runs_ahead_s"] = _run_ahead()
     report["launcher"] = launcher_phase(dev, reset_counts, read_counts)
     phase("20 training launcher, checkpoints and examples on the card")
 
@@ -1405,36 +1442,156 @@ def _profile_idle(fn, host: bool = True,
     return wall, busy / 1e9, len(spans)
 
 
-def _launch_all(*runs) -> list:
-    """`python -m repro_torch.launch.train` with phase 20's steps and
-    checkpoints, one process for each `(ckpt_dir, *extra)` of `runs`, all
-    started together; waits for every one (and kills any left at the time
-    limit). Returns their CompletedProcess records."""
+#: launcher processes that ran ahead of the phases that check them
+#: (`_run_ahead`): {command tuple: CompletedProcess}, the work directories
+#: they left their checkpoints in, and each killed run's checkpoint
+#: listing right after it exited
+_AHEAD: dict = {}
+_AHEAD_DIRS: set = set()
+_AHEAD_LISTINGS: dict = {}
+
+
+def _launcher_cmd(*args) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.train",
+            *map(str, args)]
+
+
+def _simgnn_cmd(ckpt_dir, *extra) -> list:
+    """The SimGNN launcher with phase 20's steps and checkpoints."""
+    return _launcher_cmd("--steps", LAUNCH_STEPS, "--ckpt-every",
+                         LAUNCH_CKPT_EVERY, "--ckpt-dir", ckpt_dir,
+                         "--log-every", 1, *extra)
+
+
+def _lm_cmd(ckpt_dir, *extra) -> list:
+    """The launcher in LM mode with phase 21 (e)'s steps and
+    checkpoints."""
+    return _launcher_cmd("--model", LM_LAUNCH_ARCH, "--reduced", "--steps",
+                         LM_LAUNCH_STEPS, "--ckpt-every", LM_LAUNCH_EVERY,
+                         "--log-every", 1, "--ckpt-dir", ckpt_dir, *extra)
+
+
+def _single_cmd() -> list:
+    """24 (d)'s launcher at `--mesh single`."""
+    return _launcher_cmd("--model", LM_LAUNCH_ARCH, "--reduced", "--mesh",
+                         "single", "--steps", MESH_SINGLE_STEPS, "--batch",
+                         MESH_SINGLE_BATCH, "--log-every", 1)
+
+
+def _procs(cmds, timeout: int = 600) -> list:
+    """CompletedProcess records of `cmds`: those `_run_ahead` ran already
+    (`ahead` True), the rest started together and waited for (any left at
+    the time limit is killed). `wall_s` is each one's seconds from the
+    start of its round to its exit being read."""
+    out = [_AHEAD.pop(tuple(c), None) for c in cmds]
     procs = []
     try:
-        for ckpt_dir, *extra in runs:
-            cmd = [sys.executable, "-m", "repro_torch.launch.train",
-                   "--steps", str(LAUNCH_STEPS), "--ckpt-every",
-                   str(LAUNCH_CKPT_EVERY), "--ckpt-dir", str(ckpt_dir),
-                   "--log-every", "1", *extra]
-            procs.append((cmd, subprocess.Popen(
-                cmd, cwd=ROOT, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True,
-                env={**os.environ, "PYTHONPATH": str(ROOT / "src")})))
-        out = []
-        for cmd, proc in procs:
-            stdout, stderr = proc.communicate(timeout=300)
-            out.append(subprocess.CompletedProcess(cmd, proc.returncode,
-                                                   stdout, stderr))
-            print(f"  $ python -m repro_torch.launch.train "
-                  f"{' '.join(cmd[3:])}: exit {proc.returncode}; last "
-                  f"line: {(stdout.strip().splitlines() or [''])[-1]}")
+        t0 = time.perf_counter()
+        for i, cmd in enumerate(cmds):
+            if out[i] is None:
+                procs.append((i, cmd, subprocess.Popen(
+                    cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True,
+                    env={**os.environ, "PYTHONPATH": str(ROOT / "src")})))
+        for i, cmd, proc in procs:
+            stdout, stderr = proc.communicate(timeout=timeout)
+            out[i] = subprocess.CompletedProcess(cmd, proc.returncode,
+                                                 stdout, stderr)
+            out[i].wall_s, out[i].ahead = time.perf_counter() - t0, False
         return out
     finally:
-        for _, proc in procs:
+        for _, _, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def _said(proc) -> None:
+    print(f"  $ python -m repro_torch.launch.train {' '.join(proc.args[3:])}"
+          f": exit {proc.returncode}"
+          + (" (run ahead)" if proc.ahead else "") + "; last line: "
+          + (proc.stdout.strip().splitlines() or [""])[-1])
+
+
+def _launch_all(*runs) -> list:
+    """`python -m repro_torch.launch.train` with phase 20's steps and
+    checkpoints (`_simgnn_cmd`), one process for each `(ckpt_dir,
+    *extra)` of `runs`, all started together (`_procs`). Returns their
+    CompletedProcess records."""
+    out = _procs([_simgnn_cmd(d, *extra) for d, *extra in runs], 300)
+    for proc in out:
+        _said(proc)
+    return out
+
+
+def _fresh(work: Path) -> None:
+    """An empty `work` directory, unless launcher runs ahead of its phase
+    (`_run_ahead`) left their checkpoints there."""
+    import shutil
+
+    if work in _AHEAD_DIRS:
+        _AHEAD_DIRS.discard(work)
+        return
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+
+def _listing(ckpt_dir: Path) -> list:
+    """The checkpoint names in `ckpt_dir` after its killed run: as
+    `_run_ahead` saw them, else as they are now."""
+    if str(ckpt_dir) in _AHEAD_LISTINGS:
+        return _AHEAD_LISTINGS.pop(str(ckpt_dir))
+    return sorted(p.name for p in ckpt_dir.iterdir())
+
+
+def _run_ahead() -> float:
+    """Phases 20, 21 (e), 23 (d) and 24 (c)-(d) check launcher runs in
+    processes of their own, whose start-up takes most of their time. They
+    run here, ahead of those phases, while this process only waits (no
+    phase measures meanwhile), in two rounds of processes started
+    together: the killed runs and `--mesh single`, then the resumed runs
+    (phase 23's from copies of its killed run's directory). The phases
+    take the records from `_AHEAD` (`_procs`) and the killed runs'
+    listings (`_listing`), and check them as before. Returns its
+    seconds."""
+    import shutil
+
+    t0 = time.perf_counter()
+    sim, lm, sh, mesh = (ROOT / "build" / name for name in (
+        "launcher_phase", "lm_launcher_phase", "sharded_train_phase",
+        "lm_mesh_phase"))
+    for work in (sim, lm, sh, mesh):
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        _AHEAD_DIRS.add(work)
+    nd, md = str(SHARD_LAUNCH_DEVICES), str(SHARD_RESUME_DEVICES)
+    first = [_simgnn_cmd(sim / "killed", "--simulate-failure",
+                         LAUNCH_FAIL_AT),
+             _lm_cmd(lm / "killed", "--simulate-failure", LM_LAUNCH_FAIL_AT),
+             _simgnn_cmd(sh / "killed", "--devices", nd,
+                         "--simulate-failure", LAUNCH_FAIL_AT),
+             _lm_cmd(mesh / "killed", "--mesh", "2x2", "--simulate-failure",
+                     LM_LAUNCH_FAIL_AT),
+             _single_cmd()]
+    done = _procs(first)
+    for ckpt_dir in (sim / "killed", lm / "killed"):
+        _AHEAD_LISTINGS[str(ckpt_dir)] = sorted(
+            p.name for p in ckpt_dir.iterdir())
+    for tag in ("at_same", "at_more"):
+        shutil.copytree(sh / "killed", sh / tag)
+    second = [_simgnn_cmd(sim / "killed"), _lm_cmd(lm / "killed"),
+              _simgnn_cmd(sh / "at_same", "--devices", nd),
+              _simgnn_cmd(sh / "at_more", "--devices", md),
+              _lm_cmd(mesh / "killed", "--mesh", "2x2")]
+    done += _procs(second)
+    for cmd, proc in zip(first + second, done):
+        proc.ahead = True
+        _AHEAD[tuple(cmd)] = proc
+    seconds = time.perf_counter() - t0
+    print(f"the launcher runs of phases 20, 21 (e), 23 and 24 (c)-(d), run "
+          f"ahead: {len(first)} processes at once, then {len(second)}: "
+          f"{seconds:.1f} s")
+    return seconds
 
 
 def sharded_train_phase(params, dev, smi, reset_counts,
@@ -1593,8 +1750,7 @@ def sharded_train_phase(params, dev, smi, reset_counts,
     sharding.disarm_logical_devices()
     # (d) the launcher at SHARD_LAUNCH_DEVICES devices
     work = ROOT / "build" / "sharded_train_phase"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
+    _fresh(work)
     nd, md = str(SHARD_LAUNCH_DEVICES), str(SHARD_RESUME_DEVICES)
     try:
         killed, = _launch_all((work / "killed", "--devices", nd,
@@ -1603,7 +1759,8 @@ def sharded_train_phase(params, dev, smi, reset_counts,
         assert f"[train] {nd} devices: " in killed.stdout, killed.stdout
         last = LAUNCH_FAIL_AT // LAUNCH_CKPT_EVERY * LAUNCH_CKPT_EVERY
         for tag in ("at_same", "at_more"):
-            shutil.copytree(work / "killed", work / tag)
+            if not (work / tag).exists():       # made by `_run_ahead`
+                shutil.copytree(work / "killed", work / tag)
         same_n, more_n = _launch_all((work / "at_same", "--devices", nd),
                                      (work / "at_more", "--devices", md))
         for proc in (same_n, more_n):
@@ -1721,9 +1878,7 @@ def _mesh_seamless(dev, smi) -> dict:
                for s in range(MESH_STEPS)]
     rows = ENCDEC_TRAIN_BATCH // 2          # one replica's rows at data 2
     dropped = [{k: v[:rows] for k, v in b.items()} for b in batches]
-    runs, kept, same, ref = {}, {}, {}, None
-    #: the run each mesh's final params and losses must equal bit for bit
-    twin = {"1x4": "none", "2x1": "2x2"}
+    runs, same, ref = {}, None, None
     for shape in (None,) + MESH_SHAPES + ("dropped",):
         control = shape == "dropped"
         rt = _mesh_runtime(None if control else shape, "cuda:0")
@@ -1734,9 +1889,16 @@ def _mesh_seamless(dev, smi) -> dict:
         opt_state = adamw_init(params, cfg.opt_state_dtype)
         step = build_train_step(cfg, rt)
         step_ms, losses, norms = [], [], []
-        for batch in dropped if control else batches:
+        for i, batch in enumerate(dropped if control else batches):
             t0 = time.perf_counter()
-            params, opt_state, m = step(params, opt_state, batch)
+            if control or i < MESH_STEPS - 1:
+                params, opt_state, m = step(params, opt_state, batch)
+            else:                   # the last step under the profiler
+                out = []
+                wall, busy, n_launch = _profile_idle(
+                    lambda: out.append(step(params, opt_state, batch)),
+                    host=False)
+                params, opt_state, m = out.pop()
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t0))
             losses.append(float(m["loss"]))
@@ -1745,22 +1907,19 @@ def _mesh_seamless(dev, smi) -> dict:
         peak = torch.cuda.max_memory_allocated()
         name = ("dropped" if control else "none" if shape is None
                 else "x".join(map(str, shape)))
-        if not control:
-            wall, busy, n_launch = _profile_idle(
-                lambda: step(params, opt_state, batches[-1]), host=False)
         out = {"params": _whole(params), "m": _whole(opt_state.m),
                "grad_norm": norms}
         del params, opt_state
-        run = {"step_ms": step_ms, "losses": losses, "grad_norms": norms}
+        run = {"step_ms": step_ms, "losses": losses, "grad_norms": norms,
+               "model_row": step.model_row}
         if ref is None:
             ref = out
         else:
             run["distances"] = _mesh_distances(out, ref, _whole(init))
-        if name in twin:
-            same[name] = (losses == runs[twin[name]]["losses"]
-                          and _same(out["params"], kept.pop(twin[name])))
-        elif name in twin.values():
-            kept[name] = out["params"]
+        if name == "1x1":
+            same = (losses == runs["none"]["losses"]
+                    and _same(out["params"], ref["params"])
+                    and _same(out["m"], ref["m"]))
         del out
         runs[name] = run
         torch.cuda.empty_cache()
@@ -1772,8 +1931,9 @@ def _mesh_seamless(dev, smi) -> dict:
                     "device_activities": n_launch})
         print(f"seamless (a) on {name} [{smi}]: {MESH_STEPS} steps of "
               f"[{ENCDEC_TRAIN_BATCH}, {ENCDEC_FRAMES}] frames, bf16: "
-              f"{statistics.median(step_ms[1:]):.3f} ms a step (median of "
-              f"steps 2-{MESH_STEPS}; first {step_ms[0]:.3f}); peak memory "
+              f"{statistics.median(step_ms[1:-1]):.3f} ms a step (median of "
+              f"steps 2-{MESH_STEPS - 1}; first {step_ms[0]:.3f}; the last, "
+              f"profiled, {step_ms[-1]:.3f}); peak memory "
               f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB over "
               f"the {base / 2**30:.2f} GiB resident before); profiled step "
               f"wall {1e3 * wall:.3f} ms, busy {1e3 * busy:.3f} ms (union "
@@ -1783,12 +1943,12 @@ def _mesh_seamless(dev, smi) -> dict:
     for name, run in runs.items():
         rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], want))
         run["loss_rel_err"] = rel
-    same14, same21 = same["1x4"], same["2x1"]
-    print(f"  (1, 4) bit-equal to unsharded: {same14}; (2, 1) bit-equal to "
-          f"(2, 2): {same21}")
+    print(f"  (1, 1) bit-equal to unsharded (losses, final params, first "
+          f"moments): {same}")
     for name, run in runs.items():
         if name != "none":
-            print(f"  {name} against unsharded: loss rel err "
+            print(f"  {name} (model row {run['model_row']}) against "
+                  f"unsharded: loss rel err "
                   f"{run['loss_rel_err']:.3e} (limit {MESH_LOSS_RTOL:g}), "
                   + ", ".join(f"{k} {v:.3e} (limit {MESH_LIMITS[k]:g})"
                               for k, v in run["distances"].items()))
@@ -1800,9 +1960,9 @@ def _mesh_seamless(dev, smi) -> dict:
             assert run["loss_rel_err"] <= MESH_LOSS_RTOL, (name, run)
             assert all(run["distances"][k] <= lim
                        for k, lim in MESH_LIMITS.items()), (name, run)
-    assert same14 and same21
-    return {"runs": runs, "bit_equal_1x4": same14, "bit_equal_2x1": same21,
-            "limits": MESH_LIMITS}
+    assert runs["1x4"]["model_row"] == 4 and runs["2x2"]["model_row"] == 2
+    assert same
+    return {"runs": runs, "bit_equal_1x1": same, "limits": MESH_LIMITS}
 
 
 def _mesh_families(dev, reset_counts, read_counts) -> tuple[dict, dict]:
@@ -1830,7 +1990,7 @@ def _mesh_families(dev, reset_counts, read_counts) -> tuple[dict, dict]:
             if device != "cpu":
                 reset_counts()
             losses = []
-            for s in range(MESH_STEPS):
+            for s in range(MESH_CASE_STEPS):
                 params, opt_state, m = step(params, opt_state, batch_for_step(
                     cfg, s, global_batch=batch, seq_len=tokens))
                 losses.append(float(m["loss"]))
@@ -1845,8 +2005,8 @@ def _mesh_families(dev, reset_counts, read_counts) -> tuple[dict, dict]:
                                                   out["cpu"][1]))
         ran = {k: v for k, v in counts.items() if v}
         print(f"families (b): reduced {arch} float32 on (2, 2), "
-              f"{MESH_STEPS} steps of [{batch}, {tokens}] tokens: params and "
-              f"moments within {err:.3e} of the CPU mesh run (bound "
+              f"{MESH_CASE_STEPS} steps of [{batch}, {tokens}] tokens: params "
+              f"and moments within {err:.3e} of the CPU mesh run (bound "
               f"{STEP_PARAM_BOUND:g}), losses within {loss_err:.3e}; kernel "
               f"launches {ran}")
         assert err <= STEP_PARAM_BOUND and loss_err <= STEP_PARAM_BOUND, \
@@ -1875,8 +2035,7 @@ def _mesh_elastic(dev) -> dict:
     from repro_torch.params import tree_leaves
 
     work = ROOT / "build" / "lm_mesh_phase"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
+    _fresh(work)
     try:
         killed = _launch_lm(work / "killed", "--mesh", "2x2",
                             "--simulate-failure", str(LM_LAUNCH_FAIL_AT))
@@ -1933,18 +2092,13 @@ def _mesh_launcher_and_example(dev) -> dict:
 
     from repro_torch.examples import elastic_restart
 
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--model",
-           LM_LAUNCH_ARCH, "--reduced", "--mesh", "single", "--steps",
-           str(MESH_SINGLE_STEPS), "--batch", str(MESH_SINGLE_BATCH),
-           "--log-every", "1"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=600, env={**os.environ,
-                                            "PYTHONPATH": str(ROOT / "src")})
-    single_s = time.perf_counter() - t0
+    proc, = _procs([_single_cmd()])
+    single_s = proc.wall_s
     lines = proc.stdout.strip().splitlines()
-    print(f"  $ python -m repro_torch.launch.train {' '.join(cmd[3:])}: "
-          f"exit {proc.returncode} in {single_s:.1f} s; "
+    print(f"  $ python -m repro_torch.launch.train {' '.join(proc.args[3:])}"
+          f": exit {proc.returncode} in {single_s:.1f} s"
+          + (" (run ahead, beside 4 other launcher processes)"
+             if proc.ahead else "") + "; "
           + " | ".join(lines[:1] + lines[-2:]))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "256 logical devices over cuda:0" in proc.stdout
@@ -2988,12 +3142,13 @@ def _tp_ed_f32(cfg, frames, prompt, tokens) -> dict:
     return rep
 
 
-def _tp_ed_flash(captured, smi) -> dict:
-    """26 (e): member 0's last-layer `flash_attn` call of the long prompt's
-    prefill on TP_CONTROL_MESH, held against `flash_attention_plain`
-    (through float64), its plan printed, and timed with CUDA events on a
-    stream of its own beside the plain version and SDPA at the same shape
-    (the profiler misses launches: ROADMAP Queue 2 D.3), with its bound."""
+def _tp_ed_flash(captured, smi, where=None) -> dict:
+    """26 (e) and 27 (d): member 0's last decoder layer `flash_attn` call
+    on TP_CONTROL_MESH (the long prompt's prefill; `where` names another
+    run), held against `flash_attention_plain` (through float64), its plan
+    printed, and timed with CUDA events on a stream of its own beside the
+    plain version and SDPA at the same shape (the profiler misses
+    launches: ROADMAP Queue 2 D.3), with its bound."""
     from repro_torch.kernels.flash_attn import (flash_attention,
                                                 flash_attention_plain,
                                                 flash_attention_plan)
@@ -3001,8 +3156,8 @@ def _tp_ed_flash(captured, smi) -> dict:
     (q, k, v), kw = captured[0]
     b, t, h, d = q.shape
     kv = k.shape[2]
-    label = (f"seamless 1 x {t} decoder prefill, last layer, member 0: B {b}"
-             f" T {t} H {h} KV {kv} D {d}")
+    where = where or f"seamless 1 x {t} decoder prefill, last layer, member 0"
+    label = f"{where}: B {b} T {t} H {h} KV {kv} D {d}"
     plan = flash_attention_plan(q, k, v)
     print(f"  flash_attn plan [{label}]: {plan}")
     with torch.inference_mode():
@@ -3237,7 +3392,8 @@ def tp_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
 
 
 def _tpt_grads(params, cfg, batch, rt):
-    """(loss, gradient leaves) of `lm.lm_loss` with remat, synchronized:
+    """(loss, gradient leaves) of `lm.lm_loss` (`encdec.encdec_loss` for
+    an enc-dec `cfg`) with remat, synchronized:
     unsharded `value_and_grad` (`rt` None), else the mesh train step's
     (`train.step._mesh_value_and_grad`: the batch split over the
     replicas, each replica's loss on its model row)."""
@@ -3323,29 +3479,21 @@ def _tpt_classes(by_name: dict) -> dict:
             for k, pat in TPT_CLASSES.items()}
 
 
-def _tpt_granite(dev, smi, reset_counts, read_counts):
-    """27 (a): granite uncut in bf16, the mesh train step's value-and-grad
-    (`_tpt_grads`) on TPT_MESHES beside unsharded; the last layer's
-    `moe_experts` and `flash_attn` calls captured on TPT_CONTROL_MESH and
-    held against their plain versions. Returns (report, launches)."""
-    from repro_torch.configs import get_config
-    from repro_torch.data.tokens import batch_for_step
-    from repro_torch.kernels.flash_attn import (flash_attention,
-                                                flash_attention_plain)
-    from repro_torch.kernels.moe_experts import (moe_expert_ffn,
-                                                 moe_expert_ffn_plain)
-    from repro_torch.models import layers as layers_mod
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.models.init import init_params
-
-    cfg = get_config(LM_ARCH).with_(moe_use_kernel=True)
-    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
-    batches = {b: _batch_on(batch_for_step(cfg, 0, global_batch=b,
-                                           seq_len=TPT_TOKENS, seed=29),
-                            dev) for b in (1, 2)}
-    plains = [(moe_mod, "moe_expert_ffn", moe_expert_ffn_plain),
-              (layers_mod, "flash_attention", flash_attention_plain)]
-    refs, rep, launches = {}, {"card": smi}, {}
+def _tpt_bf16(tag, cfg, params, batches, plains, need, capture, smi,
+              reset_counts, read_counts):
+    """27 (a) and (d): the mesh train step's value-and-grad (`_tpt_grads`)
+    of `cfg` in bf16 on TPT_MESHES at `batches[replicas]`, each beside the
+    unsharded value_and_grad of the same batch under the device-only
+    profiler: (1, 1) bit-equal, the others and the control on
+    TPT_CONTROL_MESH measured against TPT_LIMITS[tag] (`_tpt_bf16_gate`
+    holds them), the floor (unsharded with
+    `plains` in place of the kernels) printed beside them; every kernel
+    of `need` launched at least once a layer, member and replica. The
+    calls `capture` names ({kernel: (module, attr)}) of member 0's last
+    layer on TPT_CONTROL_MESH are kept. Returns (report, launches, {kernel:
+    [(args, kwargs)]})."""
+    limits = TPT_LIMITS[tag]
+    refs, rep, launches, kept = {}, {"card": smi}, {}, {}
 
     def profiled(rt, b):
         """One value_and_grad on `rt` under the device-only profiler:
@@ -3374,12 +3522,13 @@ def _tpt_granite(dev, smi, reset_counts, read_counts):
                           refs[1])
     rep["floor"] = floor
     u = rep["unsharded_b1"]
-    print(f"tp train (a) {LM_ARCH} bf16 [{smi}]: unsharded value_and_grad "
-          f"of lm_loss with remat, 1 x {TPT_TOKENS} tokens: "
-          f"{u['wall_s']:.3f} s (wall under the device-only profiler), "
-          f"peak {u['peak_bytes'] / 2**30:.2f} GiB "
+    shape1 = {k: tuple(v.shape) for k, v in batches[1].items()}
+    print(f"tp train ({tag}) {cfg.name} bf16 [{smi}]: unsharded "
+          f"value_and_grad with remat, batch {shape1}: {u['wall_s']:.3f} s "
+          f"(wall under the device-only profiler), peak "
+          f"{u['peak_bytes'] / 2**30:.2f} GiB "
           f"({u['resident_bytes_before'] / 2**30:.2f} resident before), "
-          f"idle share {u['idle_share']:.4f}; 2 x {TPT_TOKENS}: "
+          f"idle share {u['idle_share']:.4f}; 2 replicas' batch: "
           f"{rep['unsharded_b2']['wall_s']:.3f} s; the floor (unsharded "
           f"with the plain versions): loss {floor['loss']:.3e}, grads "
           f"{floor['grads']:.3e} rel L2")
@@ -3388,10 +3537,9 @@ def _tpt_granite(dev, smi, reset_counts, read_counts):
         rt, where = _tp_runtime(shape)
         b, m = shape
         keep = {name: {"calls": {(cfg.n_layers - 1) * m}, "args": []}
-                for name in ("moe_experts", "flash_attn")}
-        restores = ([_capture(moe_mod, "moe_expert_ffn", keep["moe_experts"]),
-                     _capture(layers_mod, "flash_attention",
-                              keep["flash_attn"])]
+                for name in capture}
+        restores = ([_capture(*capture[name], keep[name])
+                     for name in capture]
                     if shape == TPT_CONTROL_MESH else [])
         try:
             reset_counts()
@@ -3403,8 +3551,8 @@ def _tpt_granite(dev, smi, reset_counts, read_counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         ran = {k: n for k, n in counts.items() if n}
-        assert all(ran.get(name, 0) >= cfg.n_layers * m * b for name in
-                   ("moe_experts", "flash_attn")), (shape, ran)
+        assert all(ran.get(name, 0) >= cfg.n_layers * m * b
+                   for name in need), (shape, ran)
         d = _tpt_dist(run, refs[b])
         finite = bool(torch.isfinite(run[0])) and all(
             bool(torch.isfinite(g).all()) for g in run[1])
@@ -3426,17 +3574,17 @@ def _tpt_granite(dev, smi, reset_counts, read_counts):
             entry["control_drops"] = st["dropped"]
             del ctrl
             torch.cuda.empty_cache()
-            entry["held"] = _pipe_held(keep, moe_expert_ffn,
-                                       moe_expert_ffn_plain,
-                                       flash_attention,
-                                       flash_attention_plain, smi)
+            kept = {name: [(tuple(a.detach() if isinstance(a, torch.Tensor)
+                                  else a for a in args), kw)
+                           for args, kw in keep[name]["args"]]
+                    for name in capture}
             del keep
         rep[str(shape)] = entry
         ub = rep[f"unsharded_b{b}"]
-        print(f"  tp train {shape} over {where} [{smi}]: value_and_grad "
-              f"{entry['wall_s']:.3f} s (unsharded {ub['wall_s']:.3f} s), "
-              f"peak {entry['peak_bytes'] / 2**30:.2f} GiB (unsharded "
-              f"{ub['peak_bytes'] / 2**30:.2f}), idle share "
+        print(f"  tp train ({tag}) {shape} over {where} [{smi}]: "
+              f"value_and_grad {entry['wall_s']:.3f} s (unsharded "
+              f"{ub['wall_s']:.3f} s), peak {entry['peak_bytes'] / 2**30:.2f}"
+              f" GiB (unsharded {ub['peak_bytes'] / 2**30:.2f}), idle share "
               f"{entry['idle_share']:.4f} (unsharded "
               f"{ub['idle_share']:.4f}), {entry['device_activities']} "
               f"device activities; launches {ran}; loss rel err "
@@ -3449,18 +3597,144 @@ def _tpt_granite(dev, smi, reset_counts, read_counts):
               + "; most device time: " + "; ".join(
                   f"{k[:50]} {v:.1f} ms" for k, v in entry["top_device_ms"]))
     rep.update({"distances": {str(k): v for k, v in dist.items()},
-                "control": control, "limits": TPT_LIMITS,
+                "control": control, "limits": limits,
                 "control_floor_geomean": {
                     k: (control[k] * floor[k]) ** 0.5 for k in control}})
-    print(f"  tp train (a): control (the last member's partial left out of "
-          f"the last layer's row sums) {control}, floor {floor}, limits "
-          f"{TPT_LIMITS} (the geometric means of this control and floor "
-          f"are {rep['control_floor_geomean']})")
-    for d in dist.values():
-        assert all(d[k] <= TPT_LIMITS[k] for k in TPT_LIMITS), rep
-    assert all(control[k] > TPT_LIMITS[k] for k in TPT_LIMITS), rep
-    del params, refs
+    print(f"  tp train ({tag}): control (the last member's partial left out "
+          f"of the last layers' row sums) {control}, floor {floor}, limits "
+          f"{limits} (the geometric means of this control and floor are "
+          f"{rep['control_floor_geomean']})")
+    return rep, launches, kept
+
+
+def _tpt_bf16_gate(rep) -> None:
+    """`_tpt_bf16`'s gates, checked once the part has printed all its
+    readings: every mesh within the limits, the control beyond them."""
+    limits = rep["limits"]
+    for d in rep["distances"].values():
+        assert all(d[k] <= limits[k] for k in limits), rep
+    assert all(rep["control"][k] > limits[k] for k in limits), rep
+
+
+def _tpt_granite(dev, smi, reset_counts, read_counts):
+    """27 (a): granite uncut in bf16 (`_tpt_bf16`) at (replicas) x
+    TPT_TOKENS tokens (seed 29); the last layer's `moe_experts` and
+    `flash_attn` calls of member 0 on TPT_CONTROL_MESH held against their
+    plain versions. Returns (report, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.kernels.flash_attn import (flash_attention,
+                                                flash_attention_plain)
+    from repro_torch.kernels.moe_experts import (moe_expert_ffn,
+                                                 moe_expert_ffn_plain)
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.init import init_params
+
+    cfg = get_config(LM_ARCH).with_(moe_use_kernel=True)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    batches = {b: _batch_on(batch_for_step(cfg, 0, global_batch=b,
+                                           seq_len=TPT_TOKENS, seed=29),
+                            dev) for b in (1, 2)}
+    plains = [(moe_mod, "moe_expert_ffn", moe_expert_ffn_plain),
+              (layers_mod, "flash_attention", flash_attention_plain)]
+    rep, launches, kept = _tpt_bf16(
+        "granite", cfg, params, batches, plains, ("moe_experts", "flash_attn"),
+        {"moe_experts": (moe_mod, "moe_expert_ffn"),
+         "flash_attn": (layers_mod, "flash_attention")},
+        smi, reset_counts, read_counts)
+    del params, batches
     torch.cuda.empty_cache()
+    rep[str(TPT_CONTROL_MESH)]["held"] = _pipe_held(
+        {name: {"args": args} for name, args in kept.items()},
+        moe_expert_ffn, moe_expert_ffn_plain, flash_attention,
+        flash_attention_plain, smi)
+    _tpt_bf16_gate(rep)
+    return rep, launches
+
+
+def _tpt_ed_batch(cfg, b: int, dev) -> dict:
+    """b x ENCDEC_FRAMES frames of `batch_for_step` (seed 37) and a
+    TPT_TOKENS-token decoder sequence drawn as its tokens are (Zipf 1.3):
+    its enc-dec batch ties the tokens to frames / 8, too few for
+    `flash_attn`."""
+    from repro_torch.data.tokens import batch_for_step
+
+    frames = batch_for_step(cfg, 0, global_batch=b, seq_len=ENCDEC_FRAMES,
+                            seed=37)["frames"]
+    rng = np.random.default_rng(37)
+    tokens = (rng.zipf(1.3, (b, TPT_TOKENS)) - 1) % cfg.vocab_size
+    return _batch_on({"frames": frames, "tokens": tokens.astype(np.int32)},
+                     dev)
+
+
+def _tpt_seamless(dev, smi, reset_counts, read_counts):
+    """27 (d): seamless-m4t-large-v2 uncut in bf16 (`_tpt_bf16`: each
+    replica's `encdec_loss` on its model row, the encoder's layers and
+    then the decoder's with the members' enc_out) at (replicas) x
+    ENCDEC_FRAMES frames and TPT_TOKENS tokens (`_tpt_ed_batch`); member
+    0's last decoder `flash_attn` call on TPT_CONTROL_MESH held against
+    its plain version and timed beside SDPA (`_tp_ed_flash`); then the
+    float32 steps (`_tpt_f32_steps`) of TP_ED_F32_LAYERS + TP_ED_F32_LAYERS
+    layers at full width on 2 x ENCDEC_FRAMES frames and TPT_TOKENS
+    tokens. Returns (report, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention_plain
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models.init import init_params
+    from repro_torch.params import params_to
+
+    cfg = get_config(SEAMLESS_ARCH)
+    # the control drops the partials of group n_groups - 1 of each stack:
+    # the last encoder layer and the last decoder layer when both stacks
+    # have n_layers groups of one layer
+    assert cfg.n_enc_layers == cfg.n_layers == cfg.n_groups, cfg
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    batches = {b: _tpt_ed_batch(cfg, b, dev) for b in (1, 2)}
+    plains = [(layers_mod, "flash_attention", flash_attention_plain)]
+    rep, launches, kept = _tpt_bf16(
+        "seamless", cfg, params, batches, plains, ("flash_attn",),
+        {"flash_attn": (layers_mod, "flash_attention")}, smi, reset_counts,
+        read_counts)
+    del params, batches
+    torch.cuda.empty_cache()
+    rep["flash_attn"] = _tp_ed_flash(
+        kept["flash_attn"], smi, f"seamless value_and_grad on "
+        f"{TPT_CONTROL_MESH}, 1 x {TPT_TOKENS} decoder tokens, last decoder "
+        f"layer, member 0")
+    del kept
+    n = TP_ED_F32_LAYERS
+    cfg32 = cfg.with_(n_layers=n, n_enc_layers=n, dtype="float32",
+                      param_dtype="float32")
+    params = params_to(init_params(torch.Generator().manual_seed(1), cfg32,
+                                   device=dev), "cpu")
+    rep["float32"], counts, _ = _tpt_f32_steps(
+        cfg32, params, _tpt_ed_batch(cfg32, 2, dev), plains, None,
+        reset_counts, read_counts)
+    for name, k in counts.items():
+        launches[name] = launches.get(name, 0) + k
+    out = rep["float32"]
+    print(f"tp train (d) {cfg.name} float32, {n} + {n} layers at full "
+          f"width, [2, {ENCDEC_FRAMES}] frames and [2, {TPT_TOKENS}] tokens, "
+          f"one build_train_step step [{smi}]: "
+          + "; ".join(f"{k}: loss {v['loss']:.3e}, grad norm "
+                      f"{v['grad_norm']:.3e}, update {v['update']:.3e} rel"
+                      + (f" ({v['wall_s']:.3f} s, peak "
+                         f"{v['peak_bytes'] / 2**30:.2f} GiB, launches "
+                         f"{v['launches']})" if "wall_s" in v else "")
+                      for k, v in out.items())
+          + f" (limit {TPT_F32_LIMIT:g}; (1, 4) and the floor against "
+          "unsharded, (2, 2) against the data-parallel (2, 1))")
+    del params
+    torch.cuda.empty_cache()
+    _tpt_bf16_gate(rep)
+    keys = ("loss", "grad_norm", "update")
+    for k, v in out.items():
+        if k.endswith("control"):
+            assert all(v[x] > TPT_F32_LIMIT for x in keys), (k, v)
+        elif k != "floor":
+            assert all(v[x] <= TPT_F32_LIMIT for x in keys), (k, v)
+            assert v["launches"].get("flash_attn", 0) > 0, (k, v)
     return rep, launches
 
 
@@ -3533,13 +3807,6 @@ def _tpt_f32(dev, smi, reset_counts, read_counts):
     need = {"granite": ("moe_experts", "flash_attn"), "rwkv": ("wkv6",),
             "jamba": ("mamba_scan",)}
     rep, launches, held = {"card": smi}, {}, {}
-
-    def dist(run, ref):
-        num, den = _sq_dist(run[2], ref[2])
-        return {"loss": abs(run[0] - ref[0]) / abs(ref[0]),
-                "grad_norm": abs(run[1] - ref[1]) / abs(ref[1]),
-                "update": (num / den) ** 0.5}
-
     for tag, arch, layers, b, t in TPT_F32:
         cfg = get_config(arch).with_(n_layers=layers, dtype="float32",
                                      param_dtype="float32")
@@ -3552,48 +3819,12 @@ def _tpt_f32(dev, smi, reset_counts, read_counts):
                    "jamba": (mamba_mod, "mamba_selective_scan_state")}.get(tag)
         params = params_to(init_params(torch.Generator().manual_seed(1), cfg,
                                        device=dev), "cpu")
-        ref = _tpt_step(cfg, _tpt_on(params, None, dev), batch, None,
-                        host=True)
-        with _plain_versions(plains[tag]):
-            out = {"floor": dist(_tpt_step(
-                cfg, _tpt_on(params, None, dev), batch, None), ref)}
-        torch.cuda.empty_cache()
-        for shape, control in (((1, 4), False), ((1, 4), True),
-                               ((2, 1), False), ((2, 2), False)):
-            if shape == (2, 1):
-                del ref
-                rt = _tp_runtime(shape)[0]
-                ref = _tpt_step(cfg, _tpt_on(params, rt, dev), batch, rt,
-                                host=True)
-                torch.cuda.empty_cache()
-                continue
-            rt, where = _tp_runtime(shape)
-            placed = _tpt_on(params, rt, dev)
-            keep = {"calls": {(layers - 1) * 4}, "args": []}
-            restore = (_capture(*capture, keep)
-                       if capture and shape == (1, 4) and not control
-                       else (lambda: None))
-            try:
-                reset_counts()
-                run, wall, peak, _ = _tp_timed(
-                    lambda: _tpt_step(cfg, placed, batch, rt, control))
-                counts = read_counts()
-            finally:
-                restore()
-            assert run[3] == shape[1], (tag, shape, run[3])
-            key = f"{shape}" + (" control" if control else "")
-            out[key] = {"where": where, **dist(run, ref), "wall_s": wall,
-                        "peak_bytes": peak,
-                        "launches": {k: n for k, n in counts.items() if n}}
-            if not control:
-                for name, n in counts.items():
-                    launches[name] = launches.get(name, 0) + n
-            if keep["args"]:
-                held[tag] = keep["args"][0]
-            del run, placed
-            torch.cuda.empty_cache()
-        del ref
-        torch.cuda.empty_cache()
+        out, counts, args = _tpt_f32_steps(cfg, params, batch, plains[tag],
+                                           capture, reset_counts, read_counts)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        if args is not None:
+            held[tag] = args
         rep[tag] = out
         print(f"tp train (b) {arch} float32, {layers} layer(s) at full width"
               f", [{b}, {t}] tokens, one build_train_step step [{smi}]: "
@@ -3625,6 +3856,72 @@ def _tpt_f32(dev, smi, reset_counts, read_counts):
     assert f64["distance"]["grads"] <= TPT_F32_LIMIT < \
         f64["control"]["grads"], f64
     return rep, launches
+
+
+def _tpt_step_dist(run, ref) -> dict:
+    """TPT_F32_LIMITS' keys of a `_tpt_step` run against `ref`: the loss's
+    and the grad norm's relative errors, the update's relative L2."""
+    num, den = _sq_dist(run[2], ref[2])
+    return {"loss": abs(run[0] - ref[0]) / abs(ref[0]),
+            "grad_norm": abs(run[1] - ref[1]) / abs(ref[1]),
+            "update": (num / den) ** 0.5}
+
+
+def _tpt_f32_steps(cfg, params, batch, plains, capture, reset_counts,
+                   read_counts):
+    """27 (b) and (d): one float32 `build_train_step` step of `cfg` from
+    host `params` on (1, 4) against unsharded and under the control, and
+    on (2, 2) against the data-parallel (2, 1); the floor (the unsharded
+    step with `plains` in place of the kernels) beside them. The reference
+    update waits on the host. `capture` ((module, attr) or None) keeps
+    member 0's call of the last layer on (1, 4). Returns ({run: distances,
+    wall, peak, launches}, the launches of the sound meshes, the captured
+    (args, kwargs) or None)."""
+    dev = torch.device("cuda")
+    n_layers = cfg.n_layers
+    launches, held = {}, None
+    ref = _tpt_step(cfg, _tpt_on(params, None, dev), batch, None, host=True)
+    with _plain_versions(plains):
+        out = {"floor": _tpt_step_dist(_tpt_step(
+            cfg, _tpt_on(params, None, dev), batch, None), ref)}
+    torch.cuda.empty_cache()
+    for shape, control in (((1, 4), False), ((1, 4), True),
+                           ((2, 1), False), ((2, 2), False)):
+        if shape == (2, 1):
+            del ref
+            rt = _tp_runtime(shape)[0]
+            ref = _tpt_step(cfg, _tpt_on(params, rt, dev), batch, rt,
+                            host=True)
+            torch.cuda.empty_cache()
+            continue
+        rt, where = _tp_runtime(shape)
+        placed = _tpt_on(params, rt, dev)
+        keep = {"calls": {(n_layers - 1) * 4}, "args": []}
+        restore = (_capture(*capture, keep)
+                   if capture and shape == (1, 4) and not control
+                   else (lambda: None))
+        try:
+            reset_counts()
+            run, wall, peak, _ = _tp_timed(
+                lambda: _tpt_step(cfg, placed, batch, rt, control))
+            counts = read_counts()
+        finally:
+            restore()
+        assert run[3] == shape[1], (cfg.name, shape, run[3])
+        key = f"{shape}" + (" control" if control else "")
+        out[key] = {"where": where, **_tpt_step_dist(run, ref),
+                    "wall_s": wall, "peak_bytes": peak,
+                    "launches": {k: n for k, n in counts.items() if n}}
+        if not control:
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+        if keep["args"]:
+            held = keep["args"][0]
+        del run, placed
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+    return out, launches, held
 
 
 def _tpt_f64(cfg, params, batch, dev, smi) -> dict:
@@ -3698,14 +3995,16 @@ def _tpt_held(held, smi) -> dict:
 
 
 def tp_train_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
-    """Phase 27: tensor-parallel training, (a) and (b) above; each part
-    prints its seconds. Returns (report, the kernel launches of the
+    """Phase 27: tensor-parallel training, (a), (b) and (d) above; each
+    part prints its seconds. Returns (report, the kernel launches of the
     tensor-parallel runs)."""
     rep, clock, launches = {"card": smi}, PhaseClock(), {}
     for key, part, title in (
             ("granite", _tpt_granite, "27 (a) granite tensor-parallel "
              "value_and_grad"),
-            ("float32", _tpt_f32, "27 (b) float32 train steps")):
+            ("float32", _tpt_f32, "27 (b) float32 train steps"),
+            ("seamless", _tpt_seamless, "27 (d) seamless-m4t-large-v2 "
+             "tensor-parallel value_and_grad")):
         rep[key], counts = part(dev, smi, reset_counts, read_counts)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
@@ -6490,8 +6789,7 @@ def launcher_phase(dev, reset_counts, read_counts) -> dict:
     from repro_torch.params import params_to
 
     work = ROOT / "build" / "launcher_phase"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
+    _fresh(work)
     report: dict = {"steps": LAUNCH_STEPS, "ckpt_every": LAUNCH_CKPT_EVERY,
                     "fail_at": LAUNCH_FAIL_AT}
     try:
@@ -6499,7 +6797,7 @@ def launcher_phase(dev, reset_counts, read_counts) -> dict:
                                str(LAUNCH_FAIL_AT)))
         assert killed.returncode == 42, killed.stdout + killed.stderr
         last = LAUNCH_FAIL_AT // LAUNCH_CKPT_EVERY * LAUNCH_CKPT_EVERY
-        left = sorted(p.name for p in (work / "killed").iterdir())
+        left = _listing(work / "killed")
         assert left == [f"step_{last:09d}"], left
         resumed, = _launch_all((work / "killed",))
         assert resumed.returncode == 0, resumed.stdout + resumed.stderr
@@ -6968,17 +7266,9 @@ def _train_steps_against_cpu(dev) -> dict:
 
 
 def _launch_lm(ckpt_dir: Path, *extra: str) -> subprocess.CompletedProcess:
-    """The launcher in LM mode in a process of its own."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--model",
-           LM_LAUNCH_ARCH, "--reduced", "--steps", str(LM_LAUNCH_STEPS),
-           "--ckpt-every", str(LM_LAUNCH_EVERY), "--log-every", "1",
-           "--ckpt-dir", str(ckpt_dir), *extra]
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          timeout=300, env={**os.environ,
-                                            "PYTHONPATH": str(ROOT / "src")})
-    print(f"  $ python -m repro_torch.launch.train {' '.join(cmd[3:])}: "
-          f"exit {proc.returncode}; last line: "
-          f"{(proc.stdout.strip().splitlines() or [''])[-1]}")
+    """The launcher in LM mode (`_lm_cmd`) in a process of its own."""
+    proc, = _procs([_lm_cmd(ckpt_dir, *extra)], 300)
+    _said(proc)
     return proc
 
 
@@ -6993,13 +7283,12 @@ def _lm_launcher(dev) -> dict:
     from repro_torch.launch import train as launch
 
     work = ROOT / "build" / "lm_launcher_phase"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
+    _fresh(work)
     try:
         killed = _launch_lm(work / "killed", "--simulate-failure",
                             str(LM_LAUNCH_FAIL_AT))
         assert killed.returncode == 42, killed.stdout + killed.stderr
-        left = sorted(p.name for p in (work / "killed").iterdir())
+        left = _listing(work / "killed")
         assert left[-1] == f"step_{LM_LAUNCH_FAIL_AT:09d}", left
         resumed = _launch_lm(work / "killed")
         assert resumed.returncode == 0, resumed.stdout + resumed.stderr

@@ -20,10 +20,9 @@ stream. Axis roles, as in the JAX package:
            a runtime, the mesh `train.step.build_train_step`) compute
            each layer's shard of heads, hidden units, Mamba channels and
            vocabulary on the members of a model row
-           (`distributed.tensor_parallel`; enc-dec serving too); a
-           config that does not split over it trains on rows of one
-           member, and enc-dec models train data-parallel (ROADMAP
-           Queue 1 item 3).
+           (`distributed.tensor_parallel`; the enc-dec model's too);
+           a config that does not split over it trains on rows of one
+           member.
 `_PARAM_RULES` / `param_spec` give each param path its `P` spec (the JAX
 package's rules, right-aligned to the leaf's rank, so the stacked group
 axis is replicated); `param_shardings` turns them into `NamedSharding`s,

@@ -80,7 +80,12 @@ the group's remat recompute, and `wait_for_mesh` hands the gradients of
 every member's stream to the caller's. A training row takes whole heads,
 groups and hidden units too; where `cfg` does not split over the
 `model` axis (`unsplit_dim`), its rows are one member, as a batch that
-the replicas cannot split runs as one replica (`train_row_size`).
+the replicas cannot split runs as one replica (`train_row_size`). An
+enc-dec model trains on the same rows (`encdec.encdec_loss`): the
+encoder's and the cross-attention's leaves are cut as in serving, and
+each member's `enc_out` is its own copy of the row sum's output, so the
+backward of that row sum adds up the members' partial gradients of
+`enc_out` before the encoder's layers.
 
 Caches. A step's decode cache is a `TPCache`: each member's cache in
 `lm.init_cache`'s layout with its heads' K/V, its channels' Mamba states
@@ -109,16 +114,19 @@ _FUSED = re.compile(r"(mlp/w_in|moe/w_in|mamba/in_proj)$")
 
 
 def _split_dims(cfg) -> list[tuple[str, int]]:
-    """(name, size) of every count a model row splits for `cfg`."""
+    """(name, size) of every count a model row splits for `cfg`: the
+    decoder's layers', and an enc-dec model's encoder blocks (attention
+    and a dense FFN) and cross-attention (heads), each name once."""
     kinds, moes = cfg.layer_kinds(), cfg.layer_is_moe()
     dims = [("vocab_padded", cfg.vocab_padded)]
-    if any(k in ("attn", "attn_local") for k in kinds):
+    if cfg.is_enc_dec or any(k in ("attn", "attn_local") for k in kinds):
         dims += [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads)]
     if "mamba" in kinds:
         dims.append(("mamba_d_inner", cfg.mamba_d_inner))
     if "rwkv" in kinds:
         dims.append(("n_rwkv_heads", cfg.n_rwkv_heads))
-    if any(k == "rwkv" or not moe for k, moe in zip(kinds, moes)):
+    if cfg.is_enc_dec or any(k == "rwkv" or not moe
+                             for k, moe in zip(kinds, moes)):
         dims.append(("d_ff", cfg.d_ff))
     if any(moes):
         dims.append(("d_ff_expert", cfg.d_ff_expert))
@@ -150,14 +158,10 @@ def train_row_size(cfg, mesh: LMMesh) -> tuple[int, str | None]:
     """(the members of a training model row on `mesh`, why it is one
     member where the `model` axis has more): the axis' size where `cfg`
     splits over it; else 1, as a batch the replicas cannot split runs as
-    one replica. An enc-dec model trains data-parallel: its
-    tensor-parallel training is not ported yet."""
+    one replica."""
     m = mesh.shape.get(RULE_AXIS, 1)
     if m == 1:
         return 1, None
-    if cfg.is_enc_dec:
-        return 1, ("an enc-dec model trains data-parallel (tensor-parallel "
-                   "enc-dec training is ROADMAP Queue 1 item 3)")
     bad = unsplit_dim(cfg, m)
     if bad is not None:
         return 1, f"{bad} does not split over {m} members"

@@ -26,6 +26,19 @@ members' heads. Prefill returns `enc_out` whole on the caller's device,
 the replicas joined along the batch, and decode hands each replica's
 rows of it to its members. With `rt` None, or a runtime whose mesh is
 not an LM mesh, both run the single-device path.
+
+`forward_encdec` and `encdec_loss` take a runtime too, and train on an
+LM mesh of one data-parallel replica as `lm.forward` / `lm.lm_loss` do
+(`lm._tp_train`; the train step splits a batch over the replicas and
+hands each its row): the members' slices are cut from the whole params
+by differentiable operations, each member runs its shard of every
+encoder layer and then of every decoder layer, both stacks under remat,
+and the loss is vocab-parallel (`lm.vocab_parallel_nll`) on a row of
+more than one member. The members' `enc_out` copies go to their
+cross-attention as they are (never taken to the caller and put back),
+so the backward of the last encoder layer's row sum adds up the
+members' partial gradients of `enc_out`, and the replicated
+`enc_final_norm` gets the sum over the members that read it.
 """
 
 from __future__ import annotations
@@ -58,10 +71,25 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor, *,
     return _row_encode(tp.SOLO, [params], cfg, [frames], remat=remat)[0]
 
 
+def _tp_train(params, cfg, rt, frames, tokens, remat, head):
+    """`lm._tp_train` with the encoder: every member encodes its copy of
+    `frames` on the row, and the decoder reads the members' enc_out."""
+    def encoder(row, trees):
+        return _row_encode(row, trees, cfg, row.put(frames), remat=remat)
+
+    return lm._tp_train(params, cfg, rt, tokens, None, remat, head,
+                        encoder=encoder)
+
+
 def forward_encdec(params, cfg: ModelConfig, frames: torch.Tensor,
-                   tokens: torch.Tensor, *, remat: bool = False):
+                   tokens: torch.Tensor, *, remat: bool = False, rt=None):
     """Training forward: the encoder over frames, the decoder over target
-    tokens with cross-attention. Returns (logits [B,S_dec,V], aux)."""
+    tokens with cross-attention. Returns (logits [B,S_dec,V], aux). On an
+    LM mesh (`rt`, one model row) tensor-parallel (module docstring), the
+    logits gathered along V."""
+    if rt is not None and rt.lm_mesh is not None:
+        return _tp_train(params, cfg, rt, frames, tokens, remat,
+                         lm._logits_head(cfg))
     enc_out = encode(params, cfg, frames, remat=remat)
     x = lm.embed_tokens(params, cfg, tokens)
     x, _, aux = lm._run_groups(params, cfg, x, positions=lm._positions(x),
@@ -70,9 +98,15 @@ def forward_encdec(params, cfg: ModelConfig, frames: torch.Tensor,
 
 
 def encdec_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
-                aux_weight: float = AUX_WEIGHT):
+                aux_weight: float = AUX_WEIGHT, rt=None):
     """Next-token cross-entropy of the decoder (+ aux). batch: {"frames"
-    [B,S_enc,D], "tokens" [B,S_dec]}."""
+    [B,S_enc,D], "tokens" [B,S_dec]}. On an LM mesh (`rt`, one model row)
+    tensor-parallel with the vocab-parallel cross-entropy (module
+    docstring)."""
+    if rt is not None and rt.lm_mesh is not None:
+        nll, aux = _tp_train(params, cfg, rt, batch["frames"],
+                             batch["tokens"], remat, lm._nll_head(cfg, 0))
+        return nll + aux_weight * aux
     logits, aux = forward_encdec(params, cfg, batch["frames"],
                                  batch["tokens"], remat=remat)
     return lm.next_token_nll(logits[:, :-1], batch["tokens"]) \

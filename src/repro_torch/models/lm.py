@@ -44,7 +44,10 @@ logits of the ids it owns; member 0 combines them into the logsumexp
 (`vocab_parallel_nll`), and the [B, T, V] logits are never gathered.
 Every member routes the MoE layers redundantly; only member 0's routing
 statistics and aux term count, so the aux gradient reaches the router
-once a replica.
+once a replica. `encdec.forward_encdec` / `encdec_loss` train the enc-dec
+model on the same row (`_tp_train` with its `encoder`): the members'
+`enc_out` copies feed their cross-attention as they stand, so the
+backward sums the members' partial gradients of `enc_out`.
 """
 
 from __future__ import annotations
@@ -346,10 +349,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if cfg.is_enc_dec:
         raise ValueError("use encdec.forward_encdec for enc-dec models")
     if rt is not None and rt.lm_mesh is not None:
-        def head(row, trees, xs, tok):
-            return _tp_logits(row, trees, cfg, xs)
-
-        return _tp_train(params, cfg, rt, tokens, embeds, remat, head)
+        return _tp_train(params, cfg, rt, tokens, embeds, remat,
+                         _logits_head(cfg))
     x, positions = _embed_inputs(params, cfg, tokens, embeds)
     x, _, aux = _run_groups(params, cfg, x, positions=positions,
                             remat=remat)
@@ -585,39 +586,63 @@ def vocab_parallel_nll(row, trees, cfg, xs, tokens) -> torch.Tensor:
         return torch.mean(logz - gold.sum(-1))
 
 
-def _tp_train(params, cfg, rt, tokens, embeds, remat, head):
+def _tp_train(params, cfg, rt, tokens, embeds, remat, head, encoder=None):
     """The training forward on `rt`'s LM mesh, one model row: (`head(row,
     trees, xs, tokens)` on the caller, the aux loss). The members' slices
     are cut from the whole `params` on their streams before any layer
-    runs. A mesh of several data-parallel replicas raises: the train step
-    splits the batch over them (`train.step`) and hands each replica's
-    loss its row (`tensor_parallel.row_runtime`)."""
+    runs. `encoder(row, trees)` (the enc-dec model's) gives the members'
+    `enc_out`, which the decoder's cross-attention reads. A mesh of
+    several data-parallel replicas raises: the train step splits the
+    batch over them (`train.step`) and hands each replica's loss its row
+    (`tensor_parallel.row_runtime`)."""
     mesh = rt.lm_mesh
     firsts = replica_positions(mesh, [a for a in rt.batch_axes
                                       if a in mesh.shape])
     if len(firsts) > 1:
         raise ValueError(
-            f"lm_loss / forward on a mesh run one model row; this mesh "
-            f"has {len(firsts)} replicas over {tuple(rt.batch_axes)}: "
-            f"train through train.step.build_train_step, which splits the "
-            f"batch over them")
+            f"the training loss and forward on a mesh run one model row; "
+            f"this mesh has {len(firsts)} replicas over "
+            f"{tuple(rt.batch_axes)}: train through "
+            f"train.step.build_train_step, which splits the batch over them")
     m, _ = tp.train_row_size(cfg, mesh)
     whole = tree_map(placement.gather, params)
     row = tp.Row(mesh, tp.row_positions(mesh, firsts[0], m), tokens.device)
     trees = row.map(lambda k, dev: tp.member_params(
         whole, k, m, dev, grad=True), row.devices)
     with moe.route_stats() as seen:
+        enc_out = None if encoder is None else encoder(row, trees)
         xs = _tp_embed(row, trees, cfg, row.put(tokens))
         if embeds is not None:
             xs = row.map(lambda k, e, x: torch.cat([e.to(x.dtype), x], 1),
                          row.put(embeds), xs)
         xs, _, aux = _row_groups(
             row, trees, cfg, xs, positions=row.map(
-                lambda k, x: _positions(x), xs), remat=remat)
+                lambda k, x: _positions(x), xs), enc_out=enc_out,
+            remat=remat)
     out = row.take(head(row, trees, xs, row.put(tokens)))
     aux = row.take(aux[0])
     row.close([t for pair in seen for t in pair])
     return out, aux
+
+
+def _nll_head(cfg, p: int):
+    """`_tp_train`'s head of the training loss: the next-token
+    cross-entropy of the hidden states from position `p` on; on a row of
+    one member the single-device loss's bits, else vocab-parallel."""
+    def head(row, trees, xs, tok):
+        if row.size == 1:
+            return next_token_nll(logits_from_hidden(
+                trees[0], cfg, xs[0])[:, p:-1], tok[0])
+        return vocab_parallel_nll(row, trees, cfg, [x[:, p:-1] for x in xs],
+                                  tok)
+
+    return head
+
+
+def _logits_head(cfg):
+    """`_tp_train`'s head of the training forward: the logits gathered
+    along V on the row's first member."""
+    return lambda row, trees, xs, tok: _tp_logits(row, trees, cfg, xs)
 
 
 def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
@@ -631,14 +656,8 @@ def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
     embeds = batch.get("embeds")
     p = 0 if embeds is None else embeds.shape[1]
     if rt is not None and rt.lm_mesh is not None:
-        def head(row, trees, xs, tok):
-            if row.size == 1:               # the single-device loss's bits
-                return next_token_nll(logits_from_hidden(
-                    trees[0], cfg, xs[0])[:, p:-1], tok[0])
-            return vocab_parallel_nll(row, trees, cfg,
-                                      [x[:, p:-1] for x in xs], tok)
-
-        nll, aux = _tp_train(params, cfg, rt, tokens, embeds, remat, head)
+        nll, aux = _tp_train(params, cfg, rt, tokens, embeds, remat,
+                             _nll_head(cfg, p))
         return nll + aux_weight * aux
     logits, aux = forward(params, cfg, tokens, embeds=embeds, remat=remat)
     return next_token_nll(logits[:, p:-1], tokens) + aux_weight * aux

@@ -22,15 +22,15 @@ overlaps on the device): it gathers whole params from the blocks, runs
 the loss on its rows of the batch and gives whole gradients. Where the
 mesh's `model` axis has m > 1 members and the config splits over them
 (`tensor_parallel.train_row_size`), the replica's loss runs on its model
-row (`lm.lm_loss` with `tensor_parallel.row_runtime`): each member
-computes its shard of every layer on its own stream from slices cut
-from the whole params by differentiable operations, the cross-entropy is
+row (`lm.lm_loss` or `encdec.encdec_loss` with
+`tensor_parallel.row_runtime`): each member computes its shard of every
+layer (the encoder's too) on its own stream from slices cut from the
+whole params by differentiable operations, the cross-entropy is
 vocab-parallel, and the backward runs through the same row hand-offs
 back to the whole params. A config that does not split over m (heads,
-GQA groups or hidden units), and any enc-dec model (seamless: its
-tensor-parallel training is ROADMAP Queue 1 item 3), trains with rows
-of one member: the data-parallel step alone, whose bits a (d, 1) mesh
-gives too. `step_fn.model_row` is the row's size and
+GQA groups or hidden units) trains with rows of one member: the
+data-parallel step alone, whose bits a (d, 1) mesh gives too.
+`step_fn.model_row` is the row's size and
 `step_fn.model_row_note` says why it is one member where the axis has
 more (None otherwise). The gradients
 are summed over replicas in replica order on the mesh's first device,

@@ -22,7 +22,7 @@ params after each step within PARAM_ATOL of the JAX mesh step's (also with
 `accum_steps=2`, with `compress_grads` and with a batch the data axis does
 not divide); a mesh with one batch replica within PARAM_ATOL of the port's
 unsharded step, and bit-equal to it where its model rows are one member
-((1, 1), a config that does not split over `model`, enc-dec); meshes that
+((1, 1), a config that does not split over `model`); meshes that
 differ only in `model` within PARAM_ATOL of each other, and bit-equal
 where both have rows of one member; two runs bit-equal. Granite runs
 with `moe_use_kernel=False`: the JAX package's Pallas expert kernel has
@@ -447,10 +447,11 @@ def test_meshes_and_runtimes():
 
 #: the model rows of the bit-equality tests' meshes: reduced granite's 2
 #: KV heads do not split over 4 members (a row of one), rwkv6's 4 heads
-#: do; seamless trains data-parallel (rows of one) on every mesh
+#: do, and so do reduced seamless's 4 heads (encoder, self- and
+#: cross-attention) and 4 KV heads
 ROW_SIZES = {GRANITE: {(1, 4): 1, (2, 2): 2, (2, 4): 1},
              RWKV: {(1, 4): 4, (2, 2): 2, (2, 4): 4},
-             SEAMLESS: {(1, 4): 1, (2, 2): 1, (2, 4): 1}}
+             SEAMLESS: {(1, 4): 4, (2, 2): 2, (2, 4): 4}}
 
 
 @pytest.mark.parametrize("arch", BIT_FAMILIES)

@@ -494,9 +494,8 @@ def test_enc_dec_on_an_lm_mesh_raises_naming_the_roadmap_item():
     """Enc-dec serving on an LM mesh no longer raises: the steps build and
     run on (1, 2) (held against the JAX mesh in
     `tests/test_torch_tp_encdec.py`), and the unsharded steps are the
-    enc-dec functions as before. What still names the roadmap item is
-    training: seamless trains on rows of one member, and the reason names
-    ROADMAP Queue 1 item 3."""
+    enc-dec functions as before. Seamless trains on rows of the `model`
+    axis' size (`tests/test_torch_tp_encdec_train.py`)."""
     from repro_torch.models import encdec
     from repro_torch.models.init import init_params
 
@@ -521,8 +520,7 @@ def test_enc_dec_on_an_lm_mesh_raises_naming_the_roadmap_item():
     assert _same(build_prefill_step(cfg, None)(params, frames, prompt), want)
     assert _same(build_decode_step(cfg, None)(params, nxt, *want[1:]),
                  want_step)
-    m, why = tp.train_row_size(cfg, rt.lm_mesh)
-    assert m == 1 and "ROADMAP Queue 1 item 3" in why
+    assert tp.train_row_size(cfg, rt.lm_mesh) == (2, None)
 
 
 def test_the_member_heads_and_states_of_a_cache_assemble_whole():
