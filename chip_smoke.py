@@ -135,7 +135,18 @@ beside unsharded: (1, 1) bit-equal, the loss and the gradient tree within
 TPT_LIMITS["seamless"], a dropped-partial control beyond them, member 0's
 last decoder `flash_attn` call held against its plain version and timed
 beside SDPA, and 4 + 4 float32 layers in one `build_train_step` step on
-(1, 4) and (2, 2) within TPT_F32_LIMIT.
+(1, 4) and (2, 2) within TPT_F32_LIMIT. Phase 28 holds the dry run
+(`launch/dryrun.py`: the port's own layout and steps on the meta device)
+against the card, at full width: phases 24 (a), 26 and 27 (d) record the
+bytes they place at each mesh position (seamless's param and AdamW
+blocks on (2, 2) and (1, 4); granite's `TPLayout` member slices and the
+`TPCache` of its prompt on (1, 4)) and the peak of seamless's
+value-and-grad on (1, 4) and (1, 1); the dry run of the same cells must
+place the same bytes at every position, to the byte, and predict that
+peak within DRYRUN_RATIO; and the dry-run CLI runs once at full size on
+256 logical meta devices (DRYRUN_CLI). The predictions and the CLI run in
+processes started ahead of phase 27 (`_dryrun_ahead`), and phase 28
+reads them.
 Phases 4-7 pin `planner="threshold"`. The launcher processes that phases
 20, 21 (e), 23 and 24 (c)-(d) check run ahead of phase 20, while nothing
 else runs, in two rounds of five processes started together
@@ -567,6 +578,21 @@ TPT_F32_LIMITS = {
 #: with T; float64 holds the arithmetic at any T: 2.950e-6 at 256 tokens
 #: in `tools/tp_train_conditioning.py`, 4.732e-6 at 64 here)
 TPT_F64_TOKENS = 64
+#: phase 28: the dry run against the card. The dry run's prediction of
+#: 27 (d)'s value-and-grad peak (the most bytes live at once over the
+#: mesh: logical devices share the card, which measures the sum) must lie
+#: within this band of the card's peak less the bytes resident before.
+DRYRUN_RATIO = (0.8, 1.25)
+#: 24 (a)'s and 27 (d)'s meshes that phase 28 dry-runs
+DRYRUN_TRAIN_MESHES = ((2, 2), (1, 4))
+DRYRUN_VG_MESHES = ((1, 4), (1, 1))
+#: the CLI's run at full size on the (16, 16) production mesh: granite's
+#: 24 heads (and 8 KV heads) do not split over 16 members of a model row,
+#: so the port cannot lay its serving cells out there: the CLI records
+#: the error and exits 1, as it must for such a cell (nothing is padded)
+DRYRUN_CLI = ("--arch", LM_ARCH, "--shape", "decode_32k", "--mesh",
+              "single")
+DRYRUN_CLI_ERROR = "n_heads=24 does not split evenly over 16 members"
 #: the backward rules' `torch.autograd.Function`s whose forward inputs a
 #: card training step captures (both edge-list rules share one class, as
 #: both packed-CSR rules do)
@@ -1087,6 +1113,10 @@ def main() -> int:
             "held_at_shard_shapes"][name]
     phase("26 tensor-parallel serving")
 
+    # ---- phase 28's dry runs on the meta device, in processes of their
+    # own while the card runs phase 27 (device-bound where it starts)
+    ahead = _dryrun_ahead()
+
     # ---- phase 27: tensor-parallel training ---------------------------
     torch.cuda.empty_cache()
     report["tp_train"], counts = tp_train_phase(dev, smi, reset_counts,
@@ -1095,6 +1125,11 @@ def main() -> int:
         served[name] += n
         kernels[name]["tp_train_phase_launches"] = n
     phase("27 tensor-parallel training")
+
+    # ---- phase 28: the dry run against the card ------------------------
+    torch.cuda.empty_cache()
+    report["dryrun"] = dryrun_phase(dev, smi, report, ahead)
+    phase("28 the dry run against the card")
     report["phase_s"] = phase.seconds
 
     for name, k in kernels.items():
@@ -1866,6 +1901,7 @@ def _mesh_seamless(dev, smi) -> dict:
     dropped-replica control."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import batch_for_step
+    from repro_torch.launch import step_analysis
     from repro_torch.models.init import init_params
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.train.step import build_train_step
@@ -1887,6 +1923,8 @@ def _mesh_seamless(dev, smi) -> dict:
         torch.cuda.reset_peak_memory_stats()
         params = _placed(init, rt)
         opt_state = adamw_init(params, cfg.opt_state_dtype)
+        placed = (None if rt.mesh is None else step_analysis.placed_bytes(
+            [params, opt_state], rt.mesh.size))
         step = build_train_step(cfg, rt)
         step_ms, losses, norms = [], [], []
         for i, batch in enumerate(dropped if control else batches):
@@ -1911,7 +1949,7 @@ def _mesh_seamless(dev, smi) -> dict:
                "grad_norm": norms}
         del params, opt_state
         run = {"step_ms": step_ms, "losses": losses, "grad_norms": norms,
-               "model_row": step.model_row}
+               "model_row": step.model_row, "placed_bytes": placed}
         if ref is None:
             ref = out
         else:
@@ -2592,6 +2630,7 @@ def _tp_lm(tag, cfg, params, prompt, long, captures, plains, smi,
     TP_CONTROL_MESH. Returns (report, launches, captured arguments, the
     unsharded run's greedy tokens)."""
     from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch import step_analysis
     from repro_torch.params import tree_leaves
     from repro_torch.serve.step import build_prefill_step, greedy_generate
 
@@ -2689,6 +2728,15 @@ def _tp_lm(tag, cfg, params, prompt, long, captures, plains, smi,
             dist[shape] = max(steps + ([run["long_rel_l2"]] if long
                                        is not None else []))
         if shape == TP_CONTROL_MESH:
+            # what the layout and the prompt's cache hold at each position
+            # (phase 28 holds the dry run to it)
+            cache = build_prefill_step(cfg, rt)(layout, prompt)[1]
+            run["placed_bytes"] = {
+                "params": step_analysis.placed_bytes(layout,
+                                                     layout.mesh.size),
+                "cache": step_analysis.placed_bytes(cache,
+                                                    layout.mesh.size)}
+            del cache
             with _tp_control(n_layers):
                 ctrl, _ = _tp_forced(layout, cfg, rt, prompt, ref_toks)
             control = max(_tp_rel(a, b, v) for a, b in zip(ctrl, ref_logits))
@@ -4012,6 +4060,255 @@ def tp_train_phase(dev, smi, reset_counts, read_counts) -> tuple[dict, dict]:
         clock(title)
     rep["launches"], rep["seconds"] = launches, clock.seconds
     return rep, {k: n for k, n in launches.items() if n}
+
+
+# -------------------------------------- phase 28: the dry run on the card
+
+
+def _meta_mesh(shape):
+    """A (data, model) test mesh of logical meta devices."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_test_mesh
+
+    with sharding.logical_devices(shape[0] * shape[1], "meta"):
+        return make_test_mesh(*shape, device="meta")
+
+
+def _vg_batch(cfg, b: int, device) -> dict:
+    """27 (d)'s batch shapes and dtypes (`_tpt_ed_batch`: float32 frames,
+    int32 tokens) as empty tensors on `device`."""
+    return {"frames": torch.empty((b, ENCDEC_FRAMES, cfg.d_model),
+                                  dtype=torch.float32, device=device),
+            "tokens": torch.empty((b, TPT_TOKENS), dtype=torch.int32,
+                                  device=device)}
+
+
+def dryrun_predictions() -> dict:
+    """Phase 28's predictions, made on the meta device at full width (no
+    card needed): the bytes that 24 (a)'s seamless cell places at each
+    position of DRYRUN_TRAIN_MESHES (`dryrun.build_cell`: param blocks
+    and AdamW state), that 26's granite serving cell places on
+    TP_CONTROL_MESH (the `TPLayout` and the `TPCache` at LM_BATCH x
+    LM_PROMPT), and 27 (d)'s value-and-grad on DRYRUN_VG_MESHES
+    (`step_analysis.analyze`: its peak of live bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch import dryrun, step_analysis
+    from repro_torch.models.init import init_params
+    from repro_torch.train.step import _mesh_value_and_grad
+
+    t0 = time.perf_counter()
+    out = {"seamless_train": {}, "granite_serve": {}, "seamless_vg": {}}
+    cfg = get_config(SEAMLESS_ARCH)
+    for shape in DRYRUN_TRAIN_MESHES:
+        mesh = _meta_mesh(shape)
+        _, held, _ = dryrun.build_cell(
+            SEAMLESS_ARCH, {"kind": "train", "seq_len": ENCDEC_FRAMES,
+                            "global_batch": ENCDEC_TRAIN_BATCH}, mesh)
+        out["seamless_train"][str(shape)] = step_analysis.placed_bytes(
+            [held["params"], held["opt_state"]], mesh.size)
+    granite = get_config(LM_ARCH).with_(moe_use_kernel=True)
+    mesh = _meta_mesh(TP_CONTROL_MESH)
+    _, held, _ = dryrun.build_cell(
+        LM_ARCH, {"kind": "decode", "seq_len": LM_PROMPT,
+                  "global_batch": LM_BATCH}, mesh, cfg=granite)
+    out["granite_serve"][str(TP_CONTROL_MESH)] = {
+        k: step_analysis.placed_bytes(held[k], mesh.size)
+        for k in ("params", "cache")}
+    del held
+    params = init_params(torch.Generator(), cfg, device="meta")
+    for shape in DRYRUN_VG_MESHES:
+        mesh = _meta_mesh(shape)
+        rt = sharding.make_runtime(mesh)
+        batch = _vg_batch(cfg, shape[0], "meta")
+        got = step_analysis.analyze(lambda: _mesh_value_and_grad(
+            params, cfg, batch, mesh, rt.batch_axes,
+            tp.train_row_size(cfg, mesh)[0]), mesh.size)
+        out["seamless_vg"][str(shape)] = {
+            k: got[k] for k in ("peak_bytes", "peak_bytes_by_position",
+                                "unattributed_peak_bytes", "flops",
+                                "handoff_bytes", "seconds")}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _dryrun_predictions_main(path: str) -> int:
+    """`python chip_smoke.py --dryrun-predictions PATH`: the predictions
+    as JSON at PATH."""
+    sys.path.insert(0, str(ROOT / "src"))
+    Path(path).write_text(json.dumps(dryrun_predictions()))
+    return 0
+
+
+#: processes started ahead (`_dryrun_ahead`), stopped at exit if still up
+_DRYRUN_PROCS: list = []
+
+
+def _stop_ahead() -> None:
+    for proc in _DRYRUN_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def _dryrun_ahead() -> dict:
+    """Start phase 28's two processes: the predictions
+    (`--dryrun-predictions`) and the dry-run CLI on DRYRUN_CLI, each
+    writing under chiprun_out/."""
+    import atexit
+
+    out = ROOT / "chiprun_out" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    started = {"t0": time.perf_counter(), "out": out}
+    started["predict"] = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-predictions",
+         str(out / "predictions.json")], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    started["cli"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CLI,
+         "--out", str(out / "cli")], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if not _DRYRUN_PROCS:
+        atexit.register(_stop_ahead)
+    _DRYRUN_PROCS.extend((started["predict"], started["cli"]))
+    return started
+
+
+def dryrun_measurements(dev, smi) -> dict:
+    """What phases 24 (a), 26 and 27 (d) record for phase 28, measured
+    alone (for a caller that runs phase 28 by itself): the placed bytes of
+    seamless's params and AdamW state on DRYRUN_TRAIN_MESHES, of granite's
+    layout and prompt cache on TP_CONTROL_MESH, and the peak of seamless's
+    value-and-grad on DRYRUN_VG_MESHES after an unsharded warm-up."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_for_step
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import build
+    from repro_torch.launch import step_analysis
+    from repro_torch.models.init import init_params
+    from repro_torch.serve.step import build_prefill_step
+    from repro_torch.train.optimizer import adamw_init
+
+    build.build_all()
+    cfg = get_config(SEAMLESS_ARCH)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    runs = {}
+    for shape in DRYRUN_TRAIN_MESHES:
+        rt = _mesh_runtime(shape, "cuda:0")
+        placed = _placed(params, rt)
+        opt_state = adamw_init(placed, cfg.opt_state_dtype)
+        runs["x".join(map(str, shape))] = {"placed_bytes": (
+            step_analysis.placed_bytes([placed, opt_state], rt.mesh.size))}
+        del placed, opt_state
+    seamless_tp = {}
+    batch = _tpt_ed_batch(cfg, 1, dev)
+    _tpt_grads(params, cfg, batch, None)                 # warm-up
+    for shape in DRYRUN_VG_MESHES:
+        rt, _ = _tp_runtime(shape)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = _tpt_grads(params, cfg, batch, rt)
+        seamless_tp[str(shape)] = {
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "resident_bytes_before": base}
+        del out
+    del params, batch
+    torch.cuda.empty_cache()
+    granite = get_config(LM_ARCH).with_(moe_use_kernel=True)
+    params = init_params(torch.Generator().manual_seed(0), granite,
+                         device=dev)
+    prompt = torch.from_numpy(batch_for_step(
+        granite, 0, global_batch=LM_BATCH, seq_len=LM_PROMPT,
+        seed=17)["tokens"]).to(dev)
+    rt, _ = _tp_runtime(TP_CONTROL_MESH)
+    layout = tp.tp_layout(params, granite, rt)
+    cache = build_prefill_step(granite, rt)(layout, prompt)[1]
+    n = layout.mesh.size
+    granite_tp = {str(TP_CONTROL_MESH): {"placed_bytes": {
+        "params": step_analysis.placed_bytes(layout, n),
+        "cache": step_analysis.placed_bytes(cache, n)}}}
+    del params, layout, cache
+    torch.cuda.empty_cache()
+    return {"lm_mesh": {"seamless": {"runs": runs}},
+            "tensor_parallel": {"granite": granite_tp},
+            "tp_train": {"seamless": seamless_tp}}
+
+
+def dryrun_phase(dev, smi, report=None, ahead=None) -> dict:
+    """Phase 28: the dry run against the card (module docstring).
+    `report` holds what phases 24 (a), 26 and 27 (d) recorded (measured
+    here by `dryrun_measurements` when None); `ahead` the processes of
+    `_dryrun_ahead` (started here when None). Raises on a failed check."""
+    if report is None:
+        report = dryrun_measurements(dev, smi)
+    if ahead is None:
+        ahead = _dryrun_ahead()
+    out, cli = ahead["out"], ahead["cli"]
+    said, _ = ahead["predict"].communicate(timeout=1200)
+    assert ahead["predict"].returncode == 0, said[-4000:]
+    pred = json.loads((out / "predictions.json").read_text())
+    cli_said, _ = cli.communicate(timeout=600)
+    waited = time.perf_counter() - ahead["t0"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    rep = {"card": smi, "total_memory": total,
+           "predictions_s": pred["seconds"], "ahead_s": waited}
+    print(f"dry run [{smi}]: the card's total_memory {total} bytes; the "
+          f"predictions took {pred['seconds']:.1f} s on the host, in a "
+          f"process started {waited:.1f} s before this phase read them")
+    runs = report["lm_mesh"]["seamless"]["runs"]
+    for shape in DRYRUN_TRAIN_MESHES:
+        got = runs["x".join(map(str, shape))]["placed_bytes"]
+        want = pred["seamless_train"][str(shape)]
+        rep[f"seamless_train {shape}"] = {"placed": got, "dry_run": want}
+        print(f"  24 (a) seamless on {shape}: params + AdamW bytes per "
+              f"position placed {got}, dry run {want}: "
+              f"{'equal' if got == want else 'DIFFER'}")
+        assert got == want, (shape, got, want)
+    got = report["tensor_parallel"]["granite"][str(TP_CONTROL_MESH)][
+        "placed_bytes"]
+    want = pred["granite_serve"][str(TP_CONTROL_MESH)]
+    rep["granite_serve"] = {"placed": got, "dry_run": want}
+    print(f"  26 granite on {TP_CONTROL_MESH}: TPLayout bytes per position "
+          f"placed {got['params']}, dry run {want['params']}; TPCache "
+          f"({LM_BATCH} x {LM_PROMPT}) placed {got['cache']}, dry run "
+          f"{want['cache']}: {'equal' if got == want else 'DIFFER'}")
+    assert got == want, (got, want)
+    lo, hi = DRYRUN_RATIO
+    for shape in DRYRUN_VG_MESHES:
+        card = report["tp_train"]["seamless"][str(shape)]
+        measured = card["peak_bytes"] - card["resident_bytes_before"]
+        p = pred["seamless_vg"][str(shape)]
+        ratio = measured / p["peak_bytes"]
+        rep[f"seamless_vg {shape}"] = dict(p, measured_bytes=measured,
+                                           ratio=ratio)
+        print(f"  27 (d) seamless value_and_grad on {shape} [{smi}]: card "
+              f"peak less resident {measured} bytes "
+              f"({measured / 2**30:.3f} GiB), dry run {p['peak_bytes']} "
+              f"({p['peak_bytes'] / 2**30:.3f} GiB; per position "
+              f"{p['peak_bytes_by_position']}, unattributed "
+              f"{p['unattributed_peak_bytes']}; {p['flops']:.4e} matmul "
+              f"FLOPs, {p['handoff_bytes']} hand-off bytes; "
+              f"{p['seconds']:.1f} s on meta): measured / predicted "
+              f"{ratio:.4f} (band {lo}-{hi})")
+        assert lo <= ratio <= hi, (shape, measured, p["peak_bytes"])
+    name = "__".join(DRYRUN_CLI[1::2])
+    rec = json.loads((out / "cli" / f"{name}.json").read_text())
+    rep["cli"] = {"returncode": cli.returncode, "record": rec}
+    print(f"  CLI `python -m repro_torch.launch.dryrun "
+          f"{' '.join(DRYRUN_CLI)}` (256 logical meta devices, full size): "
+          f"exit {cli.returncode}; record: n_devices {rec.get('n_devices')},"
+          f" mesh {rec.get('mesh_shape')}, params_total "
+          f"{rec.get('params_total')}, error {rec.get('error')}")
+    assert cli.returncode == 1, cli_said[-4000:]
+    assert DRYRUN_CLI_ERROR in rec["error"], rec
+    assert rec["n_devices"] == 256 and rec["mesh_shape"] == [16, 16]
+    assert rec["arch"] == LM_ARCH and rec["kind"] == "decode"
+    assert rec["params_total"] > 0 and rec["skipped"] is False
+    return rep
 
 
 def record(name, worst, ms, ms_source, call_ms, plain_ms, label, flops,
@@ -7562,4 +7859,6 @@ def out_bytes(name, arrays) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-predictions"]:
+        sys.exit(_dryrun_predictions_main(sys.argv[2]))
     sys.exit(main())

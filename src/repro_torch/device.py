@@ -8,7 +8,10 @@ Here the rule is by tensor placement, never by fallback:
     (`"cuda"`); without CUDA they raise unless the caller asked for
     `device="cpu"` explicitly — they never drop silently to the CPU;
   * a kernel wrapper launches its CUDA kernel on CUDA tensors and runs its
-    plain PyTorch version only on CPU tensors (`on_cuda`).
+    plain PyTorch version only on CPU tensors (`on_cuda`), or on meta
+    tensors, where it only propagates shapes and dtypes: the dry run
+    (`launch/dryrun.py`) asks for `device="meta"` explicitly, as the
+    tests ask for the CPU, and meta holds no data for a kernel to read.
 
 TF32 is switched off for the whole process on import. The f32 parity bound
 the port is held to (1e-6 on post-sigmoid scores, `tests/
@@ -45,10 +48,10 @@ def resolve_device(device=None) -> torch.device:
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on a CUDA device, False when all lie on
-    the CPU; mixed placement is a caller error."""
+    the CPU or all on meta; mixed placement is a caller error."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
         return True
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     raise ValueError(f"tensors on mixed devices {sorted(kinds)}")

@@ -14,12 +14,19 @@ leaf as it is); `gather` / `gather_tree` put a whole tensor together on
 one device from one block of each distinct index (a replica's copies are
 read once). `tree_shardings` is the sharding of each leaf (None for a
 whole tensor), the layout a restore or a reshard lands on.
+
+Both count their hand-offs in an open `sharding.handoffs()` block: a
+gather for mesh position p (default 0) the distinct blocks it reads from
+other positions (a gather onto a device named without a position, such
+as the host, reads every one from elsewhere); a shard from position 0
+every block it writes at another position.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import sharding as _sharding
 from repro_torch.distributed.sharding import NamedSharding
 from repro_torch.params import tree_leaves, tree_map
 
@@ -55,13 +62,24 @@ class ShardedTensor:
         """The same layout over new blocks (e.g. an update's outputs)."""
         return ShardedTensor(blocks, self.sharding, self.shape)
 
-    def gather(self, device=None) -> torch.Tensor:
-        """The whole tensor on `device` (default: position 0's)."""
-        device = self.device if device is None else torch.device(device)
+    def gather(self, device=None, position: int | None = None
+               ) -> torch.Tensor:
+        """The whole tensor on `device` (default: that of mesh `position`,
+        default 0); `position` names the mesh position it is for."""
+        if device is None:
+            position = 0 if position is None else position
+            device = self.blocks[position].device
+        device = torch.device(device)
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
         indices = self.sharding.indices(self.shape)
-        for i in self.sharding.distinct(self.shape):
+        distinct = self.sharding.distinct(self.shape)
+        for i in distinct:
             out[indices[i]].copy_(self.blocks[i])
+        if _sharding.handoffs_open():
+            far = [i for i in distinct if i != position]
+            _sharding.note_handoff("gather", sum(
+                _sharding.tensor_bytes(self.blocks[i]) for i in far),
+                len(far))
         return out
 
     def __repr__(self) -> str:
@@ -70,10 +88,13 @@ class ShardedTensor:
                 f"{self.sharding.mesh.axis_sizes})")
 
 
-def shard(x, sharding: NamedSharding | None, dtype=None):
+def shard(x, sharding: NamedSharding | None, dtype=None, *,
+          kind: str = "shard"):
     """`x` (a tensor, an array or a ShardedTensor) laid out on `sharding`:
     one block copy per mesh position, each on its device. A None
-    sharding gives a whole tensor on `x`'s device. `dtype` casts."""
+    sharding gives a whole tensor on `x`'s device. `dtype` casts. The
+    blocks written at positions other than 0 count as hand-offs of
+    `kind` (module docstring)."""
     if isinstance(x, ShardedTensor):
         x = x.gather()
     x = torch.as_tensor(x)
@@ -87,33 +108,39 @@ def shard(x, sharding: NamedSharding | None, dtype=None):
         part = x[sl]
         blocks.append(torch.empty(part.shape, dtype=part.dtype,
                                   device=dev).copy_(part))
+    if _sharding.handoffs_open():
+        _sharding.note_handoff(kind, sum(_sharding.tensor_bytes(b)
+                                         for b in blocks[1:]),
+                               len(blocks) - 1)
     return ShardedTensor(blocks, sharding, x.shape)
 
 
-def gather(x, device=None) -> torch.Tensor:
+def gather(x, device=None, position: int | None = None) -> torch.Tensor:
     """A whole tensor from a leaf: a ShardedTensor's blocks put together
-    on `device` (default: its position 0's), a tensor moved there."""
+    on `device` (default: that of mesh `position`, default 0), a tensor
+    moved there."""
     if isinstance(x, ShardedTensor):
-        return x.gather(device)
+        return x.gather(device, position)
     return x if device is None else x.to(device)
 
 
-def shard_tree(tree, shardings):
+def shard_tree(tree, shardings, *, kind: str = "shard"):
     """Every leaf of `tree` laid out on its entry of `shardings` (a tree
-    of the same structure); None entries leave their leaf as it is."""
+    of the same structure); None entries leave their leaf as it is.
+    Hand-offs count as `kind`."""
     it = iter(tree_leaves(shardings))
 
     def leaf(x):
         s = next(it)
-        return x if s is None else shard(x, s)
+        return x if s is None else shard(x, s, kind=kind)
 
     return tree_map(leaf, tree)
 
 
-def gather_tree(tree, device=None):
-    """Every leaf as a whole tensor on `device` (default: each leaf's
-    own position-0 device)."""
-    return tree_map(lambda x: gather(x, device), tree)
+def gather_tree(tree, device=None, position: int | None = None):
+    """Every leaf as a whole tensor on `device` (default: that of mesh
+    `position`, default 0, of each leaf)."""
+    return tree_map(lambda x: gather(x, device, position), tree)
 
 
 def tree_shardings(tree):

@@ -52,6 +52,37 @@ caller's stream waits for all of them once every member is launched.
 `Runtime` carries either mesh: a tile mesh into `ScoringEngine(runtime=
 ...)` and the search server, an LM mesh (with its `batch_axes` and
 `tp_axis`) into `train.step.build_train_step` and the serving steps.
+
+Hand-offs. `handoffs()` opens a `with` block that collects every
+hand-off between mesh positions at the port's hand-off points, by kind:
+{kind: {"bytes": n, "count": n}} (the dry run's counterpart of the JAX
+package's collective bytes, `launch/step_analysis.py`). The points call
+`note_handoff`; with no block open nothing is counted and the points do
+no accounting work (`handoffs_open()`). The kinds:
+  gather          — `placement.gather`: each distinct block read from a
+                    position other than the destination's;
+  shard           — `placement.shard`: each block written to a position
+                    other than the source's (position 0);
+  constrain_grads — the same for `train.step.constrain_grads`;
+  grad_sum        — `train.step._mean_over_replicas`: each replica's
+                    gradient but the first's, to the first device;
+  param_cut       — `tensor_parallel.tp_layout` and the training row's
+                    `member_params`: each member's slice for a position
+                    other than the one holding the whole params;
+  row_sum, row_gather — `tensor_parallel.row_sum` / `row_gather`: the
+                    m - 1 partials or parts to the row's first member and,
+                    unless the result stays there, the result to the m - 1
+                    others;
+  row_sum.backward, row_gather.backward, param_cut.backward — the same
+                    bytes again when autograd runs the hand-off backward.
+Each count is the hand-offs of one call, so a hand-off of B bytes to m - 1
+members counts B (m - 1) bytes and m - 1 hand-offs.
+
+Positions. `at_position(p)` names the mesh position whose work runs in
+its `with` block (`StreamFan.member` with a position and `Row.map` open
+one); `current_position()` reads it. The storage tracker of the dry run
+attributes what is made inside to that position; with no tracker open
+(`track_positions`) the blocks do nothing.
 """
 
 from __future__ import annotations
@@ -71,6 +102,81 @@ TILE_AXIS = "tile"
 
 #: (physical device, count) of the armed logical devices, or None.
 _LOGICAL: tuple[torch.device, int] | None = None
+
+#: the totals `handoffs()` collects into, or None
+_HANDOFFS: dict | None = None
+
+#: the stack of `at_position` blocks, or None while no tracker listens
+_POSITIONS: list | None = None
+
+
+@contextmanager
+def handoffs():
+    """Collect the hand-offs of the `with` block into the dict it yields,
+    {kind: {"bytes": n, "count": n}} (module docstring); an enclosing
+    block gets them too when this one ends."""
+    global _HANDOFFS
+    before, _HANDOFFS = _HANDOFFS, {}
+    try:
+        yield _HANDOFFS
+    finally:
+        if before is not None:
+            for kind, v in _HANDOFFS.items():
+                into = before.setdefault(kind, {"bytes": 0, "count": 0})
+                into["bytes"] += v["bytes"]
+                into["count"] += v["count"]
+        _HANDOFFS = before
+
+
+def handoffs_open() -> bool:
+    """True inside a `handoffs()` block: the hand-off points count."""
+    return _HANDOFFS is not None
+
+
+def note_handoff(kind: str, nbytes: int, count: int = 1) -> None:
+    """Add `count` hand-offs of `nbytes` bytes in all to `kind` of the
+    open `handoffs()` block (nothing when none is open)."""
+    if _HANDOFFS is None or count == 0:
+        return
+    into = _HANDOFFS.setdefault(kind, {"bytes": 0, "count": 0})
+    into["bytes"] += int(nbytes)
+    into["count"] += int(count)
+
+
+def tensor_bytes(t) -> int:
+    """The bytes of a tensor's elements."""
+    return t.numel() * t.element_size()
+
+
+@contextmanager
+def track_positions():
+    """Keep the `at_position` stack for the `with` block (the dry run's
+    storage tracker reads it)."""
+    global _POSITIONS
+    before, _POSITIONS = _POSITIONS, []
+    try:
+        yield
+    finally:
+        _POSITIONS = before
+
+
+@contextmanager
+def at_position(position: int | None):
+    """The work of the `with` block runs for mesh `position` (None: not
+    named); a no-op unless `track_positions` is open."""
+    if _POSITIONS is None or position is None:
+        yield
+        return
+    _POSITIONS.append(position)
+    try:
+        yield
+    finally:
+        _POSITIONS.pop()
+
+
+def current_position() -> int | None:
+    """The innermost `at_position` of a tracked block, or None."""
+    return _POSITIONS[-1] if _POSITIONS else None
 
 
 def force_logical_device_count(n: int, device="cpu") -> int:
@@ -166,7 +272,8 @@ class StreamFan:
 
     `with fan.member(stream) as (reads, out):` runs its block on `stream`
     (None: on the caller's stream, as on the CPU) after that stream has
-    waited for the caller's. The block adds to `reads` the tensors made
+    waited for the caller's (`position`: the mesh position it runs for,
+    `at_position`). The block adds to `reads` the tensors made
     on the caller's stream that it reads (recorded on `stream` when the
     block ends) and to `out` what it makes for the caller. `join()` makes
     each caller's stream wait for every member's stream and records each
@@ -179,15 +286,16 @@ class StreamFan:
         self._launched: list = []
 
     @contextmanager
-    def member(self, stream):
+    def member(self, stream, position: int | None = None):
         reads: list = []
         out: list = []
         if stream is None:
-            yield reads, out
+            with at_position(position):
+                yield reads, out
             return
         caller = torch.cuda.current_stream(stream.device)
         stream.wait_stream(caller)
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), at_position(position):
             yield reads, out
         for t in reads:
             t.record_stream(stream)
@@ -290,12 +398,14 @@ class LMMesh:
     """A mesh of named axes: `devices[i]` and `streams[i]` are the member
     at row-major position i of `axis_sizes` (streams None on the CPU).
     `logical` is True when the members are logical devices over one
-    physical device."""
+    physical device. `origin`, for a mesh cut from another (a training
+    model row), is each member's position in that mesh."""
     axis_names: tuple
     axis_sizes: tuple
     devices: tuple
     streams: tuple
     logical: bool = False
+    origin: tuple | None = None
 
     @property
     def shape(self) -> dict:
@@ -313,6 +423,11 @@ class LMMesh:
             out[name] = i % n
             i //= n
         return {name: out[name] for name in self.axis_names}
+
+    def root(self, i: int) -> int:
+        """Position i's position in the mesh this one was cut from (i
+        itself when it was cut from none)."""
+        return i if self.origin is None else self.origin[i]
 
     def position(self, coords: dict) -> int:
         """The row-major position of {axis name: coordinate} (0 for an

@@ -103,8 +103,10 @@ import torch
 from repro_torch.distributed import placement
 from repro_torch.distributed.pipeline import _cross, _done
 from repro_torch.distributed.sharding import (LMMesh, Runtime, _axes,
-                                             map_with_path, param_spec,
-                                             replica_positions)
+                                             at_position, handoffs_open,
+                                             map_with_path, note_handoff,
+                                             param_spec, replica_positions,
+                                             tensor_bytes)
 from repro_torch.params import tree_leaves, tree_map
 
 #: the axis that the param rules name for tensor parallelism
@@ -243,13 +245,15 @@ def row_positions(mesh: LMMesh, position: int, m: int) -> tuple:
 
 def row_runtime(mesh: LMMesh, positions) -> Runtime:
     """A runtime whose mesh is the one model row at mesh `positions`
-    (a `("model",)` mesh of those members, one replica): what the train
-    step hands each replica's loss."""
+    (a `("model",)` mesh of those members, one replica, its `origin` the
+    members' positions): what the train step hands each replica's
+    loss."""
     pos = tuple(positions)
     return Runtime(mesh=LMMesh((RULE_AXIS,), (len(pos),),
                                tuple(mesh.devices[p] for p in pos),
                                tuple(mesh.streams[p] for p in pos),
-                               mesh.logical),
+                               mesh.logical,
+                               tuple(mesh.root(p) for p in pos)),
                    batch_axes=())
 
 
@@ -273,6 +277,10 @@ def tp_layout(params, cfg, rt: Runtime) -> TPLayout:
         if (k, dev) not in made:
             made[(k, dev)] = member_params(whole, k, m, dev)
         members.append(made[(k, dev)])
+        if i and handoffs_open():       # the whole params sit at position 0
+            leaves = tree_leaves(members[-1])
+            note_handoff("param_cut", sum(map(tensor_bytes, leaves)),
+                         len(leaves))
     return TPLayout(cfg.name, mesh,
                     tuple(a for a in rt.batch_axes if a in mesh.shape),
                     tuple(members))
@@ -317,6 +325,7 @@ class Row:
 
     def __init__(self, mesh: LMMesh, positions, caller_device):
         self.positions = tuple(positions)
+        self.roots = tuple(mesh.root(p) for p in self.positions)
         self.devices = [mesh.devices[p] for p in self.positions]
         self.streams = [mesh.streams[p] for p in self.positions]
         self.device = torch.device(caller_device)
@@ -344,10 +353,11 @@ class Row:
 
     def map(self, fn, *per_member) -> list:
         """[fn(k, a[k], b[k], ...) for every member k], each call on
-        member k's stream."""
+        member k's stream and for its position (`sharding.at_position`,
+        the position in the mesh a training row was cut from)."""
         out = []
         for k, st in enumerate(self.streams):
-            with torch.cuda.stream(st):
+            with torch.cuda.stream(st), at_position(self.roots[k]):
                 out.append(fn(k, *(a[k] for a in per_member)))
         return out
 
@@ -401,6 +411,23 @@ def wait_for_mesh(mesh: LMMesh, tensors=()) -> None:
             t.record_stream(now)
 
 
+def _count(kind: str, row: Row, ins, out, spread: bool) -> None:
+    """Count a row hand-off of `kind` (`sharding.handoffs`): the parts
+    `ins` of members 1.. to the first member, and with `spread` the
+    result `out` to the others; the same bytes again, as
+    "<kind>.backward", when autograd takes the gradient of `out` back
+    through them."""
+    nbytes = sum(map(tensor_bytes, ins[1:]))
+    count = len(ins) - 1
+    if spread:
+        nbytes += (row.size - 1) * tensor_bytes(out)
+        count += row.size - 1
+    note_handoff(kind, nbytes, count)
+    if out.requires_grad:
+        out.register_hook(
+            lambda g: note_handoff(kind + ".backward", nbytes, count))
+
+
 def row_sum(row: Row, partials) -> list:
     """The members' partial sums reduced: summed in float32 (float64
     partials in float64) in member order on the row's first member,
@@ -415,6 +442,8 @@ def row_sum(row: Row, partials) -> list:
         for t in parts[1:]:
             acc = acc + t.to(acc_dtype)
         out = acc.to(partials[0].dtype)
+    if handoffs_open():
+        _count("row_sum", row, partials, out, True)
     return row.spread(out)
 
 
@@ -425,10 +454,33 @@ def row_gather(row: Row, parts, dim: int, *, first_only: bool = False
     `first_only`). One member: its part, untouched."""
     if row.size == 1:
         return list(parts)
+    ins = parts
     parts = row._to_first(parts)
     with torch.cuda.stream(row.streams[0]):
         out = torch.cat(parts, dim)
+    if handoffs_open():
+        _count("row_gather", row, ins, out, not first_only)
     return [out] if first_only else row.spread(out)
+
+
+def row_params(row: Row, whole, m: int) -> list:
+    """Each member's slice of the `whole` params (on the row's first
+    member), cut by differentiable operations on its stream
+    (`member_params(..., grad=True)`). The slices of members 1.. count
+    as "param_cut" hand-offs, and their gradients, when autograd takes
+    them back, as "param_cut.backward"."""
+    trees = row.map(lambda k, dev: member_params(whole, k, m, dev,
+                                                 grad=True), row.devices)
+    if handoffs_open():
+        for tree in trees[1:]:
+            leaves = tree_leaves(tree)
+            note_handoff("param_cut", sum(map(tensor_bytes, leaves)),
+                         len(leaves))
+            for t in leaves:
+                if t.requires_grad:
+                    t.register_hook(lambda g: note_handoff(
+                        "param_cut.backward", tensor_bytes(g)))
+    return trees
 
 
 @dataclass

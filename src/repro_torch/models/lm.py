@@ -607,8 +607,7 @@ def _tp_train(params, cfg, rt, tokens, embeds, remat, head, encoder=None):
     m, _ = tp.train_row_size(cfg, mesh)
     whole = tree_map(placement.gather, params)
     row = tp.Row(mesh, tp.row_positions(mesh, firsts[0], m), tokens.device)
-    trees = row.map(lambda k, dev: tp.member_params(
-        whole, k, m, dev, grad=True), row.devices)
+    trees = tp.row_params(row, whole, m)
     with moe.route_stats() as seen:
         enc_out = None if encoder is None else encoder(row, trees)
         xs = _tp_embed(row, trees, cfg, row.put(tokens))

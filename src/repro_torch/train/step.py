@@ -60,7 +60,8 @@ from repro_torch.distributed import placement
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.compression import int8_compress_tree
 from repro_torch.distributed.sharding import (LMMesh, Runtime, StreamFan,
-                                             replica_positions)
+                                             handoffs_open, note_handoff,
+                                             replica_positions, tensor_bytes)
 from repro_torch.models import encdec, lm, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.params import tree_leaves, tree_map
@@ -160,8 +161,10 @@ def build_train_step(cfg: ModelConfig, rt: Runtime | None = None, *,
 def constrain_grads(grads, params):
     """Whole gradients laid out as their params are (the JAX step's
     `constrain_grads`): a sharded param's gradient is cut into the same
-    blocks, a whole param's stays whole."""
-    return placement.shard_tree(grads, placement.tree_shardings(params))
+    blocks, a whole param's stays whole (hand-offs of kind
+    "constrain_grads", `sharding.handoffs`)."""
+    return placement.shard_tree(grads, placement.tree_shardings(params),
+                                kind="constrain_grads")
 
 
 def _mesh_value_and_grad(params, cfg: ModelConfig, batch, mesh: LMMesh,
@@ -186,10 +189,10 @@ def _mesh_value_and_grad(params, cfg: ModelConfig, batch, mesh: LMMesh,
         part = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
         kw = {} if m == 1 else {
             "rt": tp.row_runtime(mesh, tp.row_positions(mesh, pos, m))}
-        with fan.member(mesh.streams[pos]) as (reads, out):
+        with fan.member(mesh.streams[pos], pos) as (reads, out):
             reads.extend(blocks + list(batch.values()))
             part = _on(part, dev)
-            whole = placement.gather_tree(params, dev)
+            whole = placement.gather_tree(params, dev, pos)
             if not is_moe:
                 loss, g = value_and_grad(whole, cfg, part, **kw)
                 grads.append(tree_leaves(g))
@@ -235,9 +238,13 @@ def _mesh_value_and_grad(params, cfg: ModelConfig, batch, mesh: LMMesh,
 def _mean_over_replicas(parts, device, scale: int) -> torch.Tensor:
     """The replicas' gradients of one leaf summed in replica order on
     `device` and divided by `scale`, in float32, back in the leaf's
-    dtype; one replica's come back as they are."""
+    dtype; one replica's come back as they are. Every replica's but the
+    first's is a hand-off of kind "grad_sum" (`sharding.handoffs`)."""
     if len(parts) == 1:
         return parts[0].to(device)
+    if handoffs_open():
+        note_handoff("grad_sum", sum(tensor_bytes(p) for p in parts[1:]),
+                     len(parts) - 1)
     acc = parts[0].to(device, torch.float32, copy=True)
     for p in parts[1:]:
         acc += p.to(device, torch.float32)
